@@ -1,0 +1,121 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.
+
+Every test is marked `requires_cuda` and skips where
+`torch.cuda.is_available()` is False.  The module imports no JAX, so it
+runs on the GPU machine too, without the JAX conftest:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+Problems are seeded numpy, float32, several replicas that differ, and span
+several 32x32 tiles so the per-tile partial sums are exercised.
+Tolerances: K1 forward rel 1e-5 and backward rel 1e-4 (f32, two summation
+orders); K2 at BP tol 1e-6, rel 1e-4.  Kernels must be bitwise repeatable.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from upside_md_torch.ops import bp_pairs as bp
+from upside_md_torch.ops import fused_pair as fp
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain on the card)")
+    return torch.device("cuda", 0)
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _sites(rng, n, spread):
+    d = rng.normal(size=(n, 3))
+    return np.concatenate([spread * rng.normal(size=(n, 3)),
+                           d / np.linalg.norm(d, axis=-1, keepdims=True)], 1)
+
+
+def fused_problem(rng, n_a=40, n_b=37, n_e=9, n2=70, ka=8, kc=7, kp=9,
+                  n_rep=3):
+    tabs = [0.3 * rng.normal(size=(A, 5, 2 * ka + 2 * k))
+            for A, k in ((2, kc), (3, kc), (5, kp))]
+    types1 = [rng.integers(0, 2, n_a), rng.integers(0, 3, n_b),
+              rng.integers(0, 3, n_e), rng.integers(0, 5, n2)]
+    types2 = [types1[3], types1[3], rng.integers(0, 4, n2), types1[3]]
+    res = rng.integers(0, 25, n2)
+    masks = [rng.random((n, n2)) > 0.2 for n in (n_a, n_b, n_e)]
+    masks.append((np.arange(n2)[:, None] < np.arange(n2)[None, :])
+                  & (res[:, None] != res[None, :]))
+    env = np.stack([rng.uniform(1.0, 4.0, (3, 4)), rng.uniform(0.5, 2.0, (3, 4)),
+                    rng.uniform(-0.5, 0.5, (3, 4)),
+                    rng.uniform(0.5, 2.0, (3, 4))], -1)
+    base = _sites(rng, n_a + n_b + n_e + n2, 5.0)
+    x1 = np.stack([base + 0.3 * np.concatenate(
+        [rng.normal(size=(len(base), 3)), np.zeros((len(base), 3))], 1)
+        for _ in range(n_rep)])
+    w1 = np.concatenate([rng.uniform(0.1, 1.0, (n_rep, n_a + n_b)),
+                         np.zeros((n_rep, n_e + n2))], 1)
+    x2 = x1[:, n_a + n_b + n_e:]
+    wcol = rng.uniform(0.1, 1.5, (n_rep, n2))
+    return tabs, types1, types2, masks, env, (x1, w1, x2, wcol)
+
+
+@pytest.mark.requires_cuda
+def test_fused_kernels_match_plain(cuda):
+    tabs, t1, t2, masks, env, dyn = fused_problem(np.random.default_rng(0))
+    prep = fp.make_prep(tabs, t1, t2, masks, env, cuda, torch.float32)
+    x1, w1, x2, wcol = (torch.tensor(a, dtype=torch.float32, device=cuda)
+                        for a in dyn)
+    k = fp.fused_pair_fwd(prep, x1, w1, x2, wcol)
+    p = fp.fused_pair_fwd(prep, x1, w1, x2, wcol, plain=True)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k, fp.fused_pair_fwd(prep, x1, w1, x2, wcol)))
+    for a, b in zip(k, p):
+        assert _rel(a, b) < 1e-5
+    assert k[1].count_nonzero() > 10 and k[2].count_nonzero() > 3
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    g = [torch.randn(t.shape, generator=gen, device=cuda) for t in p[:3]]
+    bk = fp.fused_pair_bwd(prep, x1, w1, x2, wcol, k[3], k[4], *g)
+    bp_ = fp.fused_pair_bwd(prep, x1, w1, x2, wcol, p[3], p[4], *g,
+                            plain=True)
+    for a, b in zip(bk, bp_):
+        assert _rel(a, b) < 1e-4
+
+
+def bp_problem(rng, n_res=12, contact=0.35):
+    n_rot = rng.choice([1, 3, 6], size=n_res)
+    res = np.repeat(np.arange(n_res), n_rot)
+    rot = np.concatenate([np.arange(n) for n in n_rot])
+    valid = np.arange(6)[None, :] < n_rot[:, None]
+    n = len(res)
+    near = rng.random((n_res, n_res)) < contact
+    keep = (np.arange(n)[:, None] < np.arange(n)[None, :]) \
+        & (res[:, None] != res[None, :]) \
+        & (near | near.T)[res[:, None], res[None, :]]
+    E = np.zeros((128, 128))
+    E[:n, :n] = np.where(keep, rng.normal(scale=1.5, size=(n, n)), 0.0)
+    E1 = np.where(valid, rng.normal(size=(n_res, 6)), 0.0)
+    return E1, E, res, rot, valid
+
+
+@pytest.mark.requires_cuda
+def test_bp_kernel_matches_plain(cuda):
+    E1, E, res, rot, valid = bp_problem(np.random.default_rng(0))
+    st = bp.make_statics(res, rot, valid, 128, 0.1, 1000, 1e-6, 2, cuda)
+    e1 = torch.tensor(np.stack([E1, 0.9 * E1, E1 + 0.1]), dtype=torch.float32,
+                      device=cuda)
+    ep = torch.tensor(np.stack([E] * 3), dtype=torch.float32, device=cuda)
+    k = bp.bp_bethe_pairs_fwd(st, e1, ep)
+    p = bp.bp_bethe_pairs_fwd(st, e1, ep, plain=True)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k, bp.bp_bethe_pairs_fwd(st, e1, ep)))
+    for i in (0, 1, 2, 3):
+        assert _rel(k[i], p[i]) < 1e-4
+    kw = bp.bp_bethe_pairs_fwd(st, e1, ep, (k[3], k[4]))
+    pw = bp.bp_bethe_pairs_fwd(st, e1, ep, (k[3], k[4]), plain=True)
+    for i in (0, 1, 2):
+        assert _rel(kw[i], pw[i]) < 1e-4

@@ -1,0 +1,203 @@
+"""The port's main path as a whole against the JAX package, on the trp-cage
+bundle, plus the bundle pin and the import isolation of the port.
+
+* energy, per-term energies and forces of the whole graph: port (fused
+  block and BP on their plain versions) vs the JAX System on the CPU (XLA
+  path), both in float64: rel 1e-4, forces as RMS relative error;
+* one 3-stage Verlet round with the BP cache threaded through the stages,
+  from the same positions and momenta: positions and momenta at rel 1e-4;
+* the OU thermostat formula on the noise JAX draws;
+* a bundle regenerated by tools/export_torch_bundle.py matches the
+  committed one to 1e-6;
+* `import upside_md_torch` (and a short MD run) with jax, h5py and
+  upside_md_tpu blocked.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_nodes import TRP, load_pair
+from upside_md_tpu.md.integrator import integration_cycle as jax_cycle
+from upside_md_tpu.md.thermostat import OUThermostat as JaxOU
+from upside_md_tpu.md.thermostat import stream_key
+from upside_md_torch.config import bundle
+from upside_md_torch.md.integrator import integration_cycle
+from upside_md_torch.md.sim import Simulation
+from upside_md_torch.md.thermostat import OUThermostat
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def trp():
+    records, pos, js, jp, ts = load_pair(TRP)
+    rng = np.random.default_rng(11)
+    P = pos.astype(np.float64) + 0.05 * rng.normal(size=pos.shape)
+    mom = rng.normal(size=pos.shape)
+    return dict(js=js, jp=jp, ts=ts, P=P, mom=mom)
+
+
+def _rms_rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2))
+
+
+def test_energy_terms_and_forces_match_jax(trp):
+    js, jp, ts, P = trp["js"], trp["jp"], trp["ts"], trp["P"]
+
+    @jax.jit
+    def jax_eval(x):
+        def total(y):
+            e, _, per = js.evaluate(y, jp)
+            return e, per
+        (e, per), g = jax.value_and_grad(total, has_aux=True)(x)
+        return e, per, g
+
+    e_j, per_j, g_j = jax_eval(jnp.asarray(P))
+    x = torch.tensor(P[None], requires_grad=True)
+    total, _, per_t, _ = ts.evaluate(x)
+    (g_t,) = torch.autograd.grad(total.sum(), x)
+    assert ts.pair_fusion is not None            # the fused block ran
+    assert set(per_t) == set(per_j)
+    for name, v in per_t.items():
+        assert abs(v.item() - float(per_j[name])) <= \
+            1e-4 * max(1.0, abs(float(per_j[name]))), name
+    assert abs(total.item() - float(e_j)) <= 1e-4 * abs(float(e_j))
+    assert _rms_rel(g_t[0].numpy(), g_j) < 1e-4
+
+
+def test_verlet_round_with_cache_matches_jax(trp):
+    js, jp, ts, P, mom = trp["js"], trp["jp"], trp["ts"], trp["P"], \
+        trp["mom"]
+    dt = 0.009
+
+    def jax_deriv(p, stage, cache):
+        return jax.grad(lambda q: js.energy_and_cache(q, jp, cache=cache),
+                        has_aux=True)(p)
+
+    pos_j, mom_j, cache_j = jax.jit(
+        lambda p, m, c: jax_cycle(jax_deriv, p, m, dt, cache=c))(
+        jnp.asarray(P), jnp.asarray(mom), js.init_cache())
+
+    def deriv(p, stage, cache):
+        g, _, cache = ts.deriv(p, cache)
+        return g, cache
+
+    pos_t, mom_t, cache_t = integration_cycle(
+        deriv, torch.tensor(P[None]), torch.tensor(mom[None]), dt,
+        ts.init_cache(1))
+    assert np.abs(pos_t[0].numpy() - np.asarray(pos_j)).max() \
+        <= 1e-4 * np.abs(np.asarray(pos_j)).max()
+    assert _rms_rel(mom_t[0].numpy(), mom_j) < 1e-4
+    # the threaded BP beliefs agree too (JAX caches (nb, eb, prev nb))
+    nb_t = cache_t["rotamer"]["nb"][0].numpy()
+    assert np.abs(nb_t - np.asarray(cache_j["rotamer"][0])).max() < 1e-4
+
+
+def test_replicas_are_independent(trp):
+    """Two replicas advanced together equal each advanced alone (the
+    replica axis is a plain batch; BP stops per replica)."""
+    ts, P = trp["ts"], trp["P"]
+    noise = np.random.default_rng(5).normal(size=(2,) + P.shape)
+
+    def run(idx):
+        sim = Simulation(ts, thermostat_interval=0.027)
+        st = sim.initial_state(np.stack([P, P + 0.01])[idx], len(idx))
+        st.mom = torch.zeros_like(st.mom)
+        return sim.advance(st, 1, noise=lambda nr: torch.tensor(noise[idx]))
+
+    both = run([0, 1])
+    for i in (0, 1):
+        one = run([i])
+        np.testing.assert_allclose(both.pos[i].numpy(), one.pos[0].numpy(),
+                                   rtol=0, atol=1e-12)
+
+
+def test_thermostat_matches_jax():
+    rng = np.random.default_rng(2)
+    mom = rng.normal(size=(3, 17, 3))
+    temps = np.array([0.85, 1.0, 1.2])
+    th_j = JaxOU(5.0, 0.135)
+    got_j = []
+    noise = []
+    for r in range(3):
+        key = stream_key(r, 0, 4)
+        got_j.append(np.asarray(th_j.apply(key, jnp.asarray(mom[r]),
+                                           temps[r])))
+        noise.append(np.asarray(jax.random.normal(key, mom[r].shape,
+                                                  dtype=jnp.float64)))
+    got_t = OUThermostat(5.0, 0.135).apply(
+        torch.tensor(mom), torch.tensor(temps), noise=torch.tensor(
+            np.stack(noise)))
+    np.testing.assert_allclose(got_t.numpy(), np.stack(got_j), rtol=1e-12)
+
+
+def test_regenerated_bundle_matches_committed(tmp_path):
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_bundle",
+        os.path.join(ROOT, "tools", "export_torch_bundle.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    path = tool.build_bundle("trp_cage_full_synth", str(tmp_path),
+                             str(tmp_path))
+    new, pos_new = bundle.load(path)
+    old, pos_old = bundle.load(TRP)
+    np.testing.assert_allclose(pos_new, pos_old, rtol=0, atol=1e-6)
+    assert [(s.name, s.type_name, s.args) for s in new] == \
+        [(s.name, s.type_name, s.args) for s in old]
+    for a, b in zip(new, old):
+        for part in ("consts", "params"):
+            da, db = getattr(a, part), getattr(b, part)
+            assert set(da) == set(db), (a.name, part)
+            for k in da:
+                va, vb = np.asarray(da[k]), np.asarray(db[k])
+                assert va.dtype == vb.dtype and va.shape == vb.shape
+                if va.dtype.kind == "f":
+                    np.testing.assert_allclose(va, vb, rtol=1e-6, atol=1e-6,
+                                               err_msg=f"{a.name}/{k}")
+                else:
+                    np.testing.assert_array_equal(va, vb)
+    sizes = [os.path.getsize(os.path.join(os.path.dirname(TRP), f))
+             for f in ("trp_cage_full_synth.npz",
+                       "ubiquitin_full_synth.npz")]
+    assert sum(sizes) < 3e6
+
+
+BLOCKED_IMPORT = r"""
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+import torch
+import upside_md_torch
+from upside_md_torch.md.sim import Simulation
+from upside_md_torch.system import System
+system, pos = System.from_bundle(sys.argv[2])
+sim = Simulation(system, seed=0)
+state = sim.advance(sim.initial_state(pos, 1), 1)
+assert bool(torch.isfinite(state.pos).all())
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
+assert not bad, bad
+print("isolated ok")
+"""
+
+
+def test_port_imports_without_jax_h5py_or_reference():
+    r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT, ROOT, TRP],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "isolated ok" in r.stdout

@@ -1,0 +1,216 @@
+"""Write the port's full-force-field system bundles from synthetic libraries.
+
+The port (`upside_md_torch`) reads systems from numpy spec bundles, because
+the machine that runs it has neither h5py nor jax.  This script builds each
+system through the JAX package's own config builder and reader, exactly as
+`upside_md_tpu.bench_systems.build_full_system` does (rotamer damping 0.1,
+`dynamic_1body=True`, hbond energy -2.1119, hbond coverage and hydrophobes,
+the environment/burial chain, the rotamer node), and converts the loaded
+specs with `upside_md_torch.convert.from_jax_specs`.
+
+The shipped parameter libraries are not part of the repository, so the
+libraries are synthetic, made from a numpy seed in the real layout:
+
+* sidechain library: the 20 standard restypes, one bead per rotamer, and
+  1, 3 or 6 rotamers for residues with 0, 1 or >= 2 chi angles
+  (`sidechain_topology.N_CHI`).  Bead centers sit along the CB direction
+  with a seeded scatter; directions are unit vectors near it.  Rotamer
+  probabilities on the 36x36 Rama grid are smooth (a softmax of low-order
+  cosines of phi and psi), so the dynamic 1-body energies are smooth.
+* pair table (20, 20, 2*8 + 2*9) in the default SC_SC knot family
+  (8 angular knots, 9 distance knots, dx = 1): angular splines near 1, a
+  repulsive `wide` and an attractive `narrow` distance profile whose last
+  three knots are zero, so the energy reaches 0 at the cutoff.
+* coverage (2, 20, 2*8 + 2*7) and hydrophobe (3, 20, 2*8 + 2*7) tables in
+  the SC_BB family (7 distance knots), with positive coverage profiles, and
+  a (3, 7) hydrophobe placement (point, unit vector, scalar).
+* environment library: `coverage_param` (20, 1, 4) = (r0, r_sharp, dot0,
+  dot_sharp), `energies` (20, 16) clamped-spline coefficients of burial
+  with attrs `offset` 0 and `inv_dx` 0.5, and `restype_order`.
+* Ramachandran maps: smooth per-residue mixtures of alpha, beta and
+  left-handed wells on the 72x72 grid.  (White-noise maps, the bench
+  fallback, give a Rama energy of order 1e5 on the initial structure.)
+
+Run from the repository root (needs jax and h5py):
+
+    python tools/export_torch_bundle.py [--out DIR] [--only NAME ...]
+
+It writes `ubiquitin_full_synth.npz` (76 residues) and
+`trp_cage_full_synth.npz` (20 residues) into `upside_md_torch/data/`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+RESTYPES = ['ALA', 'ARG', 'ASN', 'ASP', 'CYS', 'GLN', 'GLU', 'GLY', 'HIS',
+            'ILE', 'LEU', 'LYS', 'MET', 'PHE', 'PRO', 'SER', 'THR', 'TRP',
+            'TYR', 'VAL']
+KA, K_PAIR, K_COV = 8, 9, 7
+N_BIN = 36
+LIB_SEED = 2024
+
+SYSTEMS = {
+    "ubiquitin_full_synth": "UBIQUITIN",
+    "trp_cage_full_synth": "TRP_CAGE",
+}
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def write_sidechain_library(path, rng):
+    from upside_md_tpu.param_gen import write_placement_library
+    from upside_md_tpu.sidechain_topology import N_CHI
+
+    grid = -np.pi + 2 * np.pi * np.arange(N_BIN) / N_BIN
+    phi, psi = np.meshgrid(grid, grid, indexing="ij")
+    cb_dir = _unit(np.array([0.0, 0.94375626, 1.2068012]))
+    data = {}
+    for rt in RESTYPES:
+        n_chi = N_CHI[rt]
+        n_rot = 1 if n_chi == 0 else (3 if n_chi == 1 else 6)
+        c = np.zeros((n_rot, 6))
+        reach = 1.6 + 0.35 * min(n_chi, 4)
+        c[:, 0:3] = reach * cb_dir + 0.7 * rng.normal(size=(n_rot, 3))
+        c[:, 3:6] = _unit(cb_dir + 0.5 * rng.normal(size=(n_rot, 3)))
+        amp = 0.8 * rng.normal(size=(n_rot, 4))
+        logit = (amp[:, 0, None, None] * np.cos(phi)
+                 + amp[:, 1, None, None] * np.sin(phi)
+                 + amp[:, 2, None, None] * np.cos(psi)
+                 + amp[:, 3, None, None] * np.sin(psi))
+        p = np.exp(logit - logit.max(0))
+        probs = np.moveaxis(p / p.sum(0), 0, -1)          # (36, 36, n_rot)
+        data[rt] = {"centers": c, "n_bead": 1, "probs": probs}
+    write_placement_library(path, data)
+
+    import h5py
+    n_type = len(RESTYPES)
+    with h5py.File(path, "a") as f:
+        pair = np.zeros((n_type, n_type, 2 * KA + 2 * K_PAIR))
+        pair[..., :2 * KA] = 1.0 + 0.15 * rng.normal(size=(n_type, n_type,
+                                                            2 * KA))
+        wide = np.array([3.0, 2.0, 1.0, 0.35, -0.15, -0.1, 0.0, 0.0, 0.0])
+        narrow = np.array([-0.4, -0.7, -0.6, -0.35, -0.12, -0.03,
+                           0.0, 0.0, 0.0])
+        s = rng.uniform(0.5, 1.5, size=(n_type, n_type, 2))
+        pair[..., 2 * KA:2 * KA + K_PAIR] = s[..., :1] * wide
+        pair[..., 2 * KA + K_PAIR:] = s[..., 1:] * narrow
+        f.create_dataset("pair_interaction", data=pair)
+
+        def coverage_table(n_row):
+            t = np.zeros((n_row, n_type, 2 * KA + 2 * K_COV))
+            t[..., :2 * KA] = 1.0 + 0.15 * rng.normal(
+                size=(n_row, n_type, 2 * KA))
+            prof = np.array([1.0, 0.9, 0.7, 0.35, 0.0, 0.0, 0.0])
+            sc = rng.uniform(0.1, 0.6, size=(n_row, n_type, 2))
+            t[..., 2 * KA:2 * KA + K_COV] = sc[..., :1] * prof
+            t[..., 2 * KA + K_COV:] = sc[..., 1:] * prof
+            return t
+
+        f.create_dataset("coverage_interaction", data=coverage_table(2))
+        f.create_dataset("hydrophobe_interaction", data=coverage_table(3))
+        hp = np.zeros((3, 7))
+        hp[:, 0:3] = 1.2 * rng.normal(size=(3, 3))
+        hp[:, 3:6] = _unit(rng.normal(size=(3, 3)))
+        hp[:, 6] = rng.uniform(0.0, 1.0, 3)
+        f.create_dataset("hydrophobe_placement", data=hp)
+    return path
+
+
+def write_environment_library(path, rng):
+    import h5py
+    n_type = len(RESTYPES)
+    cov = np.zeros((n_type, 1, 4))
+    cov[:, 0, 0] = rng.uniform(5.0, 6.5, n_type)      # r0
+    cov[:, 0, 1] = rng.uniform(0.6, 1.0, n_type)      # r_sharp
+    cov[:, 0, 2] = rng.uniform(0.0, 0.3, n_type)      # dot0
+    cov[:, 0, 3] = rng.uniform(1.2, 2.0, n_type)      # dot_sharp
+    n_coeff = 16
+    x = np.arange(n_coeff)
+    slope = rng.uniform(-0.08, 0.08, n_type)
+    energies = slope[:, None] * (x[None, :] - 6.0) \
+        + 0.05 * np.cos(0.5 * x[None, :] + rng.uniform(0, 2 * np.pi,
+                                                         (n_type, 1)))
+    with h5py.File(path, "w") as f:
+        ds = f.create_dataset("energies", data=energies)
+        ds.attrs["offset"] = 0.0
+        ds.attrs["inv_dx"] = 0.5
+        f.create_dataset("restype_order", data=np.asarray(RESTYPES, "S"))
+        f.create_dataset("coverage_param", data=cov)
+    return path
+
+
+def smooth_rama_maps(n_res, rng, n_grid=72):
+    grid = -np.pi + 2 * np.pi * np.arange(n_grid) / n_grid
+    phi, psi = np.meshgrid(grid, grid, indexing="ij")
+    wells = np.array([[-1.1, -0.8], [-2.1, 2.3], [1.0, 0.8]])
+    maps = np.empty((n_res, n_grid, n_grid))
+    for r in range(n_res):
+        w = rng.dirichlet([6.0, 5.0, 1.0])
+        dens = sum(wk * np.exp(3.0 * (np.cos(phi - c[0]) - 1.0)
+                               + 3.0 * (np.cos(psi - c[1]) - 1.0))
+                   for wk, c in zip(w, wells))
+        p = dens + 1e-3 * dens.max()
+        maps[r] = -np.log(p / p.sum())      # negative log probability
+    return maps
+
+
+def build_bundle(name, out_dir, lib_dir):
+    """Build one system the way build_full_system does; write its bundle."""
+    from upside_md_tpu import bench_systems
+    from upside_md_tpu.config.builder import ConfigBuilder
+    from upside_md_tpu.config.reader import load_system
+    from upside_md_torch.config import bundle
+    from upside_md_torch.convert import from_jax_specs
+
+    rng = np.random.default_rng(LIB_SEED)
+    sidechain = write_sidechain_library(
+        os.path.join(lib_dir, "sidechain_synth.h5"), rng)
+    environment = write_environment_library(
+        os.path.join(lib_dir, "environment_synth.h5"), rng)
+
+    seq = getattr(bench_systems, SYSTEMS[name])
+    b = ConfigBuilder(f">x\n{seq}\n", seed=1)
+    b.add_backbone_springs()
+    b.add_rama_map_pot(smooth_rama_maps(b.n_res, rng))
+    b.add_backbone_pairs()
+    b.add_rotamer_sidechains(sidechain, sidechain, damping=0.1,
+                             dynamic_1body=True)
+    b.add_hbond(hbond_energy=-2.1119, coverage_library=sidechain)
+    b.add_environment(environment)
+    b.add_rotamer_node()
+    up = os.path.join(lib_dir, f"{name}.up")
+    b.write(up)
+    system, _, pos, _ = load_system(up)
+    records, pos = from_jax_specs(system.specs, pos)
+    path = os.path.join(out_dir, f"{name}.npz")
+    bundle.save(path, records, pos)
+    return path
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "upside_md_torch",
+                                                  "data"))
+    ap.add_argument("--only", nargs="*", choices=sorted(SYSTEMS))
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    with tempfile.TemporaryDirectory() as lib_dir:
+        for name in args.only or sorted(SYSTEMS):
+            path = build_bundle(name, args.out, lib_dir)
+            print(f"{path}: {os.path.getsize(path)} bytes")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,45 @@
+"""Carry a system built by the JAX package across to the port.
+
+`from_jax_specs` takes the JAX package's `NodeSpec`s duck-typed (it reads
+`.name`, `.node_type.name`, `.args`, `.consts` and `.params`) and returns
+the framework-free `SpecRecord`s a bundle stores.  It imports nothing from
+jax: `np.asarray` turns every array the caller hands over into numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Tuple
+
+import numpy as np
+
+from .config.bundle import SpecRecord
+
+# entries the port's main path never reads: the raw Rama map only serves
+# get_param/set_param, the rotamer one-hots are rebuilt from `res`/`rot`,
+# and the bead-type names are strings the graph does not use
+DROPPED = {
+    "rama_map_pot": {"raw_map"},
+    "rotamer": {"onehot", "onehot_res"},
+    "placement_fixed_point_vector_only": {"beadtype_seq"},
+    "placement_scalar": {"beadtype_seq"},
+}
+
+
+def _to_numpy(v):
+    return v if isinstance(v, (bool, int, float, str)) else np.asarray(v)
+
+
+def from_jax_specs(specs: Iterable, pos) -> Tuple[List[SpecRecord],
+                                                  np.ndarray]:
+    """(JAX NodeSpecs, initial positions) -> (SpecRecords, pos as numpy)."""
+    records = []
+    for s in specs:
+        tname = s.node_type.name
+        drop = DROPPED.get(tname, set())
+        consts = {k: _to_numpy(v) for k, v in s.consts.items()
+                  if k not in drop}
+        params = {k: _to_numpy(v) for k, v in s.params.items()
+                  if k not in drop}
+        records.append(SpecRecord(s.name, tname, list(s.args), consts,
+                                  params))
+    return records, np.asarray(pos, np.float32)

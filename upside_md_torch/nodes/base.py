@@ -1,0 +1,97 @@
+"""Node registry, specs and topological order (port of
+upside_md_tpu/nodes/base.py).
+
+A node type is a function ``compute(consts, params, inputs, ctx)``:
+
+* ``consts``: static data as tensors on the system's device (indices,
+  masks) plus Python scalars, built once by the type's ``prepare``;
+* ``params``: the node's parameter tensors;
+* ``inputs``: outputs of the argument nodes, each (n_replica, n_elem,
+  width); the replica axis always leads;
+* ``ctx``: the evaluation context (`system.EvalContext`): warm-start cache,
+  fused-block results, the node's own name.
+
+Coordinate nodes return (n_replica, n_elem, width); potential nodes return
+one energy per replica, (n_replica,).  Node types are looked up by exact
+name: the bundle stores the JAX package's resolved type name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+NODE_REGISTRY: Dict[str, "NodeType"] = {}
+
+
+@dataclass
+class NodeType:
+    name: str
+    is_potential: bool
+    compute: Callable          # (consts, params, inputs, ctx) -> tensor
+    # (consts as numpy, device) -> consts as tensors; default: every
+    # array becomes a tensor (floats in the system dtype, ints as int64)
+    prepare: Optional[Callable] = None
+    # (consts, n_replica, dtype) -> initial per-node solver state, or None
+    init_cache: Optional[Callable] = None
+
+
+def register_node(name, is_potential, compute, prepare=None,
+                  init_cache=None):
+    if name in NODE_REGISTRY:
+        raise ValueError(f"node type {name} registered twice")
+    nt = NodeType(name, is_potential, compute, prepare, init_cache)
+    NODE_REGISTRY[name] = nt
+    return nt
+
+
+def resolve_node_type(name: str) -> NodeType:
+    if name not in NODE_REGISTRY:
+        raise KeyError(f"node type '{name}' has no port yet")
+    return NODE_REGISTRY[name]
+
+
+def to_tensor(v, device, dtype):
+    """numpy -> tensor on device: floats in `dtype`, integers as int64
+    (torch's index type), bools as bool; Python scalars pass through."""
+    if isinstance(v, (bool, int, float, str)):
+        return v
+    a = np.asarray(v)
+    if a.dtype.kind == "f":
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    if a.dtype.kind in "iu":
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    if a.dtype.kind == "b":
+        return torch.as_tensor(a, device=device)
+    raise TypeError(f"cannot move array of dtype {a.dtype} to torch")
+
+
+@dataclass
+class NodeSpec:
+    """One node of the graph: numpy consts/params as the bundle holds them."""
+    name: str
+    node_type: NodeType
+    args: List[str]
+    consts: Dict[str, Any] = field(default_factory=dict)
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+def topo_sort(specs: Dict[str, NodeSpec]) -> List[NodeSpec]:
+    """Kahn-style topological order over the argument DAG, ready nodes in
+    name order (reference src/deriv_engine.cpp:213-229)."""
+    order: List[NodeSpec] = []
+    placed = {"pos"}
+    remaining = dict(specs)
+    remaining.pop("pos", None)
+    while remaining:
+        ready = [n for n, s in remaining.items()
+                 if all(a in placed for a in s.args)]
+        if not ready:
+            raise ValueError(f"unsatisfiable dependencies among {list(remaining)}")
+        for n in sorted(ready):
+            order.append(remaining.pop(n))
+            placed.add(n)
+    return order

@@ -1,0 +1,60 @@
+"""Burial / environment chain (port of the main-path subset of
+upside_md_tpu/nodes/env.py; reference src/environment.cpp).
+
+* environment_coverage: direction-weighted burial of each CB against the
+  Boltzmann-weighted sidechain beads (radial x angular compact sigmoids);
+  on the main path it is the env band of the fused pair block.
+* weighted_pos: (x, y, z, exp(-E)) of each bead.
+* nonlinear_coupling: per-restype clamped-spline energy of burial.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.pairs import sequence_exclusion_mask
+from ..ops.sigmoid import compact_sigmoid
+from ..ops.spline import eval_clamped_bspline
+from .base import register_node
+
+
+def _environment_coverage(c, p, inputs, ctx):
+    if ctx.node_name in ctx.fused:          # fused pair block env band
+        return ctx.fused[ctx.node_name]
+    cb = inputs[0][:, c["index1"]]                     # (B, n1, 6)
+    sc = inputs[1][:, c["index2"]]                     # (B, n2, 4)
+    prm = p["interaction_param"][c["type1"][:, None], c["type2"][None, :]]
+    r0, r_sharp, dot0, dot_sharp = prm.unbind(-1)
+    d = sc[..., None, :, 0:3] - cb[..., :, None, 0:3]
+    dist2 = (d * d).sum(-1)
+    cutoff = r0 + 1.0 / r_sharp
+    mask = sequence_exclusion_mask(c["id1"], c["id2"], 2) \
+        & (dist2 < cutoff * cutoff)
+    inv_dist = 1.0 / torch.sqrt(torch.where(mask, dist2,
+                                            torch.ones_like(dist2)))
+    dp = inv_dist * (d * cb[..., :, None, 3:6]).sum(-1)
+    radial, _ = compact_sigmoid(dist2 * inv_dist - r0, r_sharp)
+    angular, _ = compact_sigmoid(dot0 - dp, dot_sharp)
+    score = torch.where(mask, sc[..., None, :, 3] * radial * angular,
+                        torch.zeros_like(dist2))
+    return score.sum(-1).unsqueeze(-1)
+
+
+def _weighted_pos(c, p, inputs, ctx):
+    pos = inputs[0][:, c["index_pos"], 0:3]
+    w = torch.exp(-inputs[1][:, c["index_weight"], 0:1])
+    return torch.cat([pos, w], dim=-1)
+
+
+def _nonlinear_coupling(c, p, inputs, ctx):
+    coeff = p["coeff"][c["coupling_types"]]            # (n, n_coeff)
+    x = (inputs[0][..., 0] - c["spline_offset"]) * c["spline_inv_dx"]
+    v, _ = eval_clamped_bspline(coeff, x)
+    return v.sum(-1)
+
+
+environment_coverage = register_node("environment_coverage", False,
+                                     _environment_coverage)
+weighted_pos = register_node("weighted_pos", False, _weighted_pos)
+nonlinear_coupling = register_node("nonlinear_coupling", True,
+                                   _nonlinear_coupling)

@@ -1,0 +1,97 @@
+"""Backbone hydrogen bonds (port of upside_md_tpu/nodes/hbond.py;
+reference src/hbond.cpp).
+
+* infer_H_O: virtual amide H / carbonyl O sites and bond directions.
+* protein_hbond: per-virtual hbond probability from the donor x acceptor
+  grid; output width 7 (site, direction, probability).
+* hbond_energy: E * sum of the probabilities.
+* hbond_coverage (also the hydrophobe coverage): per-bead coverage of the
+  row sites weighted by (1 - s)^2.  On the main path it comes out of the
+  fused pair block (nodes/fusion.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.pairs import pair_coverage, quadspline_family, \
+    sequence_exclusion_mask
+from .base import register_node
+
+RADIAL_CUTOFF2 = 3.5 * 3.5  # hbond.cpp:124
+
+
+def _unit(v):
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def _infer_h_o(c, p, inputs, ctx):
+    pos = inputs[0]
+    ids = c["id"]
+    curr = pos[:, ids[:, 1]]
+    direction = -_unit(_unit(pos[:, ids[:, 0]] - curr)
+                       + _unit(pos[:, ids[:, 2]] - curr))
+    place = curr + c["bond_length"][:, None] * direction
+    return torch.cat([place, direction], dim=-1)
+
+
+def hbond_pair_strength(p, H, rHN, O, rOC):
+    """Per-pair hbond strength on the (..., n_donor, n_acceptor) grid.
+    p (nd, na, 8): [inner_barrier, inv_inner_width, outer_barrier,
+    inv_outer_width, wall_dp, inv_dp_width, 0, 0] (hbond.cpp:153-230)."""
+    HO = H.unsqueeze(-2) - O.unsqueeze(-3)
+    raw2 = (HO * HO).sum(-1)
+    mag2 = raw2 + 1e-6
+    inv_mag = 1.0 / torch.sqrt(mag2)
+    magHO = mag2 * inv_mag
+    rHO = HO * inv_mag.unsqueeze(-1)
+    dotHOC = (rHO * rOC.unsqueeze(-3)).sum(-1)
+    dotOHN = -(rHO * rHN.unsqueeze(-2)).sum(-1)
+    # the reference 'sigmoid' is the increasing logistic 1/(1+exp(-x))
+    radial = torch.sigmoid((p[..., 2] - magHO) * p[..., 3]) * \
+        torch.sigmoid((magHO - p[..., 0]) * p[..., 1])
+    ang1 = torch.sigmoid((dotHOC - p[..., 4]) * p[..., 5])
+    ang2 = torch.sigmoid((dotOHN - p[..., 4]) * p[..., 5])
+    within = (dotHOC > 0.0) & (dotOHN > 0.0) & (raw2 < RADIAL_CUTOFF2)
+    return torch.where(within, radial * ang1 * ang2, torch.zeros_like(raw2))
+
+
+def _protein_hbond(c, p, inputs, ctx):
+    ho = inputs[0]
+    don = ho[:, c["index1"]]
+    acc = ho[:, c["index2"]]
+    table = p["interaction_param"][c["type1"][:, None], c["type2"][None, :]]
+    hb = hbond_pair_strength(table, don[..., 0:3], don[..., 3:6],
+                             acc[..., 0:3], acc[..., 3:6])
+    # -log(1-hb), value capped at 100 and the argument floored at 1e-5
+    # like the reference (hbond.cpp:221-223)
+    hb_log = torch.where(hb >= 1.0, torch.full_like(hb, 100.0),
+                         -torch.log(torch.clamp(1.0 - hb, min=1e-5)))
+    hb_prob = 1.0 - torch.exp(-torch.cat([hb_log.sum(-1), hb_log.sum(-2)],
+                                         dim=-1))
+    base = torch.cat([don, acc], dim=-2)
+    return torch.cat([base, hb_prob.unsqueeze(-1)], dim=-1)
+
+
+def _hbond_energy(c, p, inputs, ctx):
+    return p["protein_hbond_energy"] * inputs[0][..., 6].sum(-1)
+
+
+def _hbond_coverage(c, p, inputs, ctx):
+    if ctx.node_name in ctx.fused:          # fused pair block result
+        return ctx.fused[ctx.node_name]
+    hb_nodes = inputs[0][:, c["index1"]]
+    sc = inputs[1][:, c["index2"]]
+    table = p["interaction_param"]
+    ka, k, dx = quadspline_family(table.shape[-1])
+    mask = sequence_exclusion_mask(c["id1"], c["id2"], 2)
+    cov = pair_coverage(table, c["type1"], c["type2"], hb_nodes, sc, mask,
+                        ka, k, dx)
+    prefactor = (1.0 - hb_nodes[..., 6]) ** 2
+    return (prefactor.unsqueeze(-1) * cov).sum(-2).unsqueeze(-1)
+
+
+infer_H_O = register_node("infer_H_O", False, _infer_h_o)
+protein_hbond = register_node("protein_hbond", False, _protein_hbond)
+hbond_energy = register_node("hbond_energy", True, _hbond_energy)
+hbond_coverage = register_node("hbond_coverage", False, _hbond_coverage)

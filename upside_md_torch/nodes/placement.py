@@ -1,0 +1,68 @@
+"""Placement nodes (port of the main-path variants of
+upside_md_tpu/nodes/placement.py; reference src/placement.cpp).
+
+Per-residue local data is placed with the rigid frames of
+`affine_alignment`: points as R v + t, vectors as R v, scalars unchanged.
+The data comes from a fixed per-layer table, or from a Rama-dependent
+periodic 2-D spline."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.geometry import quat_to_rot, rotate_vec
+from ..ops.spline import eval_periodic_bspline_2d
+from .base import register_node
+from .rama import rama_to_grid
+
+SIG_WIDTH = {"scalar": 1, "point": 3, "vector": 3}
+
+
+def _transform(signature, affine, val):
+    t = affine[..., 0:3]
+    R = quat_to_rot(affine[..., 3:7])
+    out, off = [], 0
+    for s in signature:
+        v = val[..., off:off + SIG_WIDTH[s]]
+        if s == "point":
+            out.append(rotate_vec(R, v) + t)
+        elif s == "vector":
+            out.append(rotate_vec(R, v))
+        else:
+            out.append(v.expand(affine.shape[:-1] + v.shape[-1:]))
+        off += SIG_WIDTH[s]
+    return torch.cat(out, dim=-1)
+
+
+def _fixed_placement(signature):
+    def compute(c, p, inputs, ctx):
+        affine = inputs[0][:, c["affine_residue"]]
+        return _transform(signature, affine,
+                          p["placement_data"][c["layer_index"]])
+    return compute
+
+
+def _rama_placement(signature):
+    def compute(c, p, inputs, ctx):
+        affine = inputs[0][:, c["affine_residue"]]
+        rama = inputs[1][:, c["rama_residue"]]          # (B, n, 2)
+        coeffs = p["coeffs"][c["layer_index"]]          # (n, nx, ny, w)
+        coeffs = coeffs.movedim(-1, 1)                  # (n, w, nx, ny)
+        x = rama_to_grid(rama[..., 0:1], coeffs.shape[-2])
+        y = rama_to_grid(rama[..., 1:2], coeffs.shape[-1])
+        width = coeffs.shape[1]
+        val, _, _ = eval_periodic_bspline_2d(
+            coeffs, x.expand(x.shape[:-1] + (width,)),
+            y.expand(y.shape[:-1] + (width,)))          # (B, n, w)
+        return _transform(signature, affine, val)
+    return compute
+
+
+placement_scalar = register_node(
+    "placement_scalar", False, _rama_placement(("scalar",)))
+placement_fixed_point_vector_only = register_node(
+    "placement_fixed_point_vector_only", False,
+    _fixed_placement(("point", "vector")))
+placement_fixed_point_vector_scalar = register_node(
+    "placement_fixed_point_vector_scalar", False,
+    _fixed_placement(("point", "vector", "scalar")))

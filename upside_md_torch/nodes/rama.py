@@ -1,0 +1,27 @@
+"""Ramachandran map potential (port of upside_md_tpu/nodes/rama.py;
+reference src/rama_map_pot.cpp)."""
+
+from __future__ import annotations
+
+import math
+
+from ..ops.spline import eval_periodic_bspline_2d
+from .base import register_node
+
+
+def rama_to_grid(rama, n_grid):
+    """Angle in (-pi, pi] -> spline grid coordinate, with the reference's
+    scaling (rama_map_pot.cpp:66-76)."""
+    return (rama + math.pi) * (n_grid * (0.5 / math.pi - 1e-7))
+
+
+def _rama_map_pot(c, p, inputs, ctx):
+    rama = inputs[0][:, c["residue_id"]]               # (B, n_res, 2)
+    coeffs = p["coeffs"]                               # (n_layer, nx, ny)
+    x = rama_to_grid(rama[..., 0], coeffs.shape[-2])
+    y = rama_to_grid(rama[..., 1], coeffs.shape[-1])
+    val, _, _ = eval_periodic_bspline_2d(coeffs[c["rama_map_id"]], x, y)
+    return val.sum(-1)
+
+
+rama_map_pot = register_node("rama_map_pot", True, _rama_map_pot)

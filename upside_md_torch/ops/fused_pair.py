@@ -1,0 +1,411 @@
+"""The fused pair block: K1 forward and backward, their plain versions, and
+the autograd rule that joins them.
+
+Port of `fused_pair_block_env_prep` (upside_md_tpu/ops/pallas_quadspline.py
+:2403) and its residual-consuming VJP (:2415-2449).  One pass over the
+bead columns evaluates four row bands:
+
+  rows [0, r_b)      hbond virtuals, weighted by w = (1 - s)^2
+  rows [r_b, r_e)    hydrophobe probes, weighted the same way
+  rows [r_e, r_p)    environment CB probes (compact sigmoids, no spline)
+  rows [r_p, n1)     the beads themselves (the rotamer pair grid)
+
+For the spline bands the pair value is wide(r) + ang1(cos1) ang2(cos2)
+narrow(r), a uniform cubic B-spline per segment (reference
+bead_interaction.h:30-84), cut off at each family's own (k-2)*dx.  The
+parameter table is expanded once per `advance` into per-(row type,
+column type, interval) cubic coefficients (`prepare`), so an evaluation
+reads four coefficients and runs Horner.  Distance segments are padded to
+the larger family's knot count by edge replication, which is exact below
+each family's cutoff (pallas_quadspline.py:937-946).
+
+Outputs: the two weighted column sums (hbond and hydrophobe coverage of
+each bead), the env row sums csig(r - r0) csig(dot0 - cos1) wcol[j], and
+the bead-pair grid E_pair (upper triangle, different residues, zero
+elsewhere) at a padded (n2p, n2p) layout.  The forward also saves the
+residual planes the backward reads: three derivative planes (d/d dist,
+d/d cos1, d/d cos2, pre-masked and pre-scaled) and the value plane of the
+coverage bands.
+
+`fused_pair_fwd` / `fused_pair_bwd` take the plain version for CPU tensors
+and launch the CUDA kernels (csrc/fused_pair_fwd.cu, fused_pair_bwd.cu)
+for CUDA tensors; `plain=True` asks for the plain version on the card, for
+comparisons only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import kernels
+from .sigmoid import compact_sigmoid
+
+# uniform cubic B-spline basis in powers of the in-interval fraction t:
+# value = sum_kk w_kk(t) C[i-1+kk] = sum_d t^d Q_d(i), Q_d = sum_kk
+# BETA[kk][d] C[i-1+kk]  (pallas_quadspline.py:92)
+BETA = np.array([
+    [1 / 6, -1 / 2, 1 / 2, -1 / 6],
+    [4 / 6, 0.0, -1.0, 1 / 2],
+    [1 / 6, 1 / 2, 1 / 2, -1 / 2],
+    [0.0, 0.0, 0.0, 1 / 6],
+], np.float64)
+
+
+def poly_coefficients(table, ka, k):
+    """Raw rows [ang1 (ka), ang2 (ka), wide (k), narrow (k)] -> per-interval
+    cubic coefficients [(ka-3)*4, (ka-3)*4, (k-3)*4, (k-3)*4] (the map of
+    `_poly_matrix`, pallas_quadspline.py:100), in float64."""
+    table = np.asarray(table, np.float64)
+
+    def seg(c, n):
+        win = np.stack([c[..., iv:iv + 4] for iv in range(n - 3)], -2)
+        return (win @ BETA).reshape(c.shape[:-1] + ((n - 3) * 4,))
+
+    return np.concatenate([
+        seg(table[..., :ka], ka), seg(table[..., ka:2 * ka], ka),
+        seg(table[..., 2 * ka:2 * ka + k], k),
+        seg(table[..., 2 * ka + k:], k)], axis=-1)
+
+
+def pad_distance_knots(table, ka, k, k_max):
+    """Pad wide/narrow from k to k_max knots by edge replication."""
+    table = np.asarray(table, np.float64)
+    if k == k_max:
+        return table
+    reps = [(0, 0)] * (table.ndim - 1) + [(0, k_max - k)]
+    wide = np.pad(table[..., 2 * ka:2 * ka + k], reps, mode="edge")
+    narrow = np.pad(table[..., 2 * ka + k:], reps, mode="edge")
+    return np.concatenate([table[..., :2 * ka], wide, narrow], axis=-1)
+
+
+@dataclass
+class FusedPrep:
+    """Parameter-only operands of the fused block (built by
+    nodes.fusion.PairFusionPlan.prepare once per advance)."""
+    r_b: int            # first hydrophobe row
+    r_e: int            # first env row
+    r_p: int            # first bead row
+    n1: int             # rows
+    n2: int             # bead columns
+    n2p: int            # padded E_pair side
+    ka: int
+    k: int              # shared distance knot count (max of the families)
+    inv_dx: float
+    kcut_cov: float     # (k_cov - 2 - 1e-6): coverage cutoff in knots
+    kcut_pair: float
+    row_type: torch.Tensor   # (n1,) int32: spline type, or env type on E
+    col_type: torch.Tensor   # (4, n2) int32: column type per band A,B,E,P
+    mask: torch.Tensor       # (n1, n2) uint8 sequence/triangle mask
+    coef: torch.Tensor       # (A_tot, n_ct, ncoef) float32 poly coefficients
+    env_tab: torch.Tensor    # (nt1e, nt2e, 4) float32 (r0, rs, dot0, dots)
+
+    @property
+    def n_e(self):
+        return self.r_p - self.r_e
+
+    def band_of_rows(self):
+        """(n1,) band index 0..3 (A, B, E, P)."""
+        rows = torch.arange(self.n1, device=self.mask.device)
+        return ((rows >= self.r_b).long() + (rows >= self.r_e).long()
+                + (rows >= self.r_p).long())
+
+
+def make_prep(tabs, type1, type2, masks, env_tab, device,
+              dtype=torch.float32):
+    """Build the parameter-only operands.
+
+    tabs: (hbond coverage, hydrophobe coverage, pair) spline tables, each
+    (n_type1, n_type2, 2*ka + 2*k); the families come from their shapes.
+    type1 / type2 / masks: per band A, B, E, P the row types, the column
+    types and the (rows, n2) interaction mask (sequence exclusion for A, B
+    and E; upper triangle and different residues for P).  env_tab
+    (n_type1, n_type2, 4): (r0, r_sharp, dot0, dot_sharp)."""
+    from .pairs import quadspline_family
+    tabs = [np.asarray(t, np.float64) for t in tabs]
+    ka, kc, dx = quadspline_family(tabs[0].shape[-1])
+    ka2, kp, dx2 = quadspline_family(tabs[2].shape[-1])
+    if quadspline_family(tabs[1].shape[-1]) != (ka, kc, dx) or ka2 != ka \
+            or abs(dx - dx2) > 1e-12:
+        raise ValueError("fused families must share angular knots and dx")
+    k = max(kc, kp)
+    n_ct = max(t.shape[1] for t in tabs)
+    coef = np.concatenate([
+        np.pad(poly_coefficients(pad_distance_knots(t, ka, kf, k), ka, k),
+               ((0, 0), (0, n_ct - t.shape[1]), (0, 0)))
+        for t, kf in zip(tabs, (kc, kc, kp))], axis=0)
+    A1, A2 = tabs[0].shape[0], tabs[1].shape[0]
+    n_a, n_b, n_e, n2 = (len(t) for t in type1)
+    if n_e < 1:
+        raise ValueError("the fused block needs its env band")
+    row_type = np.concatenate([type1[0], A1 + np.asarray(type1[1]), type1[2],
+                               A1 + A2 + np.asarray(type1[3])])
+
+    def dev(a, dt):
+        return torch.as_tensor(np.array(a), dtype=dt,
+                               device=device)
+
+    return FusedPrep(
+        r_b=n_a, r_e=n_a + n_b, r_p=n_a + n_b + n_e,
+        n1=n_a + n_b + n_e + n2, n2=n2, n2p=-(-n2 // 128) * 128, ka=ka,
+        k=k, inv_dx=1.0 / dx, kcut_cov=kc - 2 - 1e-6, kcut_pair=kp - 2 - 1e-6,
+        row_type=dev(row_type, torch.int32),
+        col_type=dev(np.stack(type2), torch.int32),
+        mask=dev(np.concatenate(masks).astype(np.uint8), torch.uint8),
+        coef=dev(coef, dtype), env_tab=dev(np.asarray(env_tab), dtype))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _geometry(x1, x2):
+    """Pair geometry (B, n1, n2): as `_geometry` (pallas_quadspline.py:175)."""
+    d = x2[:, None, :, 0:3] - x1[:, :, None, 0:3]
+    dist2 = (d * d).sum(-1) + 1e-12
+    inv = torch.rsqrt(dist2)
+    u = d * inv[..., None]
+    cos1 = (x1[:, :, None, 3:6] * u).sum(-1)
+    cos2 = -(x2[:, None, :, 3:6] * u).sum(-1)
+    return u, dist2 * inv, inv, cos1, cos2
+
+
+def _poly(coef, x, n, clamped):
+    """Horner on the interval-selected coefficients: coef (n1, n2, (n-3)*4)
+    shared over replicas, x (B, n1, n2).  Returns (value, d/dx)."""
+    xc = torch.clamp(x, 1.0, float(n - 2))
+    i = torch.clamp(torch.floor(xc), 1, n - 3)
+    t = xc - i
+    idx = ((i.long() - 1) * 4).unsqueeze(-1) + torch.arange(4, device=x.device)
+    q = torch.gather(coef.expand(x.shape + coef.shape[-1:]), -1, idx)
+    q0, q1, q2, q3 = q.unbind(-1)
+    val = ((q3 * t + q2) * t + q1) * t + q0
+    dv = (3.0 * q3 * t + 2.0 * q2) * t + q1
+    if clamped:
+        dv = torch.where((x <= 1.0) | (x >= n - 2.0), torch.zeros_like(dv), dv)
+    return val, dv
+
+
+def _spline_fields(prep, x1, x2):
+    """Values, live mask and derivative planes of the spline bands."""
+    u, dist, inv, cos1, cos2 = _geometry(x1, x2)
+    band = prep.band_of_rows()
+    spline_row = (band != 2)[:, None]      # env rows carry env types
+    zero_t = torch.zeros_like(prep.col_type[band])
+    coef = prep.coef[torch.where(spline_row[:, 0], prep.row_type, 0)
+                     .long()[:, None],
+                     torch.where(spline_row, prep.col_type[band], zero_t)
+                     .long()]                            # (n1, n2, ncoef)
+    ka, k = prep.ka, prep.k
+    na, nd = (ka - 3) * 4, (k - 3) * 4
+    inv_dth = (ka - 3) / 2.0
+    s = dist * prep.inv_dx
+    a1, da1 = _poly(coef[..., :na], (cos1 + 1.0) * inv_dth + 1.0, ka, False)
+    a2, da2 = _poly(coef[..., na:2 * na], (cos2 + 1.0) * inv_dth + 1.0, ka,
+                    False)
+    wide, dwide = _poly(coef[..., 2 * na:2 * na + nd], s, k, True)
+    narrow, dnarrow = _poly(coef[..., 2 * na + nd:], s, k, True)
+    kcut = torch.where(band == 3, prep.kcut_pair, prep.kcut_cov)
+    live = prep.mask.bool() & spline_row & (s < kcut[:, None])
+    zero = torch.zeros_like(s)
+    val = torch.where(live, wide + a1 * a2 * narrow, zero)
+    planes = torch.stack([
+        torch.where(live, (dwide + a1 * a2 * dnarrow) * prep.inv_dx, zero),
+        torch.where(live, da1 * inv_dth * a2 * narrow, zero),
+        torch.where(live, da2 * inv_dth * a1 * narrow, zero)], dim=1)
+    return (u, dist, inv, cos1, cos2), live, val, planes
+
+
+def _env_fields(prep, x1e, x2):
+    """Env band (B, n_e, n2): geometry, sigmoid values and derivatives."""
+    u, dist, inv, cos1, _ = _geometry(x1e, x2)
+    prm = prep.env_tab[prep.row_type.long()[prep.r_e:prep.r_p, None],
+                       prep.col_type.long()[2][None, :]]
+    r0, rs, d0, ds = prm.unbind(-1)
+    radial, dradial = compact_sigmoid(dist - r0, rs)
+    angular, dangular = compact_sigmoid(d0 - cos1, ds)
+    me = prep.mask[prep.r_e:prep.r_p].bool()
+    return (u, inv, cos1), me, radial, dradial, angular, dangular
+
+
+def fused_pair_fwd_plain(prep, x1, w1, x2, wcol):
+    """Plain forward.  x1 (B, n1, 6) row sites, w1 (B, n1) row weights
+    (used on the two coverage bands), x2 (B, n2, 6) bead columns, wcol
+    (B, n2) env column weights.  Returns (cov (B, 2, n2), E_pair (B, n2p,
+    n2p), env (B, n_e), planes (B, 3, n1, n2), vcov (B, r_e, n2))."""
+    _, _, val, planes = _spline_fields(prep, x1, x2)
+    B = x1.shape[0]
+    cov = torch.stack([
+        (w1[:, :prep.r_b, None] * val[:, :prep.r_b]).sum(1),
+        (w1[:, prep.r_b:prep.r_e, None] * val[:, prep.r_b:prep.r_e]).sum(1)],
+        dim=1)
+    grid = x1.new_zeros((B, prep.n2p, prep.n2p))
+    grid[:, :prep.n2, :prep.n2] = val[:, prep.r_p:]
+    _, me, radial, _, angular, _ = _env_fields(
+        prep, x1[:, prep.r_e:prep.r_p], x2)
+    env = torch.where(me, wcol[:, None, :] * radial * angular,
+                      torch.zeros_like(radial)).sum(-1)
+    return cov, grid, env, planes, val[:, :prep.r_e].contiguous()
+
+
+def fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov, g_cov,
+                         g_grid, g_env):
+    """Plain backward from the saved planes.  Returns (d1 (B, n1, 8),
+    d2 (B, n2, 8)): d1 columns are d/d(pos, dir) of each row site and the
+    coverage weight cotangent in column 6; d2 columns are d/d(pos, dir) of
+    each bead column and the env column-weight cotangent in column 6.
+    Cotangents are selected (never multiplied) by mask AND inside-cutoff,
+    so non-finite values in dead slots stay out."""
+    (u, dist, inv, cos1, cos2), live, _, _ = _spline_fields(prep, x1, x2)
+    band = prep.band_of_rows()
+    B, n1, n2 = live.shape
+    n2_ = prep.n2
+    g_raw = torch.zeros_like(dist)
+    g_raw[:, :prep.r_b] = w1[:, :prep.r_b, None] * g_cov[:, 0:1, :]
+    g_raw[:, prep.r_b:prep.r_e] = w1[:, prep.r_b:prep.r_e, None] \
+        * g_cov[:, 1:2, :]
+    g_raw[:, prep.r_p:] = g_grid[:, :n2_, :n2_]
+    zero = torch.zeros_like(dist)
+    g = torch.where(live, g_raw, zero)
+    radial = g * planes[:, 0]
+    c1 = g * planes[:, 1]
+    c2 = g * planes[:, 2]
+    f1 = (c1 * inv)[..., None]
+    f2 = (c2 * inv)[..., None]
+    dir1 = x1[:, :, None, 3:6]
+    dir2 = x2[:, None, :, 3:6]
+    gvec = (radial[..., None] * u + f1 * (dir1 - cos1[..., None] * u)
+            - f2 * (dir2 + cos2[..., None] * u))
+    gcol = torch.zeros_like(dist)
+    gcol[:, :prep.r_b] = g_cov[:, 0:1, :].expand(B, prep.r_b, n2)
+    gcol[:, prep.r_b:prep.r_e] = g_cov[:, 1:2, :].expand(
+        B, prep.r_e - prep.r_b, n2)
+    vfull = torch.zeros_like(dist)
+    vfull[:, :prep.r_e] = vcov
+    dw = torch.where(live & (band < 2)[:, None], vfull * gcol, zero).sum(-1)
+
+    d1 = x1.new_zeros((B, n1, 8))
+    d1[..., 0:3] = -gvec.sum(2)
+    d1[..., 3:6] = (c1[..., None] * u).sum(2)
+    d1[..., 6] = dw
+    d2 = x1.new_zeros((B, n2, 8))
+    d2[..., 0:3] = gvec.sum(1)
+    d2[..., 3:6] = -(c2[..., None] * u).sum(1)
+
+    # env band: recomputed from geometry (no residual planes)
+    x1e = x1[:, prep.r_e:prep.r_p]
+    (ue, inve, cos1e), me, rad, drad, ang, dang = _env_fields(prep, x1e, x2)
+    ze = torch.zeros_like(rad)
+    ge = torch.where(me, g_env[:, :, None] * wcol[:, None, :], ze)
+    rr = ge * drad * ang
+    ce = -ge * rad * dang
+    fe = (ce * inve)[..., None]
+    gvec_e = rr[..., None] * ue + fe * (x1e[:, :, None, 3:6]
+                                        - cos1e[..., None] * ue)
+    d1[:, prep.r_e:prep.r_p, 0:3] = -gvec_e.sum(2)
+    d1[:, prep.r_e:prep.r_p, 3:6] = (ce[..., None] * ue).sum(2)
+    d2[..., 0:3] += gvec_e.sum(1)
+    d2[..., 6] = torch.where(me, g_env[:, :, None] * rad * ang, ze).sum(1)
+    return d1, d2
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(prep, x1, w1, x2, wcol, *rest):
+    """Shapes, dtype and layout of the kernel operands (rest: any further
+    float32 operands, already shaped by the forward)."""
+    B = x1.shape[0]
+    shapes = ((B, prep.n1, 6), (B, prep.n1), (B, prep.n2, 6), (B, prep.n2))
+    for t, shape in zip((x1, w1, x2, wcol), shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused pair kernels: expected {shape}, got "
+                             f"{tuple(t.shape)}")
+    for t in (x1, w1, x2, wcol) + rest:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("fused pair kernels take contiguous float32 "
+                             "CUDA tensors")
+
+
+def fused_pair_fwd(prep, x1, w1, x2, wcol, plain=False):
+    """K1 forward: the plain version on CPU tensors (or when asked), the
+    CUDA kernel on CUDA tensors."""
+    if plain or not x1.is_cuda:
+        return fused_pair_fwd_plain(prep, x1, w1, x2, wcol)
+    x1, w1, x2, wcol = (t.contiguous() for t in (x1, w1, x2, wcol))
+    _check(prep, x1, w1, x2, wcol)
+    B = x1.shape[0]
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    cov = torch.empty((B, 2, prep.n2), **f32)
+    grid = torch.zeros((B, prep.n2p, prep.n2p), **f32)
+    env = torch.empty((B, prep.n_e), **f32)
+    planes = torch.empty((B, 3, prep.n1, prep.n2), **f32)
+    vcov = torch.empty((B, prep.r_e, prep.n2), **f32)
+    n_rt = -(-prep.r_e // kernels.TILE_ROWS)
+    n_ct = -(-prep.n2 // kernels.TILE_COLS)
+    colpart = torch.empty((n_rt, B, 2, prep.n2), **f32)
+    rowpart = torch.empty((n_ct, B, prep.n_e), **f32)
+    kernels.launch(
+        "fused_pair_fwd", x1, w1, x2, wcol, prep.row_type, prep.col_type,
+        prep.mask, prep.coef, prep.env_tab,
+        B, prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
+        prep.ka, prep.k, prep.coef.shape[1], prep.coef.shape[2],
+        prep.env_tab.shape[1], prep.inv_dx, prep.kcut_cov, prep.kcut_pair,
+        planes, vcov, grid, colpart, rowpart, cov, env)
+    return cov, grid, env, planes, vcov
+
+
+def fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov, g_cov, g_grid,
+                   g_env, plain=False):
+    """K1 backward: plain on CPU tensors (or when asked), CUDA kernel on
+    CUDA tensors."""
+    if plain or not x1.is_cuda:
+        return fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov,
+                                    g_cov, g_grid, g_env)
+    args = [t.contiguous() for t in (x1, w1, x2, wcol, planes, vcov, g_cov,
+                                     g_grid, g_env)]
+    _check(prep, *args)
+    x1, w1, x2, wcol, planes, vcov, g_cov, g_grid, g_env = args
+    B = x1.shape[0]
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    n_rt = -(-prep.n1 // kernels.TILE_ROWS)
+    n_ct = -(-prep.n2 // kernels.TILE_COLS)
+    d1part = torch.empty((n_ct, B, prep.n1, 8), **f32)
+    d2part = torch.empty((n_rt, B, prep.n2, 8), **f32)
+    d1 = torch.empty((B, prep.n1, 8), **f32)
+    d2 = torch.empty((B, prep.n2, 8), **f32)
+    kernels.launch(
+        "fused_pair_bwd", x1, w1, x2, wcol, prep.row_type, prep.col_type,
+        prep.mask, prep.env_tab, planes, vcov, g_cov, g_grid, g_env,
+        B, prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
+        prep.env_tab.shape[1], prep.inv_dx, prep.kcut_cov, prep.kcut_pair,
+        d1part, d2part, d1, d2)
+    return d1, d2
+
+
+class FusedPairBlock(torch.autograd.Function):
+    """cov, E_pair, env = block(x1, w1, x2, wcol); the backward consumes
+    the forward's residual planes (the custom_vjp of
+    pallas_quadspline.py:2402-2453)."""
+
+    @staticmethod
+    def forward(ctx, x1, w1, x2, wcol, prep, plain):
+        cov, grid, env, planes, vcov = fused_pair_fwd(prep, x1, w1, x2,
+                                                      wcol, plain)
+        ctx.save_for_backward(x1, w1, x2, wcol, planes, vcov)
+        ctx.prep, ctx.plain = prep, plain
+        return cov, grid, env
+
+    @staticmethod
+    def backward(ctx, g_cov, g_grid, g_env):
+        x1, w1, x2, wcol, planes, vcov = ctx.saved_tensors
+        d1, d2 = fused_pair_bwd(ctx.prep, x1, w1, x2, wcol, planes, vcov,
+                                g_cov, g_grid, g_env, ctx.plain)
+        return d1[..., :6], d1[..., 6], d2[..., :6], d2[..., 6], None, None
+
+
+def fused_pair_block(prep, x1, w1, x2, wcol, plain=False):
+    return FusedPairBlock.apply(x1, w1, x2, wcol, prep, plain)

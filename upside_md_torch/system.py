@@ -1,0 +1,143 @@
+"""System: the node graph producing one potential per replica (port of
+upside_md_tpu/system.py; reference DerivEngine, src/deriv_engine.cpp).
+
+Positions carry an explicit leading replica axis, (B, n_atom, 3); node
+tables are shared across replicas.  Forces are -d(sum of energies)/d(pos)
+from `torch.autograd.grad`.  The fused pair block (nodes/fusion.py) fires
+at the first coverage member; `System.__init__` moves that member directly
+before the second so every fused input exists by then.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from . import nodes  # noqa: F401  (registers the node types)
+from .config import bundle
+from .nodes.base import NodeSpec, resolve_node_type, to_tensor, topo_sort
+from .nodes.fusion import plan_pair_fusion
+
+
+class EvalContext:
+    """Per-evaluation state the nodes read and write."""
+
+    def __init__(self, cache=None, plain=False):
+        self.cache = cache or {}     # previous evaluation's solver state
+        self.cache_out = {}          # this evaluation's solver state
+        self.fused = {}              # fused pair block results by node
+        self.node_name = None
+        self.plain = plain           # plain versions on the card
+
+
+class System:
+    def __init__(self, n_atom: int, specs: List, device="cpu",
+                 dtype=torch.float32, kernels=True):
+        """specs: bundle SpecRecords (or port NodeSpecs).  kernels=False
+        makes every kernel wrapper take its plain version even on the card;
+        it exists to compare the two and nothing on the main path sets it."""
+        self.n_atom = n_atom
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.plain = not kernels
+        node_specs = [s if isinstance(s, NodeSpec) else NodeSpec(
+            s.name, resolve_node_type(s.type_name), list(s.args),
+            dict(s.consts), dict(s.params)) for s in specs]
+        by_name = {s.name: s for s in node_specs}
+        if len(by_name) != len(node_specs):
+            raise ValueError("duplicate node names")
+        self.specs = topo_sort(by_name)
+        self.pair_fusion = plan_pair_fusion(self.specs)
+        if self.pair_fusion is not None:
+            order = [s.name for s in self.specs]
+            i1 = order.index(self.pair_fusion.cov1.name)
+            i2 = order.index(self.pair_fusion.cov2.name)
+            if i2 - i1 > 1:
+                moved = self.specs[i1]
+                self.specs = (self.specs[:i1] + self.specs[i1 + 1:i2]
+                              + [moved] + self.specs[i2:])
+        self.consts = {}
+        self.params = {}
+        for s in self.specs:
+            prep = s.node_type.prepare
+            self.consts[s.name] = (
+                prep(s.consts, self.device, dtype) if prep else
+                {k: to_tensor(v, self.device, dtype)
+                 for k, v in s.consts.items()})
+            self.params[s.name] = {k: to_tensor(v, self.device, dtype)
+                                   for k, v in s.params.items()}
+        self._prep_memo = None
+
+    @classmethod
+    def from_bundle(cls, path, device="cpu", dtype=torch.float32,
+                    kernels=True):
+        """(System, initial positions (n_atom, 3) tensor) from a bundle."""
+        specs, pos = bundle.load(path)
+        system = cls(len(pos), specs, device, dtype, kernels)
+        return system, torch.as_tensor(pos, dtype=dtype, device=device)
+
+    # -- parameter-only operands ----------------------------------------------
+
+    def fused_prepared(self):
+        """The fused block's parameter-only operands, rebuilt only when the
+        parameter tensors change (the memo of sim.py:244-271)."""
+        if self.pair_fusion is None:
+            return None
+        key = tuple(id(t) for p in self.params.values() for t in p.values())
+        if self._prep_memo is None or self._prep_memo[0] != key:
+            self._prep_memo = (key, self.pair_fusion.prepare(
+                self.params, self.device, self.dtype))
+        return self._prep_memo[1]
+
+    # -- graph evaluation ---------------------------------------------------
+
+    def evaluate(self, pos, cache: Optional[Dict] = None, fused_prep=None):
+        """Run the graph on pos (B, n_atom, 3).  Returns (total (B,),
+        outputs, per_term, ctx); ctx.cache_out holds the new solver state."""
+        ctx = EvalContext(cache, self.plain)
+        outputs = {"pos": pos}
+        per_term = {}
+        fusion = self.pair_fusion
+        for s in self.specs:
+            if fusion is not None and s.name == fusion.trigger_name:
+                prep = fused_prep if fused_prep is not None \
+                    else self.fused_prepared()
+                ctx.fused = fusion.compute(self.consts, outputs, prep,
+                                           self.plain)
+            ctx.node_name = s.name
+            out = s.node_type.compute(self.consts[s.name],
+                                      self.params[s.name],
+                                      [outputs[a] for a in s.args], ctx)
+            if s.node_type.is_potential:
+                per_term[s.name] = out
+            else:
+                outputs[s.name] = out
+        total = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
+        for v in per_term.values():
+            total = total + v
+        return total, outputs, per_term, ctx
+
+    def init_cache(self, n_replica: int) -> Dict:
+        """Initial solver state (BP warm-start beliefs) for n_replica."""
+        cache = {}
+        for s in self.specs:
+            if s.node_type.init_cache is not None:
+                cache[s.name] = s.node_type.init_cache(
+                    self.consts[s.name], n_replica, self.dtype)
+        return cache
+
+    def energy_and_cache(self, pos, cache=None, fused_prep=None):
+        """(energy (B,), new cache): threads per-node solver state."""
+        total, _, _, ctx = self.evaluate(pos, cache, fused_prep)
+        new_cache = dict(cache or {})
+        new_cache.update(ctx.cache_out)
+        return total, new_cache
+
+    def deriv(self, pos, cache=None, fused_prep=None):
+        """(dU/dpos (B, n_atom, 3), energy (B,), new cache)."""
+        with torch.enable_grad():
+            x = pos.detach().requires_grad_(True)
+            total, new_cache = self.energy_and_cache(x, cache, fused_prep)
+            (g,) = torch.autograd.grad(total.sum(), x)
+        return g, total.detach(), new_cache
