@@ -1,21 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`upside_md_torch`) on one NVIDIA GPU.
 
-Drives the port's main path, the full-force-field MD of 76-residue
-ubiquitin (synthetic parameter libraries, random initial structure from the
-bundle's seed) as a replica ensemble, through the hand-written Hopper
-kernels, and checks it:
+Drives the port's two MD paths as replica ensembles through the
+hand-written Hopper kernels, and checks them:
+
+* the fused path: full-force-field MD of 76-residue ubiquitin (374 beads;
+  kernels K1 fwd, K1 bwd, K2);
+* the unfused path of more than 512 beads: 124-residue RNase A (543 beads;
+  K4 fwd/bwd for both coverage nodes, K5 fwd/bwd for the rotamer grid, K6
+  for residue-plane BP).
+
+Both use synthetic parameter libraries and a random initial structure from
+the bundle's seed.  Phases:
 
 1. device: a CUDA device must be present; prints its name and power limit;
-2. build: compiles upside_md_torch/csrc/*.cu with nvcc for sm_90a;
-3. kernel vs plain PyTorch at the main path's shapes (4 replicas,
-   perturbed positions): K1 forward outputs (rel 1e-5), K1 backward under
-   a random cotangent (rel 1e-4), K2 at BP tol 1e-6 (F, G1, dE rel 1e-4),
-   and the whole evaluation's energy and forces (rel < 1e-3);
-4. times each kernel and its plain version with CUDA events (median);
-5. MD: `Simulation.advance` at 64 and 512 replicas after a warm-up;
-   positions must stay finite; prints steps/s, mean BP sweeps and the
-   kernels' launch counts, which must all be > 0;
+2. build: compiles upside_md_torch/csrc/*.cu with nvcc for sm_90a, one
+   process per source, all started together;
+3. kernel vs plain PyTorch at each path's shapes (4 replicas, perturbed
+   positions): forwards rel 1e-5, backwards under a random cotangent rel
+   1e-4, BP at tol 1e-6 cold and warm (F, gradients, beliefs rel 1e-4,
+   bitwise repeatable, sweep counts printed), and the whole evaluation's
+   energy and force RMS against `kernels=False` (rel < 1e-3);
+4. times each kernel and its plain version with CUDA events (median) at
+   64 replicas, beside its bound: the larger of the bytes it must move
+   over the card's memory rate and the operations this run's data needs
+   over the card's float32 rate (H100 SXM data sheet), both counted over
+   the pairs and edges this run's data needs.  The BP kernels (K2, K6)
+   are also timed at two fixed sweep counts with the convergence test
+   off: the slope is the time of one dependent sweep, and that times the
+   most sweeps a replica of the timed run took is their latency floor;
+5. MD: `Simulation.advance` at 64 and 512 replicas on each path after a
+   warm-up, the launch counts set to 0 just before each path and read just
+   after; positions must stay finite and each path's kernels must have
+   launched; prints steps/s and mean BP sweeps;
 6. prints the kernel table as one JSON line, the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
@@ -28,6 +45,7 @@ repository root:
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -36,7 +54,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BUNDLE = "ubiquitin_full_synth.npz"
+BUNDLE = "ubiquitin_full_synth.npz"        # fused path (<= 512 beads)
+BUNDLE_UNFUSED = "rnase_a_full_synth.npz"  # unfused path (543 beads)
 KERNEL_INFO = {
     "fused_pair_fwd": ("upside_md_torch/csrc/fused_pair_fwd.cu",
                        "upside_md_tpu/ops/pallas_quadspline.py:1021"),
@@ -44,7 +63,35 @@ KERNEL_INFO = {
                        "upside_md_tpu/ops/pallas_quadspline.py:1276"),
     "bp_bethe_pairs": ("upside_md_torch/csrc/bp_bethe_pairs.cu",
                        "upside_md_tpu/ops/pallas_bp.py:965"),
+    "quadspline_fwd": ("upside_md_torch/csrc/quadspline.cu",
+                       "upside_md_tpu/ops/pallas_quadspline.py:248"),
+    "quadspline_bwd": ("upside_md_torch/csrc/quadspline.cu",
+                       "upside_md_tpu/ops/pallas_quadspline.py:277"),
+    "colsum_fwd": ("upside_md_torch/csrc/quadspline.cu",
+                   "upside_md_tpu/ops/pallas_quadspline.py:356"),
+    "colsum_bwd": ("upside_md_torch/csrc/quadspline.cu",
+                   "upside_md_tpu/ops/pallas_quadspline.py:390"),
+    "bp_bethe_planes": ("upside_md_torch/csrc/bp_bethe_planes.cu",
+                        "upside_md_tpu/ops/pallas_bp.py:230"),
 }
+FUSED_KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
+UNFUSED_KERNELS = ("quadspline_fwd", "quadspline_bwd", "colsum_fwd",
+                   "colsum_bwd", "bp_bethe_planes")
+
+# H100 SXM peaks (NVIDIA data sheet): device memory and float32 outside the
+# tensor cores, the type every kernel here computes in
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per pair or edge, counted from the kernel sources
+# (an FMA counts 2): pair geometry; spline value (4 segments, Horner);
+# value with the derivative planes; recomputing backward; K1's env pair
+# forward and backward; K1's plane-consuming backward; one BP sweep per
+# directed edge (edge and node update); the Bethe pass per undirected edge
+OPS_GEOM, OPS_VALUE, OPS_PLANES, OPS_BWD = 27, 80, 110, 150
+OPS_ENV_FWD, OPS_ENV_BWD, OPS_PLANE_BWD = 46, 70, 45
+OPS_SWEEP_EDGE, OPS_BETHE_EDGE = 110, 540
+COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
+SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 
 
 def log(msg):
@@ -89,10 +136,485 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: rel err {err} >= {tol}")
 
 
+def compare(label, got, want, tol):
+    """Checks each (name, kernel, plain) triple; returns the max abs err."""
+    worst = 0.0
+    for nm, a, b in zip(label, got, want):
+        e, d = rel_err(a, b)
+        check(nm, e, tol)
+        worst = max(worst, d)
+    return worst
+
+
+def repeatable(name, a, b):
+    if not all(x.equal(y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name} is not deterministic on identical "
+                             "inputs")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(n_bytes, n_ops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def spline_pairs(ps, tab, x1, x2):
+    """(pairs in the mask, pairs also inside the cutoff), over replicas."""
+    from upside_md_torch.ops.quadspline import live_pairs
+    return (int(ps.mask.sum()) * x1.shape[0],
+            int(live_pairs(ps, tab, x1, x2).sum()))
+
+
+def spline_ops(ps, tab, x1, x2, per_live):
+    """Geometry for every pair in the mask, the spline for those inside
+    the cutoff."""
+    masked, live = spline_pairs(ps, tab, x1, x2)
+    return masked * OPS_GEOM + live * (per_live - OPS_GEOM)
+
+
+def bp_ops(adj, iters):
+    """BP work this run's data needs: sweeps over directed edges, then the
+    Bethe pass over undirected ones."""
+    edges = adj.sum((1, 2)).double()
+    return float((edges * (OPS_SWEEP_EDGE * iters.double()
+                           + OPS_BETHE_EDGE / 2)).sum())
+
+
+def bp_bound(adj, warm, out, pair_bytes, *dense):
+    """K2's or K6's bound: the dense inputs and every output moved once,
+    the pair factors (`pair_bytes`, counted by the caller) and the warm
+    messages only on the adjacent directed edges of `adj` (no diagonal),
+    which is all the solve reads of them."""
+    return bound(nbytes(*dense, warm[0], *out) + pair_bytes
+                 + int(adj.sum()) * 6 * warm[1].element_size(),
+                 bp_ops(adj, out[6]))
+
+
+def sweep_latency(run, st, iters):
+    """(ms per dependent sweep, latency floor ms): `run(st)` timed at two
+    fixed sweep counts with the convergence test off, and the slope times
+    the most sweeps a replica of the timed run took (its block ends last)."""
+    t_lo, t_hi = (cuda_ms(lambda: run(dataclasses.replace(
+        st, max_iter=m, tol=-1.0))) for m in (SWEEPS_LO, SWEEPS_HI))
+    per = (t_hi - t_lo) / (SWEEPS_HI - SWEEPS_LO)
+    return per, per * int(iters.max())
+
+
+def perturbed(base, n, gen, dev):
+    import torch
+    return base[None] + 0.1 * torch.randn((n,) + base.shape, generator=gen,
+                                          device=dev)
+
+
+def load_system(path, dev, kernels=True, tol=None):
+    import torch
+    from upside_md_torch.config import bundle
+    from upside_md_torch.system import System
+    specs, pos0 = bundle.load(path)
+    if tol is not None:
+        for s in specs:
+            if s.type_name == "rotamer":
+                s.consts["tol"] = tol
+    return System(len(pos0), specs, dev, torch.float32, kernels), pos0
+
+
+# ---------------------------------------------------------------------------
+# the fused path (ubiquitin): K1 fwd, K1 bwd, K2
+# ---------------------------------------------------------------------------
+
+def fused_operands(system, outs, gen, dev):
+    import torch
+    from upside_md_torch.nodes.rotamer import assemble_one_body
+    plan = system.pair_fusion
+    prep = system.fused_prepared()
+    x1, w1, x2, wcol = plan.block_inputs(system.consts, outs)
+    rot = plan.rot
+    E1 = assemble_one_body(system.consts[rot.name],
+                           [outs[a] for a in rot.args])
+    return dict(prep=prep, x=(x1, w1, x2, wcol), E1=E1,
+                st=system.consts[rot.name]["bp"],
+                randn=lambda t: torch.randn(t.shape, generator=gen,
+                                            device=dev))
+
+
+def compare_fused(dev, gen, base, path):
+    import torch
+    from upside_md_torch.ops.bp_pairs import bp_bethe_pairs_fwd
+    from upside_md_torch.ops.fused_pair import fused_pair_bwd, fused_pair_fwd
+    sys_k, _ = load_system(path, dev, True, tol=1e-6)
+    sys_p, _ = load_system(path, dev, False, tol=1e-6)
+    pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    o = fused_operands(sys_k, outs, gen, dev)
+    prep, x = o["prep"], o["x"]
+    log(f"[compare ubiquitin] rows {prep.n1} (hbond {prep.r_b}, hydrophobe "
+        f"{prep.r_e - prep.r_b}, env {prep.n_e}, beads {prep.n2}) x "
+        f"{prep.n2} columns, {COMPARE_REPLICAS} replicas")
+    errs = {}
+    fk = fused_pair_fwd(prep, *x)
+    fp = fused_pair_fwd(prep, *x, plain=True)
+    torch.cuda.synchronize()
+    errs["fused_pair_fwd"] = compare(
+        [f"K1 fwd {n}" for n in ("cov", "E_pair", "env", "planes", "vcov")],
+        fk, fp, 1e-5)
+    g = [o["randn"](t) for t in fp[:3]]
+    bk = fused_pair_bwd(prep, *x, fk[3], fk[4], *g)
+    bp = fused_pair_bwd(prep, *x, fp[3], fp[4], *g, plain=True)
+    torch.cuda.synchronize()
+    errs["fused_pair_bwd"] = compare(["K1 bwd d1", "K1 bwd d2"], bk, bp,
+                                     1e-4)
+
+    st, E1, E_pair = o["st"], o["E1"], fp[1]
+    kk = bp_bethe_pairs_fwd(st, E1, E_pair)
+    pp = bp_bethe_pairs_fwd(st, E1, E_pair, plain=True)
+    repeatable("K2", kk, bp_bethe_pairs_fwd(st, E1, E_pair))
+    log(f"  K2 sweeps kernel {kk[6].tolist()} plain {pp[6].tolist()}, "
+        f"final dev kernel {kk[5].max().item():.2e}")
+    e_bp = compare(["K2 F", "K2 G1", "K2 dE"], kk[:3], pp[:3], 1e-4)
+    compare(["K2 beliefs"], kk[3:4], pp[3:4], 1e-4)
+    warm = (kk[3], kk[4])
+    kw = bp_bethe_pairs_fwd(st, E1, E_pair, warm)
+    pw = bp_bethe_pairs_fwd(st, E1, E_pair, warm, plain=True)
+    e_bp = max(e_bp, compare(["K2 F warm", "K2 G1 warm", "K2 dE warm"],
+                             kw[:3], pw[:3], 1e-4))
+    errs["bp_bethe_pairs"] = e_bp
+    whole = compare_whole(sys_k, sys_p, pos, "ubiquitin")
+    return errs, whole
+
+
+def time_fused(dev, gen, base, path):
+    import torch
+    from upside_md_torch.ops.bp_pairs import bp_bethe_pairs_fwd, \
+        scatter_pairs
+    from upside_md_torch.ops.fused_pair import (_env_fields, fused_pair_bwd,
+                                                fused_pair_fwd)
+    system, _ = load_system(path, dev, True)
+    sys_p, _ = load_system(path, dev, False)
+    n_t = TIME_REPLICAS
+    pos = perturbed(base, n_t, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    o = fused_operands(system, outs, gen, dev)
+    prep, x, st, E1 = o["prep"], o["x"], o["st"], o["E1"]
+    fk = fused_pair_fwd(prep, *x)
+    g = [o["randn"](t) for t in fk[:3]]
+    cold = bp_bethe_pairs_fwd(st, E1, fk[1])
+    warm = (cold[3], cold[4])
+    res = {}
+    res["fused_pair_fwd"] = (
+        cuda_ms(lambda: fused_pair_fwd(prep, *x)),
+        cuda_ms(lambda: fused_pair_fwd(prep, *x, plain=True), reps=5))
+    res["fused_pair_bwd"] = (
+        cuda_ms(lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g)),
+        cuda_ms(lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g,
+                                       plain=True), reps=5))
+    out_bp = bp_bethe_pairs_fwd(st, E1, fk[1], warm)
+    res["bp_bethe_pairs"] = (
+        cuda_ms(lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm)),
+        cuda_ms(lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm, plain=True),
+                reps=5))
+
+    # bounds from this run's inputs
+    statics = (prep.row_type, prep.col_type, prep.mask, prep.coef,
+               prep.env_tab)
+    with torch.no_grad():
+        me = _env_fields(prep, x[0][:, prep.r_e:prep.r_p], x[2])[1]
+    env_pairs = int(me.sum()) * n_t
+    spline_pairs_ = n_t * (prep.n1 - prep.n_e) * prep.n2
+    bounds = {
+        "fused_pair_fwd": bound(
+            nbytes(*x, *statics, *fk),
+            spline_pairs_ * OPS_PLANES + env_pairs * OPS_ENV_FWD),
+        "fused_pair_bwd": bound(
+            nbytes(*x, *statics, fk[3], fk[4], *g,
+                   *fused_pair_bwd(prep, *x, fk[3], fk[4], *g)),
+            spline_pairs_ * OPS_PLANE_BWD + env_pairs * OPS_ENV_BWD),
+    }
+    eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
+    adj = (scatter_pairs(st, fk[1]) != 0).any(-1).any(-1) & ~eye
+    # K2 finds the adjacency in the bead grid, so it reads every pair of
+    # the rotamer mask (upper triangle, different residues)
+    r = st.bead_slot.long() // 6
+    grid_pairs = int(torch.triu(r[:, None] != r[None, :], 1).sum()) * n_t
+    bounds["bp_bethe_pairs"] = bp_bound(
+        adj, warm, out_bp, grid_pairs * fk[1].element_size(), E1,
+        st.slot_beads, st.bead_slot, st.valid)
+    lat = {"bp_bethe_pairs": sweep_latency(
+        lambda s: bp_bethe_pairs_fwd(s, E1, fk[1], warm), st, out_bp[6])}
+    del system, sys_p, outs, fk
+    torch.cuda.empty_cache()
+    return res, bounds, lat
+
+
+# ---------------------------------------------------------------------------
+# the unfused path (RNase A): K4, K5, K6
+# ---------------------------------------------------------------------------
+
+def unfused_operands(system, outs):
+    """Each coverage node's (spline statics, table, rows, columns, weight)
+    and the rotamer's beads, 1-body energies and statics."""
+    from upside_md_torch.nodes.rotamer import assemble_one_body
+    covs = []
+    for s in system.specs:
+        if s.node_type.name == "hbond_coverage":
+            c = system.consts[s.name]
+            rows = outs[s.args[0]][:, c["index1"]]
+            cols = outs[s.args[1]][:, c["index2"]]
+            covs.append((s.name, c["spline"],
+                         system.params[s.name]["interaction_param"],
+                         rows[..., :6].contiguous(),
+                         cols[..., :6].contiguous(),
+                         ((1.0 - rows[..., 6]) ** 2).contiguous()))
+    rot = [s for s in system.specs if s.node_type.name == "rotamer"][0]
+    c = system.consts[rot.name]
+    beads = outs[rot.args[0]][:, c["index"], :6].contiguous()
+    E1 = assemble_one_body(c, [outs[a] for a in rot.args])
+    return covs, (c, system.params[rot.name], beads, E1)
+
+
+def bp_planes_inputs(rot_ops, grid):
+    """K6's operands (statics, Boltzmann planes, adjacency), as the
+    rotamer node forms them."""
+    from upside_md_torch.nodes.rotamer import residue_planes
+    from upside_md_torch.ops.bp_planes import boltzmann_planes
+    c, p, beads, _ = rot_ops
+    st = c["bp"]
+    E2planes, adj = residue_planes(c, p, beads, grid)
+    return st, boltzmann_planes(E2planes, st.valid), adj
+
+
+def compare_unfused(dev, gen, base, path):
+    import torch
+    from upside_md_torch.ops import quadspline as qs
+    from upside_md_torch.ops.bp_planes import bp_bethe_planes_fwd
+    sys_k, _ = load_system(path, dev, True, tol=1e-6)
+    sys_p, _ = load_system(path, dev, False, tol=1e-6)
+    if sys_k.pair_fusion is not None:
+        raise AssertionError("RNase A must take the unfused path")
+    pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    covs, rot_ops = unfused_operands(sys_k, outs)
+    c, p, beads, E1 = rot_ops
+    log(f"[compare RNase A] coverage rows "
+        f"{[cv[3].shape[1] for cv in covs]} x {beads.shape[1]} beads, "
+        f"{c['bp'].n_res} residues, {COMPARE_REPLICAS} replicas")
+    randn = (lambda t: torch.randn(t.shape, generator=gen, device=dev))
+    errs = {}
+
+    ps, tab = c["spline"], c["spline"].table(p["interaction_param"])
+    k5 = qs.quadspline_fwd(ps, tab, beads, beads)
+    repeatable("K5 fwd", (k5,), (qs.quadspline_fwd(ps, tab, beads, beads),))
+    p5 = qs.quadspline_fwd(ps, tab, beads, beads, plain=True)
+    errs["quadspline_fwd"] = compare(["K5 fwd grid"], (k5,), (p5,), 1e-5)
+    g5 = randn(k5)
+    kb = qs.quadspline_bwd(ps, tab, beads, beads, g5)
+    repeatable("K5 bwd", kb, qs.quadspline_bwd(ps, tab, beads, beads, g5))
+    errs["quadspline_bwd"] = compare(
+        ["K5 bwd d1", "K5 bwd d2"], kb,
+        qs.quadspline_bwd(ps, tab, beads, beads, g5, plain=True), 1e-4)
+
+    errs["colsum_fwd"] = errs["colsum_bwd"] = 0.0
+    for name, cps, table, x1, x2, w1 in covs:
+        ctab = cps.table(table)
+        k4 = qs.colsum_fwd(cps, ctab, x1, x2, w1)
+        repeatable("K4 fwd", (k4,), (qs.colsum_fwd(cps, ctab, x1, x2, w1),))
+        errs["colsum_fwd"] = max(errs["colsum_fwd"], compare(
+            [f"K4 fwd {name}"], (k4,),
+            (qs.colsum_fwd(cps, ctab, x1, x2, w1, plain=True),), 1e-5))
+        g4 = randn(k4)
+        kb = qs.colsum_bwd(cps, ctab, x1, x2, w1, g4)
+        repeatable("K4 bwd", kb, qs.colsum_bwd(cps, ctab, x1, x2, w1, g4))
+        errs["colsum_bwd"] = max(errs["colsum_bwd"], compare(
+            [f"K4 bwd {name} d1 (dw in col 6)", f"K4 bwd {name} d2"], kb,
+            qs.colsum_bwd(cps, ctab, x1, x2, w1, g4, plain=True), 1e-4))
+
+    st, P, adj = bp_planes_inputs(rot_ops, k5)
+    kk = bp_bethe_planes_fwd(st, E1, P, adj)
+    pp = bp_bethe_planes_fwd(st, E1, P, adj, plain=True)
+    repeatable("K6", kk, bp_bethe_planes_fwd(st, E1, P, adj))
+    log(f"  K6 sweeps kernel {kk[6].tolist()} plain {pp[6].tolist()}, "
+        f"final dev kernel {kk[5].max().item():.2e}, edges "
+        f"{adj.sum((1, 2)).tolist()}")
+    e6 = compare(["K6 F", "K6 G1", "K6 G2", "K6 beliefs"], kk[:4], pp[:4],
+                 1e-4)
+    warm = (kk[3], kk[4])
+    kw = bp_bethe_planes_fwd(st, E1 + 0.01, P, adj, warm)
+    pw = bp_bethe_planes_fwd(st, E1 + 0.01, P, adj, warm, plain=True)
+    repeatable("K6 warm", kw, bp_bethe_planes_fwd(st, E1 + 0.01, P, adj,
+                                                  warm))
+    log(f"  K6 warm sweeps kernel {kw[6].tolist()} plain {pw[6].tolist()}")
+    errs["bp_bethe_planes"] = max(e6, compare(
+        ["K6 F warm", "K6 G1 warm", "K6 G2 warm", "K6 beliefs warm"],
+        kw[:4], pw[:4], 1e-4))
+    whole = compare_whole(sys_k, sys_p, pos, "RNase A")
+    return errs, whole
+
+
+def time_unfused(dev, gen, base, path):
+    import torch
+    from upside_md_torch.ops import quadspline as qs
+    from upside_md_torch.ops.bp_planes import bp_bethe_planes_fwd
+    system, _ = load_system(path, dev, True)
+    sys_p, _ = load_system(path, dev, False)
+    n_t = TIME_REPLICAS
+    pos = perturbed(base, n_t, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    covs, rot_ops = unfused_operands(system, outs)
+    c, p, beads, E1 = rot_ops
+    ps, tab = c["spline"], c["spline"].table(p["interaction_param"])
+    randn = (lambda t: torch.randn(t.shape, generator=gen, device=dev))
+    grid = qs.quadspline_fwd(ps, tab, beads, beads)
+    g5 = randn(grid)
+    cov_ops = [(cps, cps.table(table), x1, x2, w1)
+               for _, cps, table, x1, x2, w1 in covs]
+    g4 = [randn(x2[..., 0]) for _, _, _, x2, _ in cov_ops]
+    st, P, adj = bp_planes_inputs(rot_ops, grid)
+    cold = bp_bethe_planes_fwd(st, E1, P, adj)
+    warm = (cold[3], cold[4])
+
+    def k4_fwd(plain):
+        return [qs.colsum_fwd(*o, plain=plain) for o in cov_ops]
+
+    def k4_bwd(plain):
+        return [qs.colsum_bwd(*o, g, plain=plain)
+                for o, g in zip(cov_ops, g4)]
+
+    res = {
+        "quadspline_fwd": (
+            cuda_ms(lambda: qs.quadspline_fwd(ps, tab, beads, beads)),
+            cuda_ms(lambda: qs.quadspline_fwd(ps, tab, beads, beads,
+                                              plain=True), reps=5)),
+        "quadspline_bwd": (
+            cuda_ms(lambda: qs.quadspline_bwd(ps, tab, beads, beads, g5)),
+            cuda_ms(lambda: qs.quadspline_bwd(ps, tab, beads, beads, g5,
+                                              plain=True), reps=5)),
+        "colsum_fwd": (cuda_ms(lambda: k4_fwd(False)),
+                       cuda_ms(lambda: k4_fwd(True), reps=5)),
+        "colsum_bwd": (cuda_ms(lambda: k4_bwd(False)),
+                       cuda_ms(lambda: k4_bwd(True), reps=5)),
+        "bp_bethe_planes": (
+            cuda_ms(lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm)),
+            cuda_ms(lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm,
+                                                plain=True), reps=5)),
+    }
+
+    def statics(sp, t):
+        return (sp.t1, sp.t2, sp.mask, sp.tile_alive, t.coef)
+
+    with torch.no_grad():
+        d5 = qs.quadspline_bwd(ps, tab, beads, beads, g5)
+        # the K5 backward needs the cotangent only of pairs inside the
+        # cutoff; the rest of the grid is never read
+        live5 = spline_pairs(ps, tab, beads, beads)[1]
+        bounds = {
+            "quadspline_fwd": bound(
+                nbytes(beads, *statics(ps, tab), grid),
+                spline_ops(ps, tab, beads, beads, OPS_VALUE)),
+            "quadspline_bwd": bound(
+                nbytes(beads, *statics(ps, tab), *d5)
+                + live5 * g5.element_size(),
+                spline_ops(ps, tab, beads, beads, OPS_BWD)),
+        }
+        f_bytes = f_ops = b_bytes = b_ops = 0
+        for (cps, ctab, x1, x2, w1), g in zip(cov_ops, g4):
+            out = qs.colsum_fwd(cps, ctab, x1, x2, w1)
+            d = qs.colsum_bwd(cps, ctab, x1, x2, w1, g)
+            f_bytes += nbytes(x1, x2, w1, *statics(cps, ctab), out)
+            b_bytes += nbytes(x1, x2, w1, g, *statics(cps, ctab), *d)
+            f_ops += spline_ops(cps, ctab, x1, x2, OPS_VALUE + 2)
+            b_ops += spline_ops(cps, ctab, x1, x2, OPS_BWD + 5)
+        bounds["colsum_fwd"] = bound(f_bytes, f_ops)
+        bounds["colsum_bwd"] = bound(b_bytes, b_ops)
+        out6 = bp_bethe_planes_fwd(st, E1, P, adj, warm)
+        # 36 factors of each adjacent directed edge
+        bounds["bp_bethe_planes"] = bp_bound(
+            adj, warm, out6, int(adj.sum()) * 36 * P.element_size(), E1,
+            adj, st.valid)
+    lat = {"bp_bethe_planes": sweep_latency(
+        lambda s: bp_bethe_planes_fwd(s, E1, P, adj, warm), st, out6[6])}
+    del system, sys_p, outs, grid, P
+    torch.cuda.empty_cache()
+    return res, bounds, lat
+
+
+# ---------------------------------------------------------------------------
+# shared phases
+# ---------------------------------------------------------------------------
+
+def compare_whole(sys_k, sys_p, pos, label):
+    import torch
+    gk, ek, _ = sys_k.deriv(pos, sys_k.init_cache(pos.shape[0]))
+    gp, ep, _ = sys_p.deriv(pos, sys_p.init_cache(pos.shape[0]))
+    err_e = ((ek - ep).abs() / ep.abs().clamp(min=1.0)).max().item()
+    err_g = ((gk - gp).pow(2).mean().sqrt()
+             / gp.pow(2).mean().sqrt().clamp(min=1e-12)).item()
+    check(f"{label} whole evaluation energy", err_e, 1e-3)
+    check(f"{label} whole evaluation force RMS", err_g, 1e-3)
+    if not (torch.isfinite(gk).all() and torch.isfinite(ek).all()):
+        raise AssertionError(f"{label}: non-finite energy or forces")
+    return {"energy_rel": err_e, "force_rms_rel": err_g}
+
+
+def run_md(path, dev, label, names, rounds=5):
+    """MD on one path at 64 and 512 replicas; the launch counts are set to 0
+    just before and read just after, and each of `names` must be > 0."""
+    import torch
+    from upside_md_torch.md.sim import Simulation
+    from upside_md_torch.ops import kernels
+    system, pos0 = load_system(path, dev)
+    md = {}
+    kernels.reset_counts()
+    for n_rep in MD_REPLICAS:
+        torch.cuda.reset_peak_memory_stats()
+        sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
+        state = sim.initial_state(pos0, n_rep, temperature=0.85)
+        state = sim.advance(state, 2)                      # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            s0, e0 = state.bp_sweeps.sum().item(), state.n_evals
+            t0 = time.perf_counter()
+            state = sim.advance(state, rounds)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sweeps = (state.bp_sweeps.sum().item() - s0) / (
+            (state.n_evals - e0) * n_rep)
+        if not (state.pos.shape == (n_rep,) + tuple(pos0.shape)
+                and torch.isfinite(state.pos).all()):
+            raise AssertionError(f"{label} MD at {n_rep} replicas: bad "
+                                 "positions")
+        rate = 3 * rounds * n_rep / statistics.median(times)
+        md[n_rep] = {"steps_per_s": rate, "times_s": times,
+                     "mean_bp_sweeps": sweeps,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[md {label}] {n_rep} replicas: {rate:.1f} steps/s (median of "
+            f"{[round(t, 4) for t in times]} s per {rounds} rounds), mean "
+            f"BP sweeps {sweeps:.2f}, peak memory "
+            f"{md[n_rep]['peak_mem_gb']:.2f} GB, positions finite")
+        del sim, state
+        torch.cuda.empty_cache()
+    launches = dict(kernels.LAUNCHES)
+    log(f"[md {label}] kernel launches: {launches}")
+    for nm in names:
+        if launches[nm] <= 0:
+            raise AssertionError(f"kernel {nm} was not launched by the "
+                                 f"{label} MD")
+    return md, {nm: launches[nm] for nm in names}
+
+
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -101,17 +623,14 @@ def main():
     sys.path.insert(0, ROOT)
     from upside_md_torch import DATA_DIR
     from upside_md_torch.config import bundle
-    from upside_md_torch.md.sim import Simulation
-    from upside_md_torch.nodes.rotamer import assemble_one_body
     from upside_md_torch.ops import kernels
-    from upside_md_torch.ops.bp_pairs import bp_bethe_pairs_fwd
-    from upside_md_torch.ops.fused_pair import fused_pair_bwd, fused_pair_fwd
-    from upside_md_torch.system import System
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     results = {"phases": {}}
+    fused_path = os.path.join(DATA_DIR, BUNDLE)
+    unfused_path = os.path.join(DATA_DIR, BUNDLE_UNFUSED)
 
     # ---- 1. device
     card = card_line()
@@ -127,180 +646,54 @@ def main():
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # ---- 3. kernel vs plain at main-path shapes
-    specs, pos0 = bundle.load(os.path.join(DATA_DIR, BUNDLE))
-    for s in specs:
-        if s.type_name == "rotamer":
-            s.consts["tol"] = 1e-6
-    sys_k = System(len(pos0), specs, dev, torch.float32, kernels=True)
-    sys_p = System(len(pos0), specs, dev, torch.float32, kernels=False)
+    # ---- 3. kernel vs plain at each path's shapes
     gen = torch.Generator(device=dev).manual_seed(7)
-    base = torch.as_tensor(pos0, device=dev)
-    pos = base[None] + 0.1 * torch.randn((4,) + base.shape, generator=gen,
-                                         device=dev)
-    with torch.no_grad():
-        _, outs, _, _ = sys_p.evaluate(pos)
-    plan = sys_k.pair_fusion
-    prep = sys_k.fused_prepared()
-    x1, w1, x2, wcol = plan.block_inputs(sys_k.consts, outs)
-    log(f"[compare] rows {prep.n1} (hbond {prep.r_b}, hydrophobe "
-        f"{prep.r_e - prep.r_b}, env {prep.n_e}, beads {prep.n2}) x "
-        f"{prep.n2} columns, 4 replicas")
-    errs = {}
-    fk = fused_pair_fwd(prep, x1, w1, x2, wcol)
-    fp = fused_pair_fwd(prep, x1, w1, x2, wcol, plain=True)
-    torch.cuda.synchronize()
-    e_fwd = 0.0
-    for nm, a, b in zip(("cov", "E_pair", "env", "planes", "vcov"), fk, fp):
-        e, d = rel_err(a, b)
-        check(f"K1 fwd {nm}", e, 1e-5)
-        e_fwd = max(e_fwd, d)
-    errs["fused_pair_fwd"] = e_fwd
-    g_cov = torch.randn(fp[0].shape, generator=gen, device=dev)
-    g_grid = torch.randn(fp[1].shape, generator=gen, device=dev)
-    g_env = torch.randn(fp[2].shape, generator=gen, device=dev)
-    bk = fused_pair_bwd(prep, x1, w1, x2, wcol, fk[3], fk[4], g_cov, g_grid,
-                        g_env)
-    bp = fused_pair_bwd(prep, x1, w1, x2, wcol, fp[3], fp[4], g_cov, g_grid,
-                        g_env, plain=True)
-    torch.cuda.synchronize()
-    e_bwd = 0.0
-    for nm, a, b in zip(("d1", "d2"), bk, bp):
-        e, d = rel_err(a, b)
-        check(f"K1 bwd {nm}", e, 1e-4)
-        e_bwd = max(e_bwd, d)
-    errs["fused_pair_bwd"] = e_bwd
-
-    rot = plan.rot
-    st = sys_k.consts[rot.name]["bp"]
-    E1 = assemble_one_body(sys_k.consts[rot.name],
-                           [outs[a] for a in rot.args])
-    E_pair = fp[1]
-    kk = bp_bethe_pairs_fwd(st, E1, E_pair)
-    pp = bp_bethe_pairs_fwd(st, E1, E_pair, plain=True)
-    again = bp_bethe_pairs_fwd(st, E1, E_pair)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(kk, again)):
-        raise AssertionError("K2 is not deterministic on identical inputs")
-    log(f"  K2 sweeps kernel {kk[6].tolist()} plain {pp[6].tolist()}, "
-        f"final dev kernel {kk[5].max().item():.2e}")
-    e_bp = 0.0
-    for nm, i in (("F", 0), ("G1", 1), ("dE", 2)):
-        e, d = rel_err(kk[i], pp[i])
-        check(f"K2 {nm}", e, 1e-4)
-        e_bp = max(e_bp, d)
-    e, _ = rel_err(kk[3], pp[3])
-    check("K2 beliefs", e, 1e-4)
-    warm = (kk[3], kk[4])
-    kw = bp_bethe_pairs_fwd(st, E1, E_pair, warm)
-    pw = bp_bethe_pairs_fwd(st, E1, E_pair, warm, plain=True)
-    for nm, i in (("F warm", 0), ("G1 warm", 1), ("dE warm", 2)):
-        e, d = rel_err(kw[i], pw[i])
-        check(f"K2 {nm}", e, 1e-4)
-        e_bp = max(e_bp, d)
-    errs["bp_bethe_pairs"] = e_bp
-
-    gk, ek, _ = sys_k.deriv(pos, sys_k.init_cache(4))
-    gp, ep, _ = sys_p.deriv(pos, sys_p.init_cache(4))
-    err_e = ((ek - ep).abs() / ep.abs().clamp(min=1.0)).max().item()
-    err_g = ((gk - gp).pow(2).mean().sqrt()
-             / gp.pow(2).mean().sqrt().clamp(min=1e-12)).item()
-    check("whole evaluation energy", err_e, 1e-3)
-    check("whole evaluation force RMS", err_g, 1e-3)
-    if not (torch.isfinite(gk).all() and torch.isfinite(ek).all()):
-        raise AssertionError("non-finite energy or forces")
-    results["phases"]["compare"] = {
-        "max_abs_err": errs, "energy_rel": err_e, "force_rms_rel": err_g}
-
-    del sys_k, sys_p, fk, fp, bk, bp, kk, pp, kw, pw
-
-    # ---- 4. timing, kernel vs plain, at the 64-replica point of the main
-    # path with the config's BP tolerance and a warm start, as in MD
-    specs, pos0 = bundle.load(os.path.join(DATA_DIR, BUNDLE))
-    system = System(len(pos0), specs, dev, torch.float32)
-    sys_p = System(len(pos0), specs, dev, torch.float32, kernels=False)
-    n_t = 64
-    pos = base[None] + 0.1 * torch.randn((n_t,) + base.shape, generator=gen,
-                                         device=dev)
-    with torch.no_grad():
-        _, outs, _, _ = sys_p.evaluate(pos)
-    prep = system.fused_prepared()
-    x1, w1, x2, wcol = plan.block_inputs(system.consts, outs)
-    fk = fused_pair_fwd(prep, x1, w1, x2, wcol)
-    g_cov = torch.randn(fk[0].shape, generator=gen, device=dev)
-    g_grid = torch.randn(fk[1].shape, generator=gen, device=dev)
-    g_env = torch.randn(fk[2].shape, generator=gen, device=dev)
-    st = system.consts[rot.name]["bp"]
-    E1 = assemble_one_body(system.consts[rot.name],
-                           [outs[a] for a in rot.args])
-    cold = bp_bethe_pairs_fwd(st, E1, fk[1])
-    warm = (cold[3], cold[4])
-    ms = {
-        "fused_pair_fwd": (
-            cuda_ms(lambda: fused_pair_fwd(prep, x1, w1, x2, wcol)),
-            cuda_ms(lambda: fused_pair_fwd(prep, x1, w1, x2, wcol,
-                                           plain=True), reps=5)),
-        "fused_pair_bwd": (
-            cuda_ms(lambda: fused_pair_bwd(prep, x1, w1, x2, wcol, fk[3],
-                                           fk[4], g_cov, g_grid, g_env)),
-            cuda_ms(lambda: fused_pair_bwd(prep, x1, w1, x2, wcol, fk[3],
-                                           fk[4], g_cov, g_grid, g_env,
-                                           plain=True), reps=5)),
-        "bp_bethe_pairs": (
-            cuda_ms(lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm)),
-            cuda_ms(lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm,
-                                               plain=True), reps=5)),
-    }
-    for nm, (a, b) in ms.items():
-        log(f"[time] {nm}: kernel {a:.4f} ms, plain {b:.4f} ms "
-            f"({n_t} replicas)")
-    results["phases"]["time_ms"] = ms
-    del sys_p, outs, fk
+    base_f = torch.as_tensor(bundle.load(fused_path)[1], device=dev)
+    base_u = torch.as_tensor(bundle.load(unfused_path)[1], device=dev)
+    errs, whole_f = compare_fused(dev, gen, base_f, fused_path)
+    errs_u, whole_u = compare_unfused(dev, gen, base_u, unfused_path)
+    errs.update(errs_u)
+    results["phases"]["compare"] = {"max_abs_err": errs,
+                                    "ubiquitin": whole_f,
+                                    "rnase_a": whole_u}
     torch.cuda.empty_cache()
 
-    # ---- 5. MD through the main path
-    md = {}
-    kernels.reset_counts()
-    for n_rep in (64, 512):
-        sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
-        state = sim.initial_state(pos0, n_rep, temperature=0.85)
-        state = sim.advance(state, 2)                      # warm-up
-        torch.cuda.synchronize()
-        rounds, times = 5, []
-        for _ in range(3):
-            s0, e0 = state.bp_sweeps.sum().item(), state.n_evals
-            t0 = time.perf_counter()
-            state = sim.advance(state, rounds)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        sweeps = (state.bp_sweeps.sum().item() - s0) / (
-            (state.n_evals - e0) * n_rep)
-        if not (state.pos.shape == (n_rep,) + tuple(pos0.shape)
-                and torch.isfinite(state.pos).all()):
-            raise AssertionError(f"MD at {n_rep} replicas: bad positions")
-        rate = 3 * rounds * n_rep / statistics.median(times)
-        md[n_rep] = {"steps_per_s": rate, "times_s": times,
-                     "mean_bp_sweeps": sweeps,
-                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        log(f"[md] {n_rep} replicas: {rate:.1f} steps/s (median of "
-            f"{[round(t, 4) for t in times]} s per {rounds} rounds), mean "
-            f"BP sweeps {sweeps:.2f}, positions finite")
-        del sim, state
-        torch.cuda.empty_cache()
-    launches = dict(kernels.LAUNCHES)
-    log(f"[md] kernel launches on the main path: {launches}")
-    for nm, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {nm} was not launched by MD")
-    results["phases"]["md"] = md
+    # ---- 4. timing, kernel vs plain, at 64 replicas with the config's BP
+    # tolerance and a warm start, as in MD
+    ms, bounds, lat = time_fused(dev, gen, base_f, fused_path)
+    ms_u, bounds_u, lat_u = time_unfused(dev, gen, base_u, unfused_path)
+    ms.update(ms_u)
+    bounds.update(bounds_u)
+    lat.update(lat_u)
+    for nm in kernels.KERNELS:
+        log(f"[time] {nm}: kernel {ms[nm][0]:.4f} ms, plain {ms[nm][1]:.4f}"
+            f" ms, bound {bounds[nm][0]:.4f} ms ({bounds[nm][1]}), "
+            f"{TIME_REPLICAS} replicas")
+    for nm, (per, floor) in lat.items():
+        log(f"[time] {nm}: {per:.5f} ms per dependent sweep (slope over "
+            f"{SWEEPS_LO} and {SWEEPS_HI} sweeps), latency floor "
+            f"{floor:.4f} ms for the timed run's sweeps")
+    results["phases"]["time_ms"] = ms
+    results["phases"]["bound_ms"] = bounds
+    results["phases"]["sweep_latency_ms"] = lat
+
+    # ---- 5. MD through each path
+    md_f, launches = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS)
+    md_u, launches_u = run_md(unfused_path, dev, "RNase A", UNFUSED_KERNELS)
+    launches.update(launches_u)
+    results["phases"]["md"] = {"ubiquitin": md_f, "rnase_a": md_u}
 
     # ---- 6. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],
-         "max_abs_err": errs[nm], "ms": ms[nm][0], "plain_ms": ms[nm][1]}
+         "max_abs_err": errs[nm], "ms": ms[nm][0], "plain_ms": ms[nm][1],
+         "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
+         "library_ms": None}
         for nm in kernels.KERNELS]}
     results.update(table)
+    results["total_s"] = time.perf_counter() - t_start
+    log(f"[done] total run time {results['total_s']:.1f} s")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -8,9 +8,10 @@ runs on the GPU machine too, without the JAX conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Problems are seeded numpy, float32, several replicas that differ, and span
-several 32x32 tiles so the per-tile partial sums are exercised.
-Tolerances: K1 forward rel 1e-5 and backward rel 1e-4 (f32, two summation
-orders); K2 at BP tol 1e-6, rel 1e-4.  Kernels must be bitwise repeatable.
+several 32x32 tiles with ragged edges so the per-tile partial sums are
+exercised.  Tolerances: K1, K4 and K5 forward rel 1e-5 and backward rel
+1e-4 (f32, two summation orders); K2 and K6 at BP tol 1e-6, rel 1e-4.
+Kernels must be bitwise repeatable.
 """
 
 import numpy as np
@@ -18,7 +19,10 @@ import pytest
 import torch
 
 from upside_md_torch.ops import bp_pairs as bp
+from upside_md_torch.ops import bp_planes as bpp
 from upside_md_torch.ops import fused_pair as fp
+from upside_md_torch.ops import pairs
+from upside_md_torch.ops import quadspline as qs
 
 
 @pytest.fixture
@@ -118,4 +122,104 @@ def test_bp_kernel_matches_plain(cuda):
     kw = bp.bp_bethe_pairs_fwd(st, e1, ep, (k[3], k[4]))
     pw = bp.bp_bethe_pairs_fwd(st, e1, ep, (k[3], k[4]), plain=True)
     for i in (0, 1, 2):
+        assert _rel(kw[i], pw[i]) < 1e-4
+
+
+def _repeatable(fn):
+    a, b = fn(), fn()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return a
+
+
+@pytest.mark.requires_cuda
+def test_pair_spline_kernels_match_plain(cuda):
+    rng = np.random.default_rng(2)
+    n1, n2, n_t, ka, k, n_rep = 75, 70, 4, 8, 9, 3
+    table = torch.tensor(0.5 * rng.normal(size=(n_t, n_t + 1, 2 * ka + 2 * k)),
+                         dtype=torch.float32, device=cuda)
+    t1, t2 = rng.integers(0, n_t, n1), rng.integers(0, n_t + 1, n2)
+    mask = rng.random((n1, n2)) > 0.2
+
+    def batch(n):
+        base = _sites(rng, n, 3.0)
+        return torch.tensor(np.stack([base + 0.2 * np.concatenate(
+            [rng.normal(size=(n, 3)), np.zeros((n, 3))], 1)
+            for _ in range(n_rep)]), dtype=torch.float32, device=cuda)
+
+    x1, x2 = batch(n1), batch(n2)
+    w1 = torch.tensor(rng.uniform(0.1, 1.0, (n_rep, n1)), dtype=torch.float32,
+                      device=cuda)
+    ps = qs.PairSpline(t1, t2, mask, cuda)
+    tab = ps.table(table)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    # K5, two site sets
+    (k5,) = _repeatable(lambda: qs.quadspline_fwd(ps, tab, x1, x2))
+    assert _rel(k5, qs.quadspline_fwd(ps, tab, x1, x2, plain=True)) < 1e-5
+    assert k5.count_nonzero() > 100
+    # pairs.pair_coverage dispatches CUDA tensors to the same kernel
+    as_dev = (lambda a: torch.as_tensor(a, device=cuda))
+    assert torch.equal(k5, pairs.pair_coverage(
+        table, as_dev(t1), as_dev(t2), x1, x2, as_dev(mask), ka, k, 1.0))
+    g = torch.randn(k5.shape, generator=gen, device=cuda)
+    kb = _repeatable(lambda: qs.quadspline_bwd(ps, tab, x1, x2, g))
+    for a, b in zip(kb, qs.quadspline_bwd(ps, tab, x1, x2, g, plain=True)):
+        assert _rel(a, b) < 1e-4
+
+    # K4
+    (k4,) = _repeatable(lambda: qs.colsum_fwd(ps, tab, x1, x2, w1))
+    assert _rel(k4, qs.colsum_fwd(ps, tab, x1, x2, w1, plain=True)) < 1e-5
+    gc = torch.randn(k4.shape, generator=gen, device=cuda)
+    kb = _repeatable(lambda: qs.colsum_bwd(ps, tab, x1, x2, w1, gc))
+    for a, b in zip(kb, qs.colsum_bwd(ps, tab, x1, x2, w1, gc, plain=True)):
+        assert _rel(a, b) < 1e-4
+
+    # K5 on the rotamer grid shape: one bead set on both sides, and the
+    # autograd rule summing both cotangents
+    res = np.sort(rng.integers(0, 25, n2))
+    tri = (np.arange(n2)[:, None] < np.arange(n2)[None, :]) \
+        & (res[:, None] != res[None, :])
+    square = table[:, :n_t].contiguous()
+    pb = qs.PairSpline(t1[:n2], t1[:n2], tri, cuda)
+    gg = g[:, :n2, :n2]
+    got = []
+    for plain in (False, True):
+        x = x2.clone().requires_grad_(True)
+        out = qs.quadspline(pb, square, x, x, plain)
+        (gx,) = torch.autograd.grad((out * gg).sum(), x)
+        got.append((out.detach(), gx))
+    assert _rel(got[0][0], got[1][0]) < 1e-5
+    assert _rel(got[0][1], got[1][1]) < 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_bp_planes_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    R, n_rep = 40, 3
+    n_rot = rng.choice([1, 3, 6], size=R)
+    valid = np.arange(6)[None, :] < n_rot[:, None]
+    adj = np.triu(rng.random((R, R)) < 0.15, 1)
+    adj = adj | adj.T
+    E2 = 0.5 * rng.normal(size=(n_rep, 6, 6, R, R))
+    E2 = E2 + E2.transpose(0, 2, 1, 4, 3)
+    E2 = np.where(adj, E2, 0.0).reshape(n_rep, 36, R, R)
+    E1 = np.where(valid, 2.0 * rng.normal(size=(n_rep, R, 6)), 0.0)
+    res = np.repeat(np.arange(R), n_rot)
+    rot = np.concatenate([np.arange(n) for n in n_rot])
+    st = bp.make_statics(res, rot, valid, 128, 0.1, 1000, 1e-6, 2, cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    e1, e2 = torch.tensor(E1, **f32), torch.tensor(E2, **f32)
+    a = torch.tensor(np.broadcast_to(adj, (n_rep, R, R)).copy(), device=cuda)
+    P = bpp.boltzmann_planes(e2, st.valid)
+    k = _repeatable(lambda: bpp.bp_bethe_planes_fwd(st, e1, P, a))
+    p = bpp.bp_bethe_planes_fwd(st, e1, P, a, plain=True)
+    for i in (0, 1, 2, 3):                       # F, G1, G2, beliefs
+        assert _rel(k[i], p[i]) < 1e-4
+    assert k[2].count_nonzero() > 0
+    init = (k[3], k[4])
+    kw = _repeatable(lambda: bpp.bp_bethe_planes_fwd(st, e1 + 0.05, P, a,
+                                                     init))
+    pw = bpp.bp_bethe_planes_fwd(st, e1 + 0.05, P, a, init, plain=True)
+    for i in (0, 1, 2, 3):
         assert _rel(kw[i], pw[i]) < 1e-4

@@ -69,6 +69,7 @@ def load_pair(path, dtype=torch.float64):
     records, pos = bundle.load(path)
     js = JSystem(len(pos), jax_specs(records))
     return records, pos, js, jax_params64(js), System(len(pos), records,
+                                                      device="cpu",
                                                       dtype=dtype)
 
 

@@ -7,8 +7,8 @@ bundle, plus the bundle pin and the import isolation of the port.
 * one 3-stage Verlet round with the BP cache threaded through the stages,
   from the same positions and momenta: positions and momenta at rel 1e-4;
 * the OU thermostat formula on the noise JAX draws;
-* a bundle regenerated by tools/export_torch_bundle.py matches the
-  committed one to 1e-6;
+* the trp-cage and RNase A bundles regenerated by
+  tools/export_torch_bundle.py match the committed ones to 1e-6;
 * `import upside_md_torch` (and a short MD run) with jax, h5py and
   upside_md_tpu blocked.
 """
@@ -28,6 +28,7 @@ from test_torch_nodes import TRP, load_pair
 from upside_md_tpu.md.integrator import integration_cycle as jax_cycle
 from upside_md_tpu.md.thermostat import OUThermostat as JaxOU
 from upside_md_tpu.md.thermostat import stream_key
+from upside_md_torch import DATA_DIR
 from upside_md_torch.config import bundle
 from upside_md_torch.md.integrator import integration_cycle
 from upside_md_torch.md.sim import Simulation
@@ -146,29 +147,32 @@ def test_regenerated_bundle_matches_committed(tmp_path):
         os.path.join(ROOT, "tools", "export_torch_bundle.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    path = tool.build_bundle("trp_cage_full_synth", str(tmp_path),
-                             str(tmp_path))
-    new, pos_new = bundle.load(path)
-    old, pos_old = bundle.load(TRP)
-    np.testing.assert_allclose(pos_new, pos_old, rtol=0, atol=1e-6)
-    assert [(s.name, s.type_name, s.args) for s in new] == \
-        [(s.name, s.type_name, s.args) for s in old]
-    for a, b in zip(new, old):
-        for part in ("consts", "params"):
-            da, db = getattr(a, part), getattr(b, part)
-            assert set(da) == set(db), (a.name, part)
-            for k in da:
-                va, vb = np.asarray(da[k]), np.asarray(db[k])
-                assert va.dtype == vb.dtype and va.shape == vb.shape
-                if va.dtype.kind == "f":
-                    np.testing.assert_allclose(va, vb, rtol=1e-6, atol=1e-6,
-                                               err_msg=f"{a.name}/{k}")
-                else:
-                    np.testing.assert_array_equal(va, vb)
-    sizes = [os.path.getsize(os.path.join(os.path.dirname(TRP), f))
+    for name in ("trp_cage_full_synth", "rnase_a_full_synth"):
+        path = tool.build_bundle(name, str(tmp_path), str(tmp_path))
+        new, pos_new = bundle.load(path)
+        old, pos_old = bundle.load(os.path.join(DATA_DIR, name + ".npz"))
+        np.testing.assert_allclose(pos_new, pos_old, rtol=0, atol=1e-6)
+        assert [(s.name, s.type_name, s.args) for s in new] == \
+            [(s.name, s.type_name, s.args) for s in old]
+        for a, b in zip(new, old):
+            for part in ("consts", "params"):
+                da, db = getattr(a, part), getattr(b, part)
+                assert set(da) == set(db), (name, a.name, part)
+                for k in da:
+                    va, vb = np.asarray(da[k]), np.asarray(db[k])
+                    assert va.dtype == vb.dtype and va.shape == vb.shape
+                    if va.dtype.kind == "f":
+                        np.testing.assert_allclose(
+                            va, vb, rtol=1e-6, atol=1e-6,
+                            err_msg=f"{name}/{a.name}/{k}")
+                    else:
+                        np.testing.assert_array_equal(va, vb)
+    sizes = [os.path.getsize(os.path.join(DATA_DIR, f))
              for f in ("trp_cage_full_synth.npz",
                        "ubiquitin_full_synth.npz")]
     assert sum(sizes) < 3e6
+    assert os.path.getsize(os.path.join(DATA_DIR,
+                                        "rnase_a_full_synth.npz")) < 4e6
 
 
 BLOCKED_IMPORT = r"""
@@ -184,7 +188,7 @@ import torch
 import upside_md_torch
 from upside_md_torch.md.sim import Simulation
 from upside_md_torch.system import System
-system, pos = System.from_bundle(sys.argv[2])
+system, pos = System.from_bundle(sys.argv[2], device="cpu")
 sim = Simulation(system, seed=0)
 state = sim.advance(sim.initial_state(pos, 1), 1)
 assert bool(torch.isfinite(state.pos).all())

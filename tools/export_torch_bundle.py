@@ -35,8 +35,11 @@ Run from the repository root (needs jax and h5py):
 
     python tools/export_torch_bundle.py [--out DIR] [--only NAME ...]
 
-It writes `ubiquitin_full_synth.npz` (76 residues) and
-`trp_cage_full_synth.npz` (20 residues) into `upside_md_torch/data/`.
+It writes `ubiquitin_full_synth.npz` (76 residues),
+`trp_cage_full_synth.npz` (20 residues) and `rnase_a_full_synth.npz`
+(124-residue bovine ribonuclease A, 543 sidechain beads: above the fused
+block's 512-bead cap, so the port runs its unfused path) into
+`upside_md_torch/data/`.
 """
 
 from __future__ import annotations
@@ -59,9 +62,15 @@ KA, K_PAIR, K_COV = 8, 9, 7
 N_BIN = 36
 LIB_SEED = 2024
 
+# bovine pancreatic ribonuclease A, mature chain (UniProt P61823, PDB 7RSA)
+RNASE_A = ("KETAAAKFERQHMDSSTSAASSSNYCNQMMKSRNLTKDRCKPVNTFVHESLADVQAVCSQKNVA"
+           "CKNGQTNCYQSYSTMSITDCRETGSSKYPNCAYKTTQANKHIIVACEGNPYVPVHFDASV")
+
+# bundle name -> sequence, or the name of a sequence in bench_systems
 SYSTEMS = {
     "ubiquitin_full_synth": "UBIQUITIN",
     "trp_cage_full_synth": "TRP_CAGE",
+    "rnase_a_full_synth": RNASE_A,
 }
 
 
@@ -180,7 +189,8 @@ def build_bundle(name, out_dir, lib_dir):
     environment = write_environment_library(
         os.path.join(lib_dir, "environment_synth.h5"), rng)
 
-    seq = getattr(bench_systems, SYSTEMS[name])
+    seq = SYSTEMS[name]
+    seq = getattr(bench_systems, seq) if hasattr(bench_systems, seq) else seq
     b = ConfigBuilder(f">x\n{seq}\n", seed=1)
     b.add_backbone_springs()
     b.add_rama_map_pot(smooth_rama_maps(b.n_res, rng))

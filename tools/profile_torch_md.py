@@ -1,7 +1,8 @@
 """Where the time of the port's MD round goes, on one NVIDIA GPU.
 
-Runs `upside_md_torch.md.sim.Simulation.advance` on the ubiquitin bundle at
-each requested replica count, once to warm up and once under
+Runs `upside_md_torch.md.sim.Simulation.advance` on a bundle (ubiquitin by
+default; `--bundle rnase_a_full_synth` takes the unfused path of more than
+512 beads) at each requested replica count, once to warm up and once under
 `torch.profiler`, and prints per run: the wall time of the profiled
 advance, the summed device time of all kernels, the device idle share
 (1 - device time / wall time), the number of kernel launches, and the
@@ -9,8 +10,10 @@ device time of the heaviest kernels by name.  Device times come from the
 profiler's CUDA activity records; nothing here is timed on the host except
 the wall clock around a synchronised advance.
 
-    python3 tools/profile_torch_md.py [--replicas 64 512] [--rounds 5]
-                                      [--out DIR]
+    python3 tools/profile_torch_md.py [--bundle NAME] [--replicas 64 512]
+                                      [--rounds 5] [--out DIR]
+
+NAME is a bundle in upside_md_torch/data, without `.npz`.
 """
 
 import argparse
@@ -24,6 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--bundle", default="ubiquitin_full_synth")
     ap.add_argument("--replicas", type=int, nargs="+", default=[64, 512])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
@@ -42,8 +46,8 @@ def main():
 
     dev = torch.device("cuda", 0)
     system, pos0 = System.from_bundle(
-        os.path.join(DATA_DIR, "ubiquitin_full_synth.npz"), dev)
-    report = {}
+        os.path.join(DATA_DIR, args.bundle + ".npz"), dev)
+    report = {"bundle": args.bundle}
     for n_rep in args.replicas:
         sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=3)
         state = sim.initial_state(pos0, n_rep, temperature=0.85)
@@ -73,10 +77,10 @@ def main():
                         "share_of_device": t / max(dev_us, 1e-9)}
                        for n, (c, t) in top]}
         report[n_rep] = rec
-        print(f"[{n_rep} replicas] wall {wall:.4f} s for {args.rounds} "
-              f"rounds, device busy {rec['device_s']:.4f} s, idle share "
-              f"{rec['idle_share']:.3f}, {len(kern)} kernel launches "
-              f"({rec['launches_per_eval']:.0f}/eval), "
+        print(f"[{args.bundle}, {n_rep} replicas] wall {wall:.4f} s for "
+              f"{args.rounds} rounds, device busy {rec['device_s']:.4f} s, "
+              f"idle share {rec['idle_share']:.3f}, {len(kern)} kernel "
+              f"launches ({rec['launches_per_eval']:.0f}/eval), "
               f"{rec['steps_per_s']:.1f} steps/s under the profiler",
               flush=True)
         for t in rec["top"]:

@@ -16,10 +16,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.bp_pairs import MAX_RES
 from ..ops.fused_pair import FusedPrep, fused_pair_block, make_prep
 from ..ops.pairs import quadspline_family
 
-MAX_RES = 128        # rotamer residues (BP kernel cap)
 MAX_BEADS = 512      # bead columns
 
 

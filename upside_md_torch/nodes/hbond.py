@@ -6,17 +6,19 @@ reference src/hbond.cpp).
   grid; output width 7 (site, direction, probability).
 * hbond_energy: E * sum of the probabilities.
 * hbond_coverage (also the hydrophobe coverage): per-bead coverage of the
-  row sites weighted by (1 - s)^2.  On the main path it comes out of the
-  fused pair block (nodes/fusion.py).
+  row sites weighted by (1 - s)^2.  Up to 512 beads it comes out of the
+  fused pair block (nodes/fusion.py); above, each node runs K4, the
+  weighted column sums of the pair spline (hbond.py:124-166 of the JAX
+  package).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..ops.pairs import pair_coverage, quadspline_family, \
-    sequence_exclusion_mask
-from .base import register_node
+from ..ops.quadspline import PairSpline, quadspline_colsum
+from .base import register_node, to_tensor
 
 RADIAL_CUTOFF2 = 3.5 * 3.5  # hbond.cpp:124
 
@@ -77,21 +79,30 @@ def _hbond_energy(c, p, inputs, ctx):
     return p["protein_hbond_energy"] * inputs[0][..., 6].sum(-1)
 
 
+def _prepare_coverage(c, device, dtype):
+    """The consts as tensors, plus K4's static operands: row and column
+    types and the sequence exclusion |id1 - id2| > 2."""
+    out = {k: to_tensor(v, device, dtype) for k, v in c.items()}
+    sep = np.asarray(c["id1"])[:, None] - np.asarray(c["id2"])[None, :]
+    out["spline"] = PairSpline(c["type1"], c["type2"], np.abs(sep) > 2,
+                               device)
+    return out
+
+
 def _hbond_coverage(c, p, inputs, ctx):
     if ctx.node_name in ctx.fused:          # fused pair block result
         return ctx.fused[ctx.node_name]
     hb_nodes = inputs[0][:, c["index1"]]
     sc = inputs[1][:, c["index2"]]
-    table = p["interaction_param"]
-    ka, k, dx = quadspline_family(table.shape[-1])
-    mask = sequence_exclusion_mask(c["id1"], c["id2"], 2)
-    cov = pair_coverage(table, c["type1"], c["type2"], hb_nodes, sc, mask,
-                        ka, k, dx)
     prefactor = (1.0 - hb_nodes[..., 6]) ** 2
-    return (prefactor.unsqueeze(-1) * cov).sum(-2).unsqueeze(-1)
+    cov = quadspline_colsum(c["spline"], p["interaction_param"],
+                            hb_nodes[..., :6], sc[..., :6], prefactor,
+                            ctx.plain)
+    return cov.unsqueeze(-1)
 
 
 infer_H_O = register_node("infer_H_O", False, _infer_h_o)
 protein_hbond = register_node("protein_hbond", False, _protein_hbond)
 hbond_energy = register_node("hbond_energy", True, _hbond_energy)
-hbond_coverage = register_node("hbond_coverage", False, _hbond_coverage)
+hbond_coverage = register_node("hbond_coverage", False, _hbond_coverage,
+                               prepare=_prepare_coverage)

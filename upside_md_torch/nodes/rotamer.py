@@ -3,10 +3,23 @@ upside_md_tpu/nodes/rotamer.py; reference src/rotamer.cpp).
 
 Every residue is padded to 6 rotamer slots with a validity mask.  The
 1-body energies of each bead are summed over the node's energy inputs and
-scattered to their slots; the bead-pair grid comes from the fused pair
-block (or, unfused and on the CPU only, from the plain pair spline).
-`ops/bp_pairs.py` solves BP and returns the Bethe free energy with its
-envelope gradients.
+scattered to their slots.  The solver path follows the JAX package's
+dispatch (rotamer.py:418-461):
+
+* up to 512 beads and 128 residues: the bead-pair grid from the fused pair
+  block (or, unfused, from K5) goes to K2 (`ops/bp_pairs.py`), which
+  scatters it to rotamer slots itself;
+* more than 512 beads and up to 128 residues
+  (`assemble_rotamer_energies`, rotamer.py:239-268): the K5 grid (upper
+  triangle, different residues) is scattered by index to the residue-pair
+  energies E2, the adjacency is the in-cutoff bead-pair mask lifted to
+  residues, symmetric with no diagonal, and K6 (`ops/bp_planes.py`) solves
+  BP on the 36 (a, b) planes of E2;
+* more than 128 residues (the XLA `_bp_solve` branch, rotamer.py:463-483)
+  runs the planes path's plain version on the CPU and is not ported to
+  the card.
+
+Both solvers return the Bethe free energy with its envelope gradients.
 
 The warm-start cache carries the last evaluation's beliefs and messages
 through the MD loop.  Node beliefs are extrapolated in log space from the
@@ -21,21 +34,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.bp_pairs import EPS, NROT, bp_bethe_pairs, make_statics
-from ..ops.pairs import pair_coverage, quadspline_family
+from ..ops.bp_pairs import (EPS, MAX_RES, NROT, bp_bethe_pairs,
+                            make_statics, scatter_pairs)
+from ..ops.bp_planes import bp_bethe_planes
+from ..ops.quadspline import PairSpline, live_pairs, quadspline
 from .base import register_node, to_tensor
 
 EXTRAP_ALPHA = 1.0
+# above this many beads the JAX package leaves the bead-space BP kernel for
+# the residue-plane one (rotamer.py:46)
+PAIRS_KERNEL_MAX_BEADS = 512
 
 
 def _prepare(c, device, dtype):
     out = {k: to_tensor(v, device, dtype) for k, v in c.items()}
     res = np.asarray(c["res"])
-    n2p = -(-len(res) // 128) * 128
+    n = len(res)
+    n2p = -(-n // 128) * 128
     out["bp"] = make_statics(res, c["rot"], c["valid"], n2p, c["damping"],
                              c["max_iter"], c["tol"],
                              c.get("iteration_chunk_size", 2), device)
+    tri = np.arange(n)[:, None] < np.arange(n)[None, :]
+    out["spline"] = PairSpline(c["type"], c["type"],
+                               tri & (res[:, None] != res[None, :]), device)
+    if _takes_planes(out["bp"]):
+        out["res_onehot"] = torch.nn.functional.one_hot(
+            out["res"], out["bp"].n_res).to(dtype)
     return out
+
+
+def _takes_planes(st):
+    """Whether BP runs on residue planes (K6 or the R > 128 branch) rather
+    than on the bead grid (K2)."""
+    return st.n_bead > PAIRS_KERNEL_MAX_BEADS or st.n_res > MAX_RES
 
 
 def assemble_one_body(c, inputs):
@@ -51,19 +82,33 @@ def assemble_one_body(c, inputs):
     return E1.reshape(E1.shape[0], st.n_res, NROT)
 
 
-def assemble_pair_grid(c, p, beads):
-    """Unfused bead-pair grid (B, n2p, n2p), plain only: upper triangle,
-    different residues, within the family's cutoff."""
+def assemble_pair_grid(c, p, beads, plain=False):
+    """Unfused bead-pair grid (B, n, n) from K5: upper triangle, different
+    residues, within the family's cutoff (rotamer.py:208-236)."""
+    return quadspline(c["spline"], p["interaction_param"], beads, beads,
+                      plain)
+
+
+def pair_adjacency(c, p, beads):
+    """(B, R, R) bool: residues with a bead pair of the rotamer mask inside
+    the cutoff, symmetric, no diagonal (rotamer.py:230-232, 266-267)."""
+    ps = c["spline"]
+    live = live_pairs(ps, ps.table(p["interaction_param"]), beads, beads)
+    oh = c["res_onehot"]
+    counts = oh.T @ live.to(oh.dtype) @ oh           # exact small integers
+    adj = (counts + counts.transpose(1, 2)) > 0
+    return adj & ~torch.eye(adj.shape[-1], dtype=torch.bool,
+                            device=adj.device)
+
+
+def residue_planes(c, p, beads, grid):
+    """The planes path's K6 inputs from the K5 grid: E2 as 36 (a*6+b)
+    planes (B, 36, R, R), scattered by index, and the adjacency."""
     st = c["bp"]
-    table = p["interaction_param"]
-    ka, k, dx = quadspline_family(table.shape[-1])
-    res = c["res"]
-    n = res.shape[0]
-    tri = torch.arange(n, device=res.device)
-    mask = (tri[:, None] < tri[None, :]) & (res[:, None] != res[None, :])
-    grid = pair_coverage(table, c["type"], c["type"], beads, beads, mask,
-                         ka, k, dx)
-    return torch.nn.functional.pad(grid, (0, st.n2p - n, 0, st.n2p - n))
+    E2 = scatter_pairs(st, grid)
+    planes = E2.permute(0, 3, 4, 1, 2).reshape(E2.shape[0], NROT * NROT,
+                                               st.n_res, st.n_res)
+    return planes, pair_adjacency(c, p, beads)
 
 
 def extrapolate_beliefs(nb1, nb0, alpha=EXTRAP_ALPHA):
@@ -76,16 +121,32 @@ def extrapolate_beliefs(nb1, nb0, alpha=EXTRAP_ALPHA):
 
 def _rotamer(c, p, inputs, ctx):
     name = ctx.node_name
+    st = c["bp"]
     E1 = assemble_one_body(c, inputs)
-    E_pair = ctx.fused.get(name + ":E_pair")
-    if E_pair is None:
-        E_pair = assemble_pair_grid(c, p, inputs[0][:, c["index"], :6])
     raw = ctx.cache.get(name)
     init = None
     if raw is not None:
         init = (extrapolate_beliefs(raw["nb"], raw["prev_nb"]), raw["eb"])
-    F, nb, eb, dev, iters = bp_bethe_pairs(c["bp"], E1, E_pair, init,
-                                           ctx.plain)
+    E_pair = ctx.fused.get(name + ":E_pair")
+    beads = inputs[0][:, c["index"], :6]
+    if E_pair is not None or not _takes_planes(st):
+        if E_pair is None:
+            pad = st.n2p - st.n_bead
+            E_pair = torch.nn.functional.pad(
+                assemble_pair_grid(c, p, beads, ctx.plain), (0, pad, 0, pad))
+        F, nb, eb, dev, iters = bp_bethe_pairs(st, E1, E_pair, init,
+                                               ctx.plain)
+    else:
+        if st.n_res > MAX_RES and E1.is_cuda:
+            raise NotImplementedError(
+                f"{st.n_res} rotamer residues: above {MAX_RES} the JAX "
+                "package solves BP with the XLA `_bp_solve` branch "
+                "(upside_md_tpu/nodes/rotamer.py:463-483), which has no "
+                "port to the card yet")
+        E2planes, adj = residue_planes(
+            c, p, beads, assemble_pair_grid(c, p, beads, ctx.plain))
+        F, nb, eb, dev, iters = bp_bethe_planes(st, E1, E2planes, adj, init,
+                                                ctx.plain)
     ctx.cache_out[name] = {
         "nb": nb, "eb": eb, "prev_nb": nb if raw is None else raw["nb"],
         "dev": dev, "iters": iters}

@@ -1,0 +1,122 @@
+"""Residue-plane BP: K6, its plain version, and the envelope-gradient rule.
+
+Port of `bp_bethe_pallas` (upside_md_tpu/ops/pallas_bp.py:355), the BP
+path of proteins with more than 512 sidechain beads and at most 128
+residues (upside_md_tpu/nodes/rotamer.py:447-461).  Inputs keep the JAX
+layout: the 1-body energies E1 (B, R, 6), the pair energies as 36 (a*6+b)
+planes E2 (B, 36, R, R), the adjacency adj (B, R, R) bool (its diagonal is
+ignored) and, from the rotamer statics, the slot validity (R, 6) and the
+solver settings.  The Boltzmann planes P = exp(-E2) with validity folded
+in are formed here, outside the kernel, as `_bp_impl` (:313-321) forms them
+in XLA.
+
+The solve is `_bp_solve` (rotamer.py:60-140) on the given adjacency, each
+replica stopping at its own convergence; F is `bethe_free_energy`
+(rotamer.py:142).  Besides F it returns the sum-normalised node beliefs nb
+(B, R, 6), the edge messages eb (B, R, R, 6) (the port's cache layout,
+identity on non-edges), the final deviation (B,) and the sweep count (B,).
+The VJP scales the envelope gradients G1 (B, R, 6) and G2 (B, 36, R, R)
+(nonzero on adjacent i < j only) by the cotangent of F, as `_bp_fwd` /
+`_bp_bwd` (pallas_bp.py:376-390) do.
+
+The plain version reuses `bp_solve_plain` and `bethe_and_gradients` of
+ops/bp_pairs.py; the wrapper takes it for CPU tensors (or when asked, for
+comparisons on the card) and launches csrc/bp_bethe_planes.cu for CUDA
+tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .bp_pairs import (MAX_RES, NROT, bethe_and_gradients, bp_solve_plain,
+                       node_potentials)
+
+NPAIR = NROT * NROT
+
+
+def boltzmann_planes(E2planes, valid):
+    """P (B, 36, R, R) = exp(-E2) where both slots are valid, else 0."""
+    R = valid.shape[0]
+    v = valid.to(E2planes.dtype)
+    vplanes = (v[:, :, None, None] * v[None, None]).permute(1, 3, 0, 2) \
+        .reshape(NPAIR, R, R)
+    return torch.exp(-E2planes) * vplanes
+
+
+def bp_bethe_planes_plain(st, E1, P, adj, init=None):
+    """Plain version of K6: (F, G1, G2, nb, eb, dev, iters)."""
+    B, R = E1.shape[:2]
+    P5 = P.reshape(B, NROT, NROT, R, R).permute(0, 3, 4, 1, 2)
+    adj = adj & ~torch.eye(R, dtype=torch.bool, device=adj.device)
+    offset, prob = node_potentials(E1, st.valid)
+    nb, eb, dev, it = bp_solve_plain(prob, P5, adj, st.valid, st.damping,
+                                     st.max_iter, st.tol, st.chunk, init)
+    F, G1, G = bethe_and_gradients(E1, offset, prob, P5, adj, st.valid, nb,
+                                   eb)
+    G2 = G.permute(0, 3, 4, 1, 2).reshape(B, NPAIR, R, R)
+    return F, G1, G2, nb, eb, dev, it
+
+
+def bp_bethe_planes_fwd(st, E1, P, adj, init=None, plain=False):
+    """K6: the plain version on CPU tensors (or when asked), the CUDA
+    kernel on CUDA tensors."""
+    if plain or not E1.is_cuda:
+        return bp_bethe_planes_plain(st, E1, P, adj, init)
+    B, R = E1.shape[0], st.n_res
+    if R > MAX_RES:
+        raise ValueError(f"bp_bethe_planes kernel supports <= {MAX_RES} "
+                         f"residues, got {R}")
+    warm = init is not None
+    # a cold start passes null warm-start pointers
+    nb0, eb0 = (t.contiguous() for t in init) if warm else (None, None)
+    E1, P, adj = E1.contiguous(), P.contiguous(), adj.contiguous()
+    checks = [(E1, (B, R, NROT)), (P, (B, NPAIR, R, R))]
+    if warm:
+        checks += [(nb0, (B, R, NROT)), (eb0, (B, R, R, NROT))]
+    for t, shape in checks:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"bp_bethe_planes kernel takes float32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if adj.dtype != torch.bool or tuple(adj.shape) != (B, R, R):
+        raise ValueError(f"bp_bethe_planes kernel takes a bool adjacency "
+                         f"{(B, R, R)}, got {adj.dtype} {tuple(adj.shape)}")
+    f32 = dict(dtype=torch.float32, device=E1.device)
+    F = torch.empty((B,), **f32)
+    G1 = torch.empty((B, R, NROT), **f32)
+    G2 = torch.empty((B, NPAIR, R, R), **f32)
+    nb = torch.empty((B, R, NROT), **f32)
+    eb = torch.empty((B, R, R, NROT), **f32)
+    dev = torch.empty((B,), **f32)
+    iters = torch.empty((B,), dtype=torch.int32, device=E1.device)
+    ebuf = torch.empty((B, 2, R, R, NROT), **f32)        # messages
+    edges = torch.empty((B, R * (R - 1)), dtype=torch.int32,
+                        device=E1.device)
+    kernels.launch(
+        "bp_bethe_planes", E1, P, adj, st.valid, nb0, eb0,
+        B, R, st.damping, st.max_iter, st.tol, st.chunk,
+        F, G1, G2, nb, eb, dev, iters, ebuf, edges)
+    return F, G1, G2, nb, eb, dev, iters
+
+
+class BPPlanesFreeEnergy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, E1, E2planes, adj, st, init, plain):
+        P = boltzmann_planes(E2planes, st.valid)
+        F, G1, G2, nb, eb, dev, iters = bp_bethe_planes_fwd(
+            st, E1, P, adj, init, plain)
+        ctx.save_for_backward(G1, G2)
+        ctx.mark_non_differentiable(nb, eb, dev, iters)
+        return F, nb, eb, dev, iters
+
+    @staticmethod
+    def backward(ctx, gF, *unused):
+        G1, G2 = ctx.saved_tensors
+        return gF[:, None, None] * G1, gF[:, None, None, None] * G2, None, \
+            None, None, None
+
+
+def bp_bethe_planes(st, E1, E2planes, adj, init=None, plain=False):
+    """(F, nb, eb, dev, iters); F differentiable in E1 and E2planes."""
+    return BPPlanesFreeEnergy.apply(E1, E2planes, adj, st, init, plain)

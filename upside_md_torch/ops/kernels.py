@@ -1,10 +1,12 @@
 """Build, load and launch the hand-written Hopper kernels in ../csrc.
 
-The CUDA sources have a plain C interface.  At first use they are compiled
-by `nvcc` for sm_90a into one shared library under `upside_md_torch/_build/
-<hash of the sources>/`, and loaded with ctypes.  Every pointer and the
-stream pass as `c_void_p`; a C function returns `cudaGetLastError()` after
-its launches, and `launch` raises when that is not 0.
+The CUDA sources have a plain C interface.  At first use each `.cu` file is
+compiled by its own `nvcc` process for sm_90a (all started together), the
+objects are linked into one shared library under `upside_md_torch/_build/
+<hash of the sources>/`, and the library is loaded with ctypes.  Every
+pointer and the stream pass as `c_void_p`; a C function returns
+`cudaGetLastError()` after its launches, and `launch` raises when that is
+not 0.
 
 `LAUNCHES` counts, per kernel, the calls that launched it; nothing else
 changes the counts.
@@ -24,7 +26,9 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
-KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
+KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs",
+           "quadspline_fwd", "quadspline_bwd", "colsum_fwd", "colsum_bwd",
+           "bp_bethe_planes")
 # tile of the fused pair kernels (must match csrc/fused_pair.cuh)
 TILE_ROWS = 32
 TILE_COLS = 32
@@ -66,20 +70,38 @@ def build(verbose=False):
     if nvcc is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME")
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", CSRC, "-o", tmp]
-    if verbose:
-        cmd.append("-Xptxas=-v")
-    cmd += [f for f in _sources() if f.endswith(".cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    if verbose:
-        print(r.stderr, flush=True)
-    os.replace(tmp, lib)
+    tmp_dir = tempfile.mkdtemp(dir=out_dir)
+    try:
+        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-I", CSRC]
+        if verbose:
+            flags.append("-Xptxas=-v")
+        objs, procs = [], []
+        for src in (f for f in _sources() if f.endswith(".cu")):
+            obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *flags, "-c", src, "-o", obj], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, p in procs:
+            _, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{os.path.basename(src)}: nvcc failed "
+                              f"({p.returncode}):\n{err}")
+            elif verbose and err:
+                print(f"{os.path.basename(src)}:\n{err}", flush=True)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = os.path.join(tmp_dir, "lib.so")
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib
 
 

@@ -1,0 +1,357 @@
+"""The unfused pair spline: K5 (dense pair grid) and K4 (weighted column
+sums), their plain versions, and the autograd rules that join them.
+
+Port of `quadspline_pallas` (upside_md_tpu/ops/pallas_quadspline.py:737)
+and `quadspline_colsum_pallas` (:883).  For site rows x1 (B, n1, 6) and
+bead columns x2 (B, n2, 6), both (position, unit direction), the pair
+value is wide(r) + ang1(cos1) ang2(cos2) narrow(r), a uniform cubic
+B-spline per segment (reference bead_interaction.h:30-84), where the
+static (n1, n2) mask holds and the scaled distance is inside the cutoff
+s < k - 2 - 1e-6 (:273).  K5 returns the (B, n1, n2) grid; K4 returns
+out[j] = sum_i w1[i] value(i, j), so the grid never exists.
+
+The parameter table is expanded into per-(row type, column type,
+interval) cubic coefficients (`fused_pair.poly_coefficients`), memoised on
+the table tensor; an evaluation reads four coefficients per segment and
+runs Horner.  The backward recomputes the pair terms (no residual planes)
+and follows the reference derivative partition (:311-322): cotangents
+d1 (B, n1, 8) and d2 (B, n2, 8) hold d/d(pos, dir) in columns 0-5, and
+for K4 column 6 of d1 holds d/dw1.  Cotangents are selected, never
+multiplied, by mask AND inside-cutoff.
+
+Table cotangents (`_table_cotangent`, :753, XLA in the JAX package) are
+training's business: the autograd rules raise if the table requires grad.
+
+The wrappers take the plain version for CPU tensors (or when asked with
+`plain=True`, for comparisons on the card) and launch the CUDA kernels
+(csrc/quadspline.cu) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import kernels
+from .fused_pair import _geometry, poly_coefficients
+from .pairs import quadspline_family
+
+
+@dataclass
+class SplineTable:
+    """Parameter-only operands of one table: poly coefficients (n_t1, n_t2,
+    ncoef) in the table's dtype and the family's constants."""
+    coef: torch.Tensor
+    ka: int
+    k: int
+    inv_dx: float
+    kcut: float          # cutoff in units of dx: k - 2 - 1e-6
+
+    @property
+    def n_t2(self):
+        return self.coef.shape[1]
+
+    @property
+    def ncoef(self):
+        return self.coef.shape[2]
+
+
+class PairSpline:
+    """Static operands of one call site (row types, column types, the
+    (n1, n2) interaction mask and its per-tile liveness), and the memo of
+    its table's coefficients, rebuilt only when the table tensor changes
+    (as System.fused_prepared is)."""
+
+    def __init__(self, t1, t2, mask, device):
+        mask = np.asarray(mask, bool)
+        self.n1, self.n2 = mask.shape
+        tr, tc = kernels.TILE_ROWS, kernels.TILE_COLS
+        n_rt, n_ct = -(-self.n1 // tr), -(-self.n2 // tc)
+        padded = np.zeros((n_rt * tr, n_ct * tc), bool)
+        padded[:self.n1, :self.n2] = mask
+        alive = padded.reshape(n_rt, tr, n_ct, tc).any(axis=(1, 3))
+        self.t1 = torch.as_tensor(np.asarray(t1, np.int32), device=device)
+        self.t2 = torch.as_tensor(np.asarray(t2, np.int32), device=device)
+        self.mask = torch.as_tensor(mask.astype(np.uint8), device=device)
+        self.tile_alive = torch.as_tensor(alive.astype(np.uint8),
+                                          device=device)
+        self._memo = None
+
+    def table(self, table):
+        key = (id(table), table._version)
+        if self._memo is None or self._memo[0] != key:
+            ka, k, dx = quadspline_family(table.shape[-1])
+            coef = poly_coefficients(table.detach().cpu().numpy(), ka, k)
+            self._memo = (key, table, SplineTable(
+                torch.as_tensor(coef, dtype=table.dtype,
+                                device=table.device),
+                ka, k, 1.0 / dx, k - 2 - 1e-6))
+        return self._memo[2]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def in_cutoff(ps, tab, dist):
+    """The pairs a call site evaluates: its static mask and the scaled
+    distance inside the cutoff, s < k - 2 - 1e-6 (:273)."""
+    return ps.mask.bool() & (dist * tab.inv_dx < tab.kcut)
+
+
+def live_pairs(ps, tab, x1, x2):
+    """(B, n1, n2) bool `in_cutoff` from positions alone, without the rest
+    of the pair geometry (the rotamer adjacency needs no more)."""
+    with torch.no_grad():
+        dist2 = sum((x2[:, None, :, a] - x1[:, :, None, a]) ** 2
+                    for a in range(3)) + 1e-12
+        return in_cutoff(ps, tab, dist2 * torch.rsqrt(dist2))
+
+
+def _poly_at(flat, base, x, n, clamped):
+    """Horner on the 4 coefficients of x's interval: flat coefficient
+    table, base (n1, n2) offset of each pair's segment, x (B, n1, n2).
+    Returns (value, d/dx)."""
+    xc = torch.clamp(x, 1.0, float(n - 2))
+    i = torch.clamp(torch.floor(xc), 1, n - 3)
+    t = xc - i
+    idx = base + (i.long() - 1) * 4
+    q0, q1, q2, q3 = (flat[idx + d] for d in range(4))
+    val = ((q3 * t + q2) * t + q1) * t + q0
+    dv = (3.0 * q3 * t + 2.0 * q2) * t + q1
+    if clamped:
+        dv = torch.where((x <= 1.0) | (x >= n - 2.0), torch.zeros_like(dv), dv)
+    return val, dv
+
+
+def _terms(ps, tab, x1, x2):
+    """Geometry, live mask, and the four segments' values and derivatives
+    of every pair (B, n1, n2)."""
+    geom = _geometry(x1, x2)
+    ka, k = tab.ka, tab.k
+    na, nd = (ka - 3) * 4, (k - 3) * 4
+    inv_dth = (ka - 3) / 2.0
+    base = (ps.t1.long()[:, None] * tab.n_t2
+            + ps.t2.long()[None, :]) * tab.ncoef
+    flat = tab.coef.reshape(-1)
+    s = geom[1] * tab.inv_dx
+    a1 = _poly_at(flat, base, (geom[3] + 1.0) * inv_dth + 1.0, ka, False)
+    a2 = _poly_at(flat, base + na, (geom[4] + 1.0) * inv_dth + 1.0, ka,
+                  False)
+    wide = _poly_at(flat, base + 2 * na, s, k, True)
+    nar = _poly_at(flat, base + 2 * na + nd, s, k, True)
+    return geom, in_cutoff(ps, tab, geom[1]), a1, a2, wide, nar
+
+
+def _value(live, a1, a2, wide, nar):
+    v = wide[0] + a1[0] * a2[0] * nar[0]
+    return torch.where(live, v, torch.zeros_like(v))
+
+
+def quadspline_fwd_plain(ps, tab, x1, x2):
+    """Plain K5 forward: the (B, n1, n2) masked pair values."""
+    _, live, a1, a2, wide, nar = _terms(ps, tab, x1, x2)
+    return _value(live, a1, a2, wide, nar)
+
+
+def colsum_fwd_plain(ps, tab, x1, x2, w1):
+    """Plain K4 forward: (B, n2) column sums of w1[i] value(i, j)."""
+    return (w1[:, :, None] * quadspline_fwd_plain(ps, tab, x1, x2)).sum(1)
+
+
+def _backward(ps, tab, x1, x2, g_pair, g_col=None):
+    """d1 (B, n1, 8), d2 (B, n2, 8) from the pair cotangent g_pair
+    (B, n1, n2); with g_col (B, n2) (K4) also d/dw1 = sum_j g_col value."""
+    (u, dist, inv, cos1, cos2), live, a1, a2, wide, nar = _terms(
+        ps, tab, x1, x2)
+    inv_dth = (tab.ka - 3) / 2.0
+    zero = torch.zeros_like(dist)
+    g = torch.where(live, g_pair, zero)
+    radial = g * (wide[1] + a1[0] * a2[0] * nar[1]) * tab.inv_dx
+    c1 = g * a1[1] * inv_dth * a2[0] * nar[0]
+    c2 = g * a2[1] * inv_dth * a1[0] * nar[0]
+    f1 = (c1 * inv)[..., None]
+    f2 = (c2 * inv)[..., None]
+    gvec = (radial[..., None] * u
+            + f1 * (x1[:, :, None, 3:6] - cos1[..., None] * u)
+            - f2 * (x2[:, None, :, 3:6] + cos2[..., None] * u))
+    B, n1, n2 = dist.shape
+    d1 = x1.new_zeros((B, n1, 8))
+    d1[..., 0:3] = -gvec.sum(2)
+    d1[..., 3:6] = (c1[..., None] * u).sum(2)
+    if g_col is not None:
+        gc = g_col[:, None, :].expand(B, n1, n2)
+        d1[..., 6] = torch.where(live, gc * _value(live, a1, a2, wide, nar),
+                                 zero).sum(-1)
+    d2 = x1.new_zeros((B, n2, 8))
+    d2[..., 0:3] = gvec.sum(1)
+    d2[..., 3:6] = -(c2[..., None] * u).sum(1)
+    return d1, d2
+
+
+def quadspline_bwd_plain(ps, tab, x1, x2, g):
+    """Plain K5 backward from the (B, n1, n2) cotangent."""
+    return _backward(ps, tab, x1, x2, g)
+
+
+def colsum_bwd_plain(ps, tab, x1, x2, w1, g):
+    """Plain K4 backward from the (B, n2) cotangent: the pair cotangent is
+    w1[i] g[j]."""
+    return _backward(ps, tab, x1, x2, w1[:, :, None] * g[:, None, :], g)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _operands(ps, tab, *tensors):
+    """Check the kernel operands: contiguous float32 CUDA tensors of the
+    call site's shapes (x1 (B, n1, 6), x2 (B, n2, 6), then any of w1
+    (B, n1), g (B, n1, n2) or (B, n2), as given)."""
+    x1 = tensors[0]
+    B = x1.shape[0]
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError("pair spline kernels take float32 CUDA tensors")
+    if tuple(x1.shape) != (B, ps.n1, 6) or \
+            tuple(tensors[1].shape) != (B, ps.n2, 6):
+        raise ValueError(f"pair spline kernels: expected x1 {(B, ps.n1, 6)}"
+                         f" and x2 {(B, ps.n2, 6)}, got {tuple(x1.shape)}, "
+                         f"{tuple(tensors[1].shape)}")
+    if tab.coef.dtype != torch.float32 or not tab.coef.is_cuda:
+        raise ValueError("pair spline kernels take a float32 CUDA table")
+    return B, [t.contiguous() for t in tensors]
+
+
+def _static(ps, tab):
+    return (ps.t1, ps.t2, ps.mask, ps.tile_alive, tab.coef)
+
+
+def _family(ps, tab, B):
+    return (B, ps.n1, ps.n2, tab.ka, tab.k, tab.n_t2, tab.ncoef, tab.inv_dx,
+            tab.kcut)
+
+
+def _parts(ps, B, x):
+    """Per-tile partial buffers (n_ct, B, n1, 8) and (n_rt, B, n2, 8)."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    n_rt, n_ct = ps.tile_alive.shape
+    return (torch.empty((n_ct, B, ps.n1, 8), **f32),
+            torch.empty((n_rt, B, ps.n2, 8), **f32),
+            torch.empty((B, ps.n1, 8), **f32),
+            torch.empty((B, ps.n2, 8), **f32))
+
+
+def quadspline_fwd(ps, tab, x1, x2, plain=False):
+    """K5 forward: (B, n1, n2) pair values."""
+    if plain or not x1.is_cuda:
+        return quadspline_fwd_plain(ps, tab, x1, x2)
+    B, (x1, x2) = _operands(ps, tab, x1, x2)
+    out = torch.empty((B, ps.n1, ps.n2), dtype=torch.float32,
+                      device=x1.device)
+    kernels.launch("quadspline_fwd", x1, x2, *_static(ps, tab),
+                   *_family(ps, tab, B), out)
+    return out
+
+
+def quadspline_bwd(ps, tab, x1, x2, g, plain=False):
+    """K5 backward: (d1 (B, n1, 8), d2 (B, n2, 8))."""
+    if plain or not x1.is_cuda:
+        return quadspline_bwd_plain(ps, tab, x1, x2, g)
+    B, (x1, x2, g) = _operands(ps, tab, x1, x2, g)
+    if tuple(g.shape) != (B, ps.n1, ps.n2):
+        raise ValueError(f"quadspline_bwd: cotangent shape {tuple(g.shape)}")
+    d1part, d2part, d1, d2 = _parts(ps, B, x1)
+    kernels.launch("quadspline_bwd", x1, x2, g, *_static(ps, tab),
+                   *_family(ps, tab, B), d1part, d2part, d1, d2)
+    return d1, d2
+
+
+def colsum_fwd(ps, tab, x1, x2, w1, plain=False):
+    """K4 forward: (B, n2) weighted column sums."""
+    if plain or not x1.is_cuda:
+        return colsum_fwd_plain(ps, tab, x1, x2, w1)
+    B, (x1, x2, w1) = _operands(ps, tab, x1, x2, w1)
+    if tuple(w1.shape) != (B, ps.n1):
+        raise ValueError(f"colsum_fwd: weight shape {tuple(w1.shape)}")
+    n_rt = ps.tile_alive.shape[0]
+    colpart = torch.empty((n_rt, B, ps.n2), dtype=torch.float32,
+                          device=x1.device)
+    out = torch.empty((B, ps.n2), dtype=torch.float32, device=x1.device)
+    kernels.launch("colsum_fwd", x1, x2, w1, *_static(ps, tab),
+                   *_family(ps, tab, B), colpart, out)
+    return out
+
+
+def colsum_bwd(ps, tab, x1, x2, w1, g, plain=False):
+    """K4 backward: (d1 (B, n1, 8) with d/dw1 in column 6, d2 (B, n2, 8))."""
+    if plain or not x1.is_cuda:
+        return colsum_bwd_plain(ps, tab, x1, x2, w1, g)
+    B, (x1, x2, w1, g) = _operands(ps, tab, x1, x2, w1, g)
+    if tuple(w1.shape) != (B, ps.n1) or tuple(g.shape) != (B, ps.n2):
+        raise ValueError("colsum_bwd: weight or cotangent shape")
+    d1part, d2part, d1, d2 = _parts(ps, B, x1)
+    kernels.launch("colsum_bwd", x1, x2, w1, g, *_static(ps, tab),
+                   *_family(ps, tab, B), d1part, d2part, d1, d2)
+    return d1, d2
+
+
+# ---------------------------------------------------------------------------
+# autograd rules
+# ---------------------------------------------------------------------------
+
+def _no_table_grad(ctx, index):
+    if ctx.needs_input_grad[index]:
+        raise NotImplementedError(
+            "pair spline: the parameter-table cotangent (_table_cotangent, "
+            "pallas_quadspline.py:753) is not ported; it belongs to training")
+
+
+class QuadSpline(torch.autograd.Function):
+    """value = K5(x1, x2); the backward is the K5 backward kernel.  x1 and
+    x2 may be the same tensor: autograd sums the two cotangents."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, table, ps, plain):
+        _no_table_grad(ctx, 2)
+        tab = ps.table(table)
+        ctx.save_for_backward(x1, x2)
+        ctx.ps, ctx.tab, ctx.plain = ps, tab, plain
+        return quadspline_fwd(ps, tab, x1, x2, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2 = ctx.saved_tensors
+        d1, d2 = quadspline_bwd(ctx.ps, ctx.tab, x1, x2, g, ctx.plain)
+        return d1[..., :6], d2[..., :6], None, None, None
+
+
+class QuadSplineColsum(torch.autograd.Function):
+    """out = K4(x1, x2, w1); the backward is the K4 backward kernel, with
+    gradients to x1, x2 and the row weights w1."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, w1, table, ps, plain):
+        _no_table_grad(ctx, 3)
+        tab = ps.table(table)
+        ctx.save_for_backward(x1, x2, w1)
+        ctx.ps, ctx.tab, ctx.plain = ps, tab, plain
+        return colsum_fwd(ps, tab, x1, x2, w1, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, w1 = ctx.saved_tensors
+        d1, d2 = colsum_bwd(ctx.ps, ctx.tab, x1, x2, w1, g, ctx.plain)
+        return d1[..., :6], d2[..., :6], d1[..., 6], None, None, None
+
+
+def quadspline(ps, table, x1, x2, plain=False):
+    """(B, n1, n2) pair values; differentiable in x1 and x2."""
+    return QuadSpline.apply(x1, x2, table, ps, plain)
+
+
+def quadspline_colsum(ps, table, x1, x2, w1, plain=False):
+    """(B, n2) sum_i w1[i] value(i, j); differentiable in x1, x2 and w1."""
+    return QuadSplineColsum.apply(x1, x2, w1, table, ps, plain)

@@ -32,13 +32,19 @@ class EvalContext:
 
 
 class System:
-    def __init__(self, n_atom: int, specs: List, device="cpu",
+    def __init__(self, n_atom: int, specs: List, device="cuda",
                  dtype=torch.float32, kernels=True):
-        """specs: bundle SpecRecords (or port NodeSpecs).  kernels=False
-        makes every kernel wrapper take its plain version even on the card;
-        it exists to compare the two and nothing on the main path sets it."""
+        """specs: bundle SpecRecords (or port NodeSpecs).  The system runs
+        on the card unless `device` says otherwise (the CPU runs every
+        kernel's plain version); without a CUDA device the default raises.
+        kernels=False makes every kernel wrapper take its plain version even
+        on the card; it exists to compare the two and nothing on the main
+        path sets it."""
         self.n_atom = n_atom
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("System: no CUDA device; pass device='cpu' "
+                               "to run the plain versions on the CPU")
         self.dtype = dtype
         self.plain = not kernels
         node_specs = [s if isinstance(s, NodeSpec) else NodeSpec(
@@ -70,7 +76,7 @@ class System:
         self._prep_memo = None
 
     @classmethod
-    def from_bundle(cls, path, device="cpu", dtype=torch.float32,
+    def from_bundle(cls, path, device="cuda", dtype=torch.float32,
                     kernels=True):
         """(System, initial positions (n_atom, 3) tensor) from a bundle."""
         specs, pos = bundle.load(path)
