@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`upside_md_torch`) on one NVIDIA GPU.
 
-Drives the port's two MD paths as replica ensembles through the
-hand-written Hopper kernels, and checks them:
+Drives the port's paths through the hand-written Hopper kernels, and
+checks them:
 
 * the fused path: full-force-field MD of 76-residue ubiquitin (374 beads;
   kernels K1 fwd, K1 bwd, K2);
 * the unfused path of more than 512 beads: 124-residue RNase A (543 beads;
   K4 fwd/bwd for both coverage nodes, K5 fwd/bwd for the rotamer grid, K6
-  for residue-plane BP).
+  for residue-plane BP);
+* the fused block without its env band: ubiquitin without the
+  environment/burial chain (as build_full_system builds it without an
+  environment library; K1 fwd without planes, K3 the recomputing
+  backward, K2), driven as MD and as parameter training (`fit_packed` of
+  the rotamer table under the energy-gap loss, through K3 and the table
+  cotangents).
 
-Both use synthetic parameter libraries and a random initial structure from
+All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
 
 1. device: a CUDA device must be present; prints its name and power limit;
@@ -20,7 +26,11 @@ the bundle's seed.  Phases:
    positions): forwards rel 1e-5, backwards under a random cotangent rel
    1e-4, BP at tol 1e-6 cold and warm (F, gradients, beliefs rel 1e-4,
    bitwise repeatable, sweep counts printed), and the whole evaluation's
-   energy and force RMS against `kernels=False` (rel < 1e-3);
+   energy and force RMS against `kernels=False` (rel < 1e-3); K3 at both
+   band layouts (bitwise repeatable, and unmoved by NaN/Inf in dead slots
+   of the grid cotangent), and `param_deriv` of the rotamer, both
+   coverage and (env bundle) environment tables against `kernels=False`
+   (rel < 1e-3);
 4. times each kernel and its plain version with CUDA events (median) at
    64 replicas, beside its bound: the larger of the bytes it must move
    over the card's memory rate and the operations this run's data needs
@@ -32,9 +42,15 @@ the bundle's seed.  Phases:
 5. MD: `Simulation.advance` at 64 and 512 replicas on each path after a
    warm-up, the launch counts set to 0 just before each path and read just
    after; positions must stay finite and each path's kernels must have
-   launched; prints steps/s and mean BP sweeps;
-6. prints the kernel table as one JSON line, the card's name and power
-   limit, and last `{"ok": true, "device": {...}}`.
+   launched (and on the no-env path K1's plane-reading backward must not);
+   prints steps/s and mean BP sweeps;
+6. training: 5 Adam steps of `fit_packed` on 8 perturbed no-env
+   ubiquitin configurations, counts set to 0 just before and read just
+   after; every loss finite, the last below the first, K3 launched;
+   prints seconds per step and the table cotangents' share of it;
+7. prints the kernel table as one JSON line (launches summed over the
+   paths that ran each kernel), the card's name and power limit, and last
+   `{"ok": true, "device": {...}}`.
 
 Every failed check raises and the script exits non-zero.  Run from the
 repository root:
@@ -47,6 +63,7 @@ repository root:
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,11 +73,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUNDLE = "ubiquitin_full_synth.npz"        # fused path (<= 512 beads)
 BUNDLE_UNFUSED = "rnase_a_full_synth.npz"  # unfused path (543 beads)
+BUNDLE_NOENV = "ubiquitin_noenv_synth.npz"  # fused block, no env band
 KERNEL_INFO = {
     "fused_pair_fwd": ("upside_md_torch/csrc/fused_pair_fwd.cu",
                        "upside_md_tpu/ops/pallas_quadspline.py:1021"),
     "fused_pair_bwd": ("upside_md_torch/csrc/fused_pair_bwd.cu",
                        "upside_md_tpu/ops/pallas_quadspline.py:1276"),
+    "fused_pair_bwd_recompute": (
+        "upside_md_torch/csrc/fused_pair_bwd.cu",
+        "upside_md_tpu/ops/pallas_quadspline.py:1132"),
     "bp_bethe_pairs": ("upside_md_torch/csrc/bp_bethe_pairs.cu",
                        "upside_md_tpu/ops/pallas_bp.py:965"),
     "quadspline_fwd": ("upside_md_torch/csrc/quadspline.cu",
@@ -77,6 +98,14 @@ KERNEL_INFO = {
 FUSED_KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
 UNFUSED_KERNELS = ("quadspline_fwd", "quadspline_bwd", "colsum_fwd",
                    "colsum_bwd", "bp_bethe_planes")
+NOENV_KERNELS = ("fused_pair_fwd", "fused_pair_bwd_recompute",
+                 "bp_bethe_pairs")
+TRAIN_CONFIGS, TRAIN_STEPS, TRAIN_LR = 8, 5, 0.03
+PARAM_SWEEPS = 100   # fixed BP sweeps of the param_deriv comparison
+# the burial coupling's spline offset for the environment-table gradient
+# check: with the synthetic library's 0 the coverages sit on the clamped
+# flat start of the coupling spline and every burial gradient is 0
+COUPLING_OFFSET = -4.0
 
 # H100 SXM peaks (NVIDIA data sheet): device memory and float32 outside the
 # tensor cores, the type every kernel here computes in
@@ -211,16 +240,95 @@ def perturbed(base, n, gen, dev):
                                           device=dev)
 
 
-def load_system(path, dev, kernels=True, tol=None):
+def load_system(path, dev, kernels=True, tol=None, coupling_offset=None,
+                max_iter=None):
     import torch
     from upside_md_torch.config import bundle
     from upside_md_torch.system import System
     specs, pos0 = bundle.load(path)
-    if tol is not None:
-        for s in specs:
-            if s.type_name == "rotamer":
-                s.consts["tol"] = tol
+    for s in specs:
+        if s.type_name == "rotamer" and tol is not None:
+            s.consts["tol"] = tol
+        if s.type_name == "rotamer" and max_iter is not None:
+            s.consts["max_iter"] = max_iter
+        if s.type_name == "nonlinear_coupling" and coupling_offset is not None:
+            s.consts["spline_offset"] = coupling_offset
     return System(len(pos0), specs, dev, torch.float32, kernels), pos0
+
+
+def compare_k3(label, prep, x, plain_fwd, randn):
+    """K3 against its plain version under a random cotangent (rel 1e-4),
+    bitwise repeatable, and unmoved by NaN/Inf in the dead slots of the
+    grid cotangent (the padding, masked pairs, pairs beyond the cutoff):
+    the port's copy of the poisoned-dead-slot test on the card."""
+    import torch
+    from upside_md_torch.ops.fused_pair import fused_pair_bwd_recompute
+    g = [randn(t) for t in plain_fwd[:3]]
+    bk = fused_pair_bwd_recompute(prep, *x, *g)
+    repeatable(f"K3 {label}", bk, fused_pair_bwd_recompute(prep, *x, *g))
+    bp = fused_pair_bwd_recompute(prep, *x, *g, plain=True)
+    torch.cuda.synchronize()
+    err = compare([f"K3 {label} d1", f"K3 {label} d2"], bk, bp, 1e-4)
+    n2 = prep.n2
+    gg = g[1].clone()
+    gg[:, n2:] = float("nan")
+    gg[:, :, n2:] = float("inf")
+    inner = gg[:, :n2, :n2]
+    inner[~fused_live(prep, x[0], x[2])[1][:, prep.r_p:]] = float("nan")
+    dirty = fused_pair_bwd_recompute(prep, *x, g[0], gg, g[2])
+    if not all(torch.isfinite(a).all() and a.equal(b)
+               for a, b in zip(dirty, bk)):
+        raise AssertionError(f"K3 {label}: non-finite cotangents in dead "
+                             "slots moved the result")
+    log(f"  K3 {label}: bitwise repeatable; NaN/Inf in dead grid slots "
+        "leave it unchanged")
+    return err
+
+
+def compare_param_deriv(path, dev, pos, label, nodes):
+    """System.param_deriv of each node's table, kernels against
+    kernels=False, rel < 1e-3, with BP run for PARAM_SWEEPS sweeps and its
+    convergence test off, so both versions take the same schedule.  (With
+    a convergence test the two can stop a chunk apart, float32 noise
+    deciding, and the table gradients, which read the beliefs, then differ
+    by up to the BP tolerance: 2.1e-3 at tol 1e-3 in one run.)  Returns
+    the max abs err."""
+    sys_k, _ = load_system(path, dev, True, -1.0, COUPLING_OFFSET,
+                           PARAM_SWEEPS)
+    sys_p, _ = load_system(path, dev, False, -1.0, COUPLING_OFFSET,
+                           PARAM_SWEEPS)
+    worst = 0.0
+    for node in nodes:
+        a = sys_k.param_deriv(pos, node)["interaction_param"]
+        b = sys_p.param_deriv(pos, node)["interaction_param"]
+        if not b.abs().max().item() > 0:
+            raise AssertionError(f"{label} param_deriv {node} is all 0")
+        e, d = rel_err(a, b)
+        check(f"{label} param_deriv {node}", e, 1e-3)
+        worst = max(worst, d)
+    return worst
+
+
+def fused_live(prep, x1, x2):
+    """(n1, n2) pairs of the spline bands' mask and (B, n1, n2) those also
+    inside their band's cutoff: the pairs the fused kernels evaluate."""
+    import torch
+    with torch.no_grad():
+        d2 = sum((x2[:, None, :, a] - x1[:, :, None, a]) ** 2
+                 for a in range(3)) + 1e-12
+        s = d2 * torch.rsqrt(d2) * prep.inv_dx
+        band = prep.band_of_rows()
+        kcut = torch.where(band == 3, prep.kcut_pair, prep.kcut_cov)
+        spline = prep.mask.bool() & (band != 2)[:, None]
+        return spline, spline & (s < kcut[:, None])
+
+
+def fused_pairs(prep, x1, x2):
+    """(pairs in the spline bands' mask, those also inside their band's
+    cutoff, those of the pair band inside it), summed over replicas."""
+    spline, live = fused_live(prep, x1, x2)
+    return (int(spline.sum()) * x1.shape[0], int(live.sum()),
+            int(live[:, prep.r_p:].sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +377,12 @@ def compare_fused(dev, gen, base, path):
     torch.cuda.synchronize()
     errs["fused_pair_bwd"] = compare(["K1 bwd d1", "K1 bwd d2"], bk, bp,
                                      1e-4)
+    errs["fused_pair_bwd_recompute"] = compare_k3("env band", prep, x, fp,
+                                                  o["randn"])
+    errs["param_deriv"] = compare_param_deriv(
+        path, dev, pos, "ubiquitin", ("rotamer", "hbond_coverage",
+                                      "hbond_coverage_hydrophobe",
+                                      "environment_coverage"))
 
     st, E1, E_pair = o["st"], o["E1"], fp[1]
     kk = bp_bethe_pairs_fwd(st, E1, E_pair)
@@ -350,6 +464,142 @@ def time_fused(dev, gen, base, path):
     del system, sys_p, outs, fk
     torch.cuda.empty_cache()
     return res, bounds, lat
+
+
+# ---------------------------------------------------------------------------
+# the fused block without its env band (no-env ubiquitin): K1 fwd, K3, K2
+# ---------------------------------------------------------------------------
+
+def compare_noenv(dev, gen, base, path):
+    import torch
+    from upside_md_torch.ops.fused_pair import fused_pair_fwd
+    sys_k, _ = load_system(path, dev, True, tol=1e-6)
+    sys_p, _ = load_system(path, dev, False, tol=1e-6)
+    if sys_k.pair_fusion is None or sys_k.pair_fusion.env is not None:
+        raise AssertionError("no-env ubiquitin must fuse without the env "
+                             "band")
+    pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    o = fused_operands(sys_k, outs, gen, dev)
+    prep, x = o["prep"], o["x"]
+    log(f"[compare no-env ubiquitin] rows {prep.n1} (hbond {prep.r_b}, "
+        f"hydrophobe {prep.r_e - prep.r_b}, env {prep.n_e}, beads "
+        f"{prep.n2}) x {prep.n2} columns, {COMPARE_REPLICAS} replicas")
+    fk = fused_pair_fwd(prep, *x, want_planes=False)
+    repeatable("K1 fwd without planes", fk[:3],
+               fused_pair_fwd(prep, *x, want_planes=False)[:3])
+    fpl = fused_pair_fwd(prep, *x, plain=True, want_planes=False)
+    torch.cuda.synchronize()
+    if fk[3] is not None or fk[4] is not None or fk[2].numel():
+        raise AssertionError("K1 fwd without planes or env band wrote them")
+    errs = {"fused_pair_fwd": compare(
+        ["K1 fwd (no planes) cov", "K1 fwd (no planes) E_pair"], fk[:2],
+        fpl[:2], 1e-5)}
+    errs["fused_pair_bwd_recompute"] = compare_k3("no env band", prep, x,
+                                                  fpl, o["randn"])
+    errs["param_deriv"] = compare_param_deriv(
+        path, dev, pos, "no-env ubiquitin",
+        ("rotamer", "hbond_coverage", "hbond_coverage_hydrophobe"))
+    whole = compare_whole(sys_k, sys_p, pos, "no-env ubiquitin")
+    return errs, whole
+
+
+def time_noenv(dev, gen, base, path):
+    """K3 and its plain version at TIME_REPLICAS, beside its bound."""
+    import torch
+    from upside_md_torch.ops.fused_pair import (fused_pair_bwd_recompute,
+                                                fused_pair_fwd)
+    system, _ = load_system(path, dev, True)
+    sys_p, _ = load_system(path, dev, False)
+    n_t = TIME_REPLICAS
+    pos = perturbed(base, n_t, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    o = fused_operands(system, outs, gen, dev)
+    prep, x = o["prep"], o["x"]
+    fk = fused_pair_fwd(prep, *x, want_planes=False)
+    g = [o["randn"](t) for t in fk[:3]]
+    res = {"fused_pair_bwd_recompute": (
+        cuda_ms(lambda: fused_pair_bwd_recompute(prep, *x, *g)),
+        cuda_ms(lambda: fused_pair_bwd_recompute(prep, *x, *g, plain=True),
+                reps=5))}
+    masked, live, live_grid = fused_pairs(prep, x[0], x[2])
+    d = fused_pair_bwd_recompute(prep, *x, *g)
+    # inputs once (the grid cotangent only where a live pair reads it),
+    # outputs once; geometry for every masked pair, the recomputed spline
+    # and its backward for the live ones
+    statics = (prep.row_type, prep.col_type, prep.mask, prep.coef)
+    bounds = {"fused_pair_bwd_recompute": bound(
+        nbytes(*x, *statics, g[0], g[2], *d) + live_grid * g[1].element_size(),
+        masked * OPS_GEOM + live * (OPS_BWD - OPS_GEOM))}
+    log(f"[time] no-env ubiquitin at {n_t} replicas: {masked} masked and "
+        f"{live} live pairs ({live_grid} in the pair band)")
+    del system, sys_p, outs, fk
+    torch.cuda.empty_cache()
+    return res, bounds
+
+
+def run_train(path, dev, gen, base):
+    """fit_packed of the rotamer table under the energy-gap loss on
+    TRAIN_CONFIGS perturbed configurations, TRAIN_STEPS Adam steps; the
+    launch counts set to 0 just before and read just after."""
+    import torch
+    from upside_md_torch import training
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.ops.fused_pair import table_cotangent
+    system, _ = load_system(path, dev)
+    pos = perturbed(base, TRAIN_CONFIGS, gen, dev)
+    states = training.rotamer_node_marginals(system, pos[0]).argmax(-1)
+    fixed = training.rotamer_state_restricted_system(system, states.cpu())
+
+    stamps = []     # host clock at the start of each step's loss
+
+    def loss_of_params(p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return training.energy_gap_loss(fixed, system, pos)(p, {})
+
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    _, hist = training.fit_packed(system, loss_of_params, system.params,
+                                  ["rotamer"], n_steps=TRAIN_STEPS,
+                                  learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]
+    per_step = statistics.median(steps[1:])
+    launches = dict(kernels.LAUNCHES)
+    log(f"[train] energy-gap loss over {TRAIN_STEPS} Adam steps "
+        f"(lr {TRAIN_LR}, {TRAIN_CONFIGS} configurations): {hist}")
+    log(f"[train] {per_step:.4f} s per step (median after the first; "
+        f"steps {[round(s, 4) for s in steps]} s); kernel launches "
+        f"{launches}")
+    if not (all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]):
+        raise AssertionError(f"training loss not finite or not lower: {hist}")
+    for nm in NOENV_KERNELS:
+        if launches[nm] <= 0:
+            raise AssertionError(f"kernel {nm} was not launched by training")
+
+    # the rotamer table's cotangent (plain PyTorch): two per step, one for
+    # each of the two systems
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(pos)
+    plan, prep = system.pair_fusion, system.fused_prepared()
+    x1, _, x2, _ = plan.block_inputs(system.consts, outs)
+    table = system.params[plan.rot.name]["interaction_param"]
+    A1, A2 = prep.type_rows
+    g = torch.randn((TRAIN_CONFIGS, prep.n2, prep.n2), generator=gen,
+                    device=dev)
+    cot_ms = cuda_ms(lambda: table_cotangent(
+        table, prep.row_type[prep.r_p:] - A1 - A2, prep.col_type[3],
+        x1[:, prep.r_p:], x2, prep.mask[prep.r_p:], g), reps=5)
+    share = 2 * cot_ms / 1e3 / per_step
+    log(f"[train] rotamer table cotangent {cot_ms:.4f} ms per call, "
+        f"{share:.3f} of a step")
+    return {"loss": hist, "s_per_step": per_step, "step_s": steps,
+            "table_cotangent_ms": cot_ms, "table_cotangent_share": share}, \
+        {nm: launches[nm] for nm in NOENV_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -563,9 +813,10 @@ def compare_whole(sys_k, sys_p, pos, label):
     return {"energy_rel": err_e, "force_rms_rel": err_g}
 
 
-def run_md(path, dev, label, names, rounds=5):
+def run_md(path, dev, label, names, rounds=5, absent=()):
     """MD on one path at 64 and 512 replicas; the launch counts are set to 0
-    just before and read just after, and each of `names` must be > 0."""
+    just before and read just after, each of `names` must be > 0 and each
+    of `absent` 0."""
     import torch
     from upside_md_torch.md.sim import Simulation
     from upside_md_torch.ops import kernels
@@ -607,6 +858,14 @@ def run_md(path, dev, label, names, rounds=5):
         if launches[nm] <= 0:
             raise AssertionError(f"kernel {nm} was not launched by the "
                                  f"{label} MD")
+    for nm in absent:
+        if launches[nm] != 0:
+            raise AssertionError(f"kernel {nm} was launched by the {label} "
+                                 "MD")
+    evals = launches["bp_bethe_pairs"] if "bp_bethe_pairs" in names \
+        else launches["bp_bethe_planes"]
+    log(f"[md {label}] launches per evaluation: "
+        f"{ {nm: launches[nm] / evals for nm in names} }")
     return md, {nm: launches[nm] for nm in names}
 
 
@@ -631,6 +890,7 @@ def main():
     results = {"phases": {}}
     fused_path = os.path.join(DATA_DIR, BUNDLE)
     unfused_path = os.path.join(DATA_DIR, BUNDLE_UNFUSED)
+    noenv_path = os.path.join(DATA_DIR, BUNDLE_NOENV)
 
     # ---- 1. device
     card = card_line()
@@ -650,20 +910,28 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(7)
     base_f = torch.as_tensor(bundle.load(fused_path)[1], device=dev)
     base_u = torch.as_tensor(bundle.load(unfused_path)[1], device=dev)
+    base_n = torch.as_tensor(bundle.load(noenv_path)[1], device=dev)
     errs, whole_f = compare_fused(dev, gen, base_f, fused_path)
     errs_u, whole_u = compare_unfused(dev, gen, base_u, unfused_path)
+    errs_n, whole_n = compare_noenv(dev, gen, base_n, noenv_path)
     errs.update(errs_u)
+    for nm, e in errs_n.items():
+        errs[nm] = max(errs[nm], e)
     results["phases"]["compare"] = {"max_abs_err": errs,
                                     "ubiquitin": whole_f,
-                                    "rnase_a": whole_u}
+                                    "rnase_a": whole_u,
+                                    "ubiquitin_noenv": whole_n}
     torch.cuda.empty_cache()
 
     # ---- 4. timing, kernel vs plain, at 64 replicas with the config's BP
     # tolerance and a warm start, as in MD
     ms, bounds, lat = time_fused(dev, gen, base_f, fused_path)
     ms_u, bounds_u, lat_u = time_unfused(dev, gen, base_u, unfused_path)
-    ms.update(ms_u)
+    ms_n, bounds_n = time_noenv(dev, gen, base_n, noenv_path)
+    for part in (ms_u, ms_n):
+        ms.update(part)
     bounds.update(bounds_u)
+    bounds.update(bounds_n)
     lat.update(lat_u)
     for nm in kernels.KERNELS:
         log(f"[time] {nm}: kernel {ms[nm][0]:.4f} ms, plain {ms[nm][1]:.4f}"
@@ -678,12 +946,23 @@ def main():
     results["phases"]["sweep_latency_ms"] = lat
 
     # ---- 5. MD through each path
-    md_f, launches = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS)
+    md_f, launches_f = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS)
     md_u, launches_u = run_md(unfused_path, dev, "RNase A", UNFUSED_KERNELS)
-    launches.update(launches_u)
-    results["phases"]["md"] = {"ubiquitin": md_f, "rnase_a": md_u}
+    md_n, launches_n = run_md(noenv_path, dev, "no-env ubiquitin",
+                              NOENV_KERNELS, absent=("fused_pair_bwd",))
+    results["phases"]["md"] = {"ubiquitin": md_f, "rnase_a": md_u,
+                               "ubiquitin_noenv": md_n}
 
-    # ---- 6. report
+    # ---- 6. training through K3 and the table cotangents
+    train, launches_t = run_train(noenv_path, dev, gen, base_n)
+    results["phases"]["train"] = train
+    per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
+                "md ubiquitin_noenv": launches_n, "train": launches_t}
+    results["phases"]["launches"] = per_path
+    launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
+                for nm in kernels.KERNELS}
+
+    # ---- 7. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

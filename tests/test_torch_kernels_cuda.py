@@ -9,9 +9,9 @@ runs on the GPU machine too, without the JAX conftest:
 
 Problems are seeded numpy, float32, several replicas that differ, and span
 several 32x32 tiles with ragged edges so the per-tile partial sums are
-exercised.  Tolerances: K1, K4 and K5 forward rel 1e-5 and backward rel
-1e-4 (f32, two summation orders); K2 and K6 at BP tol 1e-6, rel 1e-4.
-Kernels must be bitwise repeatable.
+exercised.  Tolerances: K1, K4 and K5 forward rel 1e-5 and backward (K3
+too) rel 1e-4 (f32, two summation orders); K2 and K6 at BP tol 1e-6, rel
+1e-4.  Kernels must be bitwise repeatable.
 """
 
 import numpy as np
@@ -88,6 +88,56 @@ def test_fused_kernels_match_plain(cuda):
                             plain=True)
     for a, b in zip(bk, bp_):
         assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("env_band", [True, False])
+def test_recomputing_backward_matches_plain(cuda, env_band):
+    """K3 and the forward without planes, with and without the env band;
+    non-finite cotangents in dead slots (the padded grid, an all-masked env
+    row, a coverage column no hbond row reaches) leave K3's result as it
+    was."""
+    tabs, t1, t2, masks, env, dyn = fused_problem(np.random.default_rng(2))
+    masks[0][:, 5] = False
+    masks[2][1] = False
+    x1, w1, x2, wcol = (torch.tensor(a, dtype=torch.float32, device=cuda)
+                        for a in dyn)
+    if not env_band:
+        n_e = len(t1[2])
+        t1[2], t2[2], masks[2], env = t1[2][:0], 0 * t2[2], masks[2][:0], None
+        keep = torch.ones(x1.shape[1], dtype=torch.bool, device=cuda)
+        keep[len(t1[0]) + len(t1[1]):][:n_e] = False
+        x1, w1, wcol = x1[:, keep], w1[:, keep], torch.zeros_like(wcol)
+    prep = fp.make_prep(tabs, t1, t2, masks, env, cuda, torch.float32)
+    k = fp.fused_pair_fwd(prep, x1, w1, x2, wcol, want_planes=False)
+    p = fp.fused_pair_fwd(prep, x1, w1, x2, wcol, plain=True,
+                          want_planes=False)
+    assert k[3] is None and k[4] is None
+    for a, b in zip(k[:3], p[:3]):
+        if b.numel():
+            assert _rel(a, b) < 1e-5
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = [torch.randn(t.shape, generator=gen, device=cuda) for t in p[:3]]
+    bk = fp.fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, *g)
+    assert all(torch.equal(a, b) for a, b in zip(
+        bk, fp.fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, *g)))
+    bp_ = fp.fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, *g,
+                                      plain=True)
+    for a, b in zip(bk, bp_):
+        assert _rel(a, b) < 1e-4
+    g_cov, g_grid, g_env = (t.clone() for t in g)
+    g_grid[:, prep.n2:] = float("nan")
+    g_grid[:, :, prep.n2:] = float("inf")
+    g_cov[:, 0, 5] = float("nan")
+    g_env[:, 1:2] = float("nan")
+    dirty = fp.fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov,
+                                        g_grid, g_env)
+    g_cov[:, 0, 5] = 0.0
+    g_env[:, 1:2] = 0.0
+    clean = fp.fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov,
+                                        g[1], g_env)
+    for a, b in zip(dirty, clean):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 def bp_problem(rng, n_res=12, contact=0.35):

@@ -11,7 +11,8 @@ against the JAX package, on seeded problems of 2 replicas.
   float64: values and gradients at rel 1e-9, for two spline families,
   with K5 taking the same bead tensor on both sides (the rotamer grid:
   autograd sums both cotangents);
-* the table cotangent is not ported: asking for it raises.
+* the table cotangents of both against autodiff of the XLA formulation
+  (rel 1e-9) and the JAX rules (rel 1e-5).
 """
 
 import jax
@@ -162,11 +163,43 @@ def test_k4_matches_xla_float64(family):
 
 
 def test_table_cotangent_is_refused():
-    table, t1, t2, mask, x1, x2, w1, _ = problem(4, n1=20, n2=30)
+    """The table cotangents of K5 and K4 (`_table_cotangent`, :753, under
+    the pair cotangents of :790-798 and :900-916), float64: against
+    autodiff of the XLA `pair_coverage` at rel 1e-9, and against the JAX
+    rules at rel 1e-5 (they gather the table through float32 one-hot
+    products)."""
+    table, t1, t2, mask, x1, x2, w1, rng = problem(4, n1=20, n2=30)
     ps = PairSpline(t1, t2, mask, "cpu")
     tab = torch.tensor(table, requires_grad=True)
     a, b, w = (torch.tensor(v) for v in (x1, x2, w1))
-    with pytest.raises(NotImplementedError, match="table cotangent"):
-        quadspline(ps, tab, a, b)
-    with pytest.raises(NotImplementedError, match="table cotangent"):
-        quadspline_colsum(ps, tab, a, b, w)
+    g5 = rng.normal(size=(N_REP,) + mask.shape)
+    g4 = rng.normal(size=(N_REP, mask.shape[1]))
+    (d5,) = torch.autograd.grad(
+        (quadspline(ps, tab, a, b) * torch.tensor(g5)).sum(), tab)
+    (d4,) = torch.autograd.grad(
+        (quadspline_colsum(ps, tab, a, b, w) * torch.tensor(g4)).sum(), tab)
+
+    def xla(t):
+        grid = jax.vmap(lambda p, q: jpairs.pair_coverage(
+            t, jnp.asarray(t1), jnp.asarray(t2), p, q, jnp.asarray(mask),
+            8, 9, 1.0))(jnp.asarray(x1), jnp.asarray(x2))
+        return (jnp.sum(grid * g5),
+                jnp.sum((jnp.asarray(w1)[..., None] * grid).sum(1) * g4))
+
+    def rules(t):
+        args = (jnp.asarray(t1), jnp.asarray(t2))
+        grid = jax.vmap(lambda p, q: quadspline_pallas(
+            (8, 9, 1.0), True, t, *args, p, q, jnp.asarray(mask)))(
+            jnp.asarray(x1), jnp.asarray(x2))
+        cols = jax.vmap(lambda p, q, v: quadspline_colsum_pallas(
+            (8, 9, 1.0), True, t, *args, p, q, jnp.asarray(mask), v))(
+            jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(w1))
+        return jnp.sum(grid * g5), jnp.sum(cols * g4)
+
+    tj = jnp.asarray(table)
+    for k, got in enumerate((d5, d4)):
+        exact = jax.jit(jax.grad(lambda t: xla(t)[k]))(tj)
+        rule = jax.jit(jax.grad(lambda t: rules(t)[k]))(tj)
+        assert np.abs(np.asarray(exact)).max() > 0
+        assert _rel(got.numpy(), exact) < 1e-9
+        assert _rel(got.numpy(), rule) < 1e-5

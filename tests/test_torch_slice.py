@@ -7,10 +7,11 @@ bundle, plus the bundle pin and the import isolation of the port.
 * one 3-stage Verlet round with the BP cache threaded through the stages,
   from the same positions and momenta: positions and momenta at rel 1e-4;
 * the OU thermostat formula on the noise JAX draws;
-* the trp-cage and RNase A bundles regenerated by
+* the trp-cage, RNase A and no-env ubiquitin bundles regenerated by
   tools/export_torch_bundle.py match the committed ones to 1e-6;
-* `import upside_md_torch` (and a short MD run) with jax, h5py and
-  upside_md_tpu blocked.
+* `import upside_md_torch` (a short MD run, the engine and training
+  modules, one parameter derivative) with jax, h5py and upside_md_tpu
+  blocked.
 """
 
 import importlib.util
@@ -147,7 +148,8 @@ def test_regenerated_bundle_matches_committed(tmp_path):
         os.path.join(ROOT, "tools", "export_torch_bundle.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    for name in ("trp_cage_full_synth", "rnase_a_full_synth"):
+    for name in ("trp_cage_full_synth", "rnase_a_full_synth",
+                 "ubiquitin_noenv_synth"):
         path = tool.build_bundle(name, str(tmp_path), str(tmp_path))
         new, pos_new = bundle.load(path)
         old, pos_old = bundle.load(os.path.join(DATA_DIR, name + ".npz"))
@@ -173,6 +175,8 @@ def test_regenerated_bundle_matches_committed(tmp_path):
     assert sum(sizes) < 3e6
     assert os.path.getsize(os.path.join(DATA_DIR,
                                         "rnase_a_full_synth.npz")) < 4e6
+    assert os.path.getsize(os.path.join(DATA_DIR,
+                                        "ubiquitin_noenv_synth.npz")) < 2.5e6
 
 
 BLOCKED_IMPORT = r"""
@@ -186,12 +190,17 @@ sys.meta_path.insert(0, Block())
 sys.path.insert(0, sys.argv[1])
 import torch
 import upside_md_torch
+from upside_md_torch import training
+from upside_md_torch.engine import Upside
 from upside_md_torch.md.sim import Simulation
 from upside_md_torch.system import System
 system, pos = System.from_bundle(sys.argv[2], device="cpu")
 sim = Simulation(system, seed=0)
 state = sim.advance(sim.initial_state(pos, 1), 1)
 assert bool(torch.isfinite(state.pos).all())
+engine = Upside(system, initial_pos=pos)
+assert engine.get_param_deriv("hbond_energy").shape == (1,)
+assert training.rotamer_packings(system.params)["rotamer"].symmetric
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
 assert not bad, bad

@@ -36,10 +36,15 @@ Run from the repository root (needs jax and h5py):
     python tools/export_torch_bundle.py [--out DIR] [--only NAME ...]
 
 It writes `ubiquitin_full_synth.npz` (76 residues),
-`trp_cage_full_synth.npz` (20 residues) and `rnase_a_full_synth.npz`
+`trp_cage_full_synth.npz` (20 residues), `rnase_a_full_synth.npz`
 (124-residue bovine ribonuclease A, 543 sidechain beads: above the fused
-block's 512-bead cap, so the port runs its unfused path) into
-`upside_md_torch/data/`.
+block's 512-bead cap, so the port runs its unfused path) and
+`ubiquitin_noenv_synth.npz` into `upside_md_torch/data/`.  The `_noenv`
+bundles are built the same way but without `add_environment`, as
+`build_full_system` builds a system when the environment library is
+absent: the fused pair block then runs without its env band, and its
+backward is the recomputing one (K3).  `--only trp_cage_noenv_synth`
+builds the trp-cage one, which the tests build for themselves.
 """
 
 from __future__ import annotations
@@ -71,7 +76,16 @@ SYSTEMS = {
     "ubiquitin_full_synth": "UBIQUITIN",
     "trp_cage_full_synth": "TRP_CAGE",
     "rnase_a_full_synth": RNASE_A,
+    "ubiquitin_noenv_synth": "UBIQUITIN",
+    "trp_cage_noenv_synth": "TRP_CAGE",
 }
+# bundles built without the environment/burial chain, as build_full_system
+# builds a system when no environment library exists
+NO_ENV = {"ubiquitin_noenv_synth", "trp_cage_noenv_synth"}
+# what `main` writes by default; the trp-cage no-env bundle is built by the
+# tests where they need it
+COMMITTED = ("ubiquitin_full_synth", "trp_cage_full_synth",
+             "rnase_a_full_synth", "ubiquitin_noenv_synth")
 
 
 def _unit(v):
@@ -198,7 +212,8 @@ def build_bundle(name, out_dir, lib_dir):
     b.add_rotamer_sidechains(sidechain, sidechain, damping=0.1,
                              dynamic_1body=True)
     b.add_hbond(hbond_energy=-2.1119, coverage_library=sidechain)
-    b.add_environment(environment)
+    if name not in NO_ENV:
+        b.add_environment(environment)
     b.add_rotamer_node()
     up = os.path.join(lib_dir, f"{name}.up")
     b.write(up)
@@ -217,7 +232,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     with tempfile.TemporaryDirectory() as lib_dir:
-        for name in args.only or sorted(SYSTEMS):
+        for name in args.only or COMMITTED:
             path = build_bundle(name, args.out, lib_dir)
             print(f"{path}: {os.path.getsize(path)} bytes")
 

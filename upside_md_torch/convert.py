@@ -2,8 +2,10 @@
 
 `from_jax_specs` takes the JAX package's `NodeSpec`s duck-typed (it reads
 `.name`, `.node_type.name`, `.args`, `.consts` and `.params`) and returns
-the framework-free `SpecRecord`s a bundle stores.  It imports nothing from
-jax: `np.asarray` turns every array the caller hands over into numpy.
+the framework-free `SpecRecord`s a bundle stores.  `params_from_jax` and
+`params_to_numpy` carry a parameter pytree across in both directions.  The
+module imports nothing from jax: `np.asarray` turns every array the caller
+hands over into numpy.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Iterable, List, Tuple
 
 import numpy as np
+import torch
 
 from .config.bundle import SpecRecord
 
@@ -43,3 +46,27 @@ def from_jax_specs(specs: Iterable, pos) -> Tuple[List[SpecRecord],
         records.append(SpecRecord(s.name, tname, list(s.args), consts,
                                   params))
     return records, np.asarray(pos, np.float32)
+
+
+def params_from_jax(jax_params, device="cpu", dtype=torch.float32):
+    """A JAX parameter pytree {node: {name: array}} (numpy or jax arrays)
+    -> the port's {node: {name: tensor}}: floating arrays in `dtype`,
+    others keep their kind (the port's `System.params` layout)."""
+    out = {}
+    for node, p in jax_params.items():
+        out[node] = {}
+        for k, v in p.items():
+            a = np.array(v)
+            out[node][k] = torch.as_tensor(
+                a, dtype=dtype if a.dtype.kind == "f" else None,
+                device=device)
+    return out
+
+
+def params_to_numpy(params):
+    """The port's {node: {name: tensor}} -> {node: {name: numpy array}}
+    (what the JAX package's functions take)."""
+    return {node: {k: v.detach().cpu().numpy()
+                   if isinstance(v, torch.Tensor) else np.asarray(v)
+                   for k, v in p.items()}
+            for node, p in params.items()}

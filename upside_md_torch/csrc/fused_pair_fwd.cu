@@ -2,15 +2,20 @@
 // environment coverage and the rotamer bead-pair grid in one pass).
 //
 // Replaces: upside_md_tpu/ops/pallas_quadspline.py `_fused_fwd_kernel`
-// (:1021, with want_planes), launched by `_fused_fwd_batched` (:1581) for
-// `fused_pair_block_env_prep` (:2403).
+// (:1021), launched by `_fused_fwd_batched` (:1581) for
+// `fused_pair_block_env_prep` (:2403) with want_planes, and for
+// `fused_pair_block` (:1899, no env band, ITE < 0) and
+// `fused_pair_block_env` (:2135) without them.  Null `planes`/`vcov` is
+// the variant without residual planes; r_e == r_p is the block without
+// its env band.
 //
-// What bounds it on an H100: device-memory writes.  Per replica it writes
-// the three derivative planes over all rows x bead columns, the coverage
-// value plane and the pair grid (about 4.5 MB at ubiquitin shapes, 149 +
-// 228 + 76 + 374 rows by 374 columns), against ~100 flops per pair.  The
-// coefficient table (~180 KB) and the mask are shared by all replicas and
-// stay in L2.
+// What bounds it on an H100: with planes, device-memory writes.  Per
+// replica it writes the three derivative planes over all rows x bead
+// columns, the coverage value plane and the pair grid (about 4.5 MB at
+// ubiquitin shapes, 149 + 228 + 76 + 374 rows by 374 columns), against
+// ~100 flops per pair.  Without planes it writes the grid and the sums
+// only (~0.6 MB) and the ~100 flops per pair bound it.  The coefficient
+// table (~180 KB) and the mask are shared by all replicas and stay in L2.
 //
 // Design: one thread per (row, bead column) pair; a block is a 32-column
 // by 32-row tile (32 x 8 threads, each thread walks 4 rows), the replica
@@ -84,11 +89,13 @@ fused_fwd_kernel(const float* __restrict__ x1, const float* __restrict__ w1,
           p1 = da1 * inv_dth * a2 * nar;
           p2 = da2 * inv_dth * a1 * nar;
         }
-        planes[pidx] = p0;
-        planes[pidx + plane] = p1;
-        planes[pidx + 2 * plane] = p2;
+        if (planes) {
+          planes[pidx] = p0;
+          planes[pidx + plane] = p1;
+          planes[pidx + 2 * plane] = p2;
+        }
         if (band < 2) {
-          vcov[((long)r * r_e + i) * n2 + j] = val;
+          if (vcov) vcov[((long)r * r_e + i) * n2 + j] = val;
           const float w = w1[(long)r * n1 + i];
           if (band == 0) acc_a += w * val; else acc_b += w * val;
         } else {
@@ -98,9 +105,11 @@ fused_fwd_kernel(const float* __restrict__ x1, const float* __restrict__ w1,
     } else {
       float ev = 0.0f;
       if (jv) {
-        planes[pidx] = 0.0f;
-        planes[pidx + plane] = 0.0f;
-        planes[pidx + 2 * plane] = 0.0f;
+        if (planes) {
+          planes[pidx] = 0.0f;
+          planes[pidx + plane] = 0.0f;
+          planes[pidx + 2 * plane] = 0.0f;
+        }
         if (mask[(long)i * n2 + j]) {
           PairGeom g = pair_geometry(xr, xc);
           const float* pr = env_tab + ((long)row_type[i] * n_env_t2 + ct[2]) * 4;

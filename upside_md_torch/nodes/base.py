@@ -37,13 +37,18 @@ class NodeType:
     prepare: Optional[Callable] = None
     # (consts, n_replica, dtype) -> initial per-node solver state, or None
     init_cache: Optional[Callable] = None
+    # the reference's flat-parameter API (engine.Upside): (consts, params)
+    # -> flat numpy array, and (consts, params, flat numpy) -> new params
+    get_param: Optional[Callable] = None
+    set_param: Optional[Callable] = None
 
 
 def register_node(name, is_potential, compute, prepare=None,
-                  init_cache=None):
+                  init_cache=None, get_param=None, set_param=None):
     if name in NODE_REGISTRY:
         raise ValueError(f"node type {name} registered twice")
-    nt = NodeType(name, is_potential, compute, prepare, init_cache)
+    nt = NodeType(name, is_potential, compute, prepare, init_cache,
+                  get_param, set_param)
     NODE_REGISTRY[name] = nt
     return nt
 
@@ -55,17 +60,20 @@ def resolve_node_type(name: str) -> NodeType:
 
 
 def to_tensor(v, device, dtype):
-    """numpy -> tensor on device: floats in `dtype`, integers as int64
-    (torch's index type), bools as bool; Python scalars pass through."""
+    """numpy -> a new tensor on device: floats in `dtype`, integers as
+    int64 (torch's index type), bools as bool; Python scalars pass through.
+    The tensor never shares memory with `v`, so an in-place update of a
+    System's parameters (an optimizer step) leaves the caller's specs as
+    they were."""
     if isinstance(v, (bool, int, float, str)):
         return v
     a = np.asarray(v)
     if a.dtype.kind == "f":
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return torch.tensor(a, dtype=dtype, device=device)
     if a.dtype.kind in "iu":
-        return torch.as_tensor(a.astype(np.int64), device=device)
+        return torch.tensor(a.astype(np.int64), device=device)
     if a.dtype.kind == "b":
-        return torch.as_tensor(a, device=device)
+        return torch.tensor(a, device=device)
     raise TypeError(f"cannot move array of dtype {a.dtype} to torch")
 
 
@@ -77,6 +85,23 @@ class NodeSpec:
     args: List[str]
     consts: Dict[str, Any] = field(default_factory=dict)
     params: Dict[str, Any] = field(default_factory=dict)
+
+
+def flat_param(key, dtype=None):
+    """get_param/set_param of a node whose flat parameters are the one
+    tensor `key` (the hooks of upside_md_tpu/nodes: rotamer.py:516-525,
+    placement.py:80-87, env.py:137-143); get_param returns them in
+    `dtype` where the JAX hook casts."""
+    def get(c, p):
+        flat = p[key].detach().cpu().numpy().ravel()
+        return flat if dtype is None else flat.astype(dtype)
+
+    def set_(c, p, flat):
+        t = p[key]
+        return {**p, key: torch.as_tensor(
+            np.asarray(flat, np.float32).reshape(tuple(t.shape)),
+            dtype=t.dtype, device=t.device)}
+    return get, set_
 
 
 def topo_sort(specs: Dict[str, NodeSpec]) -> List[NodeSpec]:

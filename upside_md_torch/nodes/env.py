@@ -10,12 +10,13 @@ upside_md_tpu/nodes/env.py; reference src/environment.cpp).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.pairs import sequence_exclusion_mask
 from ..ops.sigmoid import compact_sigmoid
 from ..ops.spline import eval_clamped_bspline
-from .base import register_node
+from .base import flat_param, register_node
 
 
 def _environment_coverage(c, p, inputs, ctx):
@@ -56,5 +57,7 @@ def _nonlinear_coupling(c, p, inputs, ctx):
 environment_coverage = register_node("environment_coverage", False,
                                      _environment_coverage)
 weighted_pos = register_node("weighted_pos", False, _weighted_pos)
+_get_coeff, _set_coeff = flat_param("coeff", np.float32)
 nonlinear_coupling = register_node("nonlinear_coupling", True,
-                                   _nonlinear_coupling)
+                                   _nonlinear_coupling, get_param=_get_coeff,
+                                   set_param=_set_coeff)

@@ -103,6 +103,18 @@ def _hbond_coverage(c, p, inputs, ctx):
 
 infer_H_O = register_node("infer_H_O", False, _infer_h_o)
 protein_hbond = register_node("protein_hbond", False, _protein_hbond)
-hbond_energy = register_node("hbond_energy", True, _hbond_energy)
+def _energy_get_param(c, p):
+    return np.asarray([float(p["protein_hbond_energy"])], np.float32)
+
+
+def _energy_set_param(c, p, flat):
+    t = p["protein_hbond_energy"]
+    return {"protein_hbond_energy": torch.as_tensor(
+        float(flat[0]), dtype=t.dtype, device=t.device)}
+
+
+hbond_energy = register_node("hbond_energy", True, _hbond_energy,
+                             get_param=_energy_get_param,
+                             set_param=_energy_set_param)
 hbond_coverage = register_node("hbond_coverage", False, _hbond_coverage,
                                prepare=_prepare_coverage)

@@ -12,7 +12,7 @@ import torch
 
 from ..ops.geometry import quat_to_rot, rotate_vec
 from ..ops.spline import eval_periodic_bspline_2d
-from .base import register_node
+from .base import flat_param, register_node
 from .rama import rama_to_grid
 
 SIG_WIDTH = {"scalar": 1, "point": 3, "vector": 3}
@@ -58,11 +58,14 @@ def _rama_placement(signature):
     return compute
 
 
+_get_data, _set_data = flat_param("placement_data")
 placement_scalar = register_node(
     "placement_scalar", False, _rama_placement(("scalar",)))
 placement_fixed_point_vector_only = register_node(
     "placement_fixed_point_vector_only", False,
-    _fixed_placement(("point", "vector")))
+    _fixed_placement(("point", "vector")), get_param=_get_data,
+    set_param=_set_data)
 placement_fixed_point_vector_scalar = register_node(
     "placement_fixed_point_vector_scalar", False,
-    _fixed_placement(("point", "vector", "scalar")))
+    _fixed_placement(("point", "vector", "scalar")), get_param=_get_data,
+    set_param=_set_data)

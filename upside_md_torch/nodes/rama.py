@@ -24,4 +24,13 @@ def _rama_map_pot(c, p, inputs, ctx):
     return val.sum(-1)
 
 
-rama_map_pot = register_node("rama_map_pot", True, _rama_map_pot)
+def _no_raw_map(*args):
+    """The JAX hooks (rama.py:57-69) read and refit the raw map, which the
+    bundles drop for size (convert.DROPPED)."""
+    raise NotImplementedError(
+        "rama_map_pot get_param/set_param need the raw Rama map, which the "
+        "port's bundles do not carry")
+
+
+rama_map_pot = register_node("rama_map_pot", True, _rama_map_pot,
+                             get_param=_no_raw_map, set_param=_no_raw_map)

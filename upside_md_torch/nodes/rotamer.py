@@ -38,7 +38,7 @@ from ..ops.bp_pairs import (EPS, MAX_RES, NROT, bp_bethe_pairs,
                             make_statics, scatter_pairs)
 from ..ops.bp_planes import bp_bethe_planes
 from ..ops.quadspline import PairSpline, live_pairs, quadspline
-from .base import register_node, to_tensor
+from .base import flat_param, register_node, to_tensor
 
 EXTRAP_ALPHA = 1.0
 # above this many beads the JAX package leaves the bead-space BP kernel for
@@ -134,8 +134,9 @@ def _rotamer(c, p, inputs, ctx):
             pad = st.n2p - st.n_bead
             E_pair = torch.nn.functional.pad(
                 assemble_pair_grid(c, p, beads, ctx.plain), (0, pad, 0, pad))
-        F, nb, eb, dev, iters = bp_bethe_pairs(st, E1, E_pair, init,
-                                               ctx.plain)
+        F, nb, eb, dev, iters = bp_bethe_pairs(
+            st, E1, E_pair, init, ctx.plain,
+            identity_edges=p["interaction_param"].requires_grad)
     else:
         if st.n_res > MAX_RES and E1.is_cuda:
             raise NotImplementedError(
@@ -165,5 +166,7 @@ def _init_cache(c, n_replica, dtype):
             "iters": zeros.to(torch.int32)}
 
 
+_get_table, _set_table = flat_param("interaction_param")
 rotamer = register_node("rotamer", True, _rotamer, prepare=_prepare,
-                        init_cache=_init_cache)
+                        init_cache=_init_cache, get_param=_get_table,
+                        set_param=_set_table)

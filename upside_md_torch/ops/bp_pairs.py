@@ -256,22 +256,55 @@ def bp_bethe_pairs_fwd(st, E1, E_pair, init=None, plain=False):
     return F, G1, dE, nb, eb, dev, iters
 
 
+def identity_edge_gradient(st, E_pair, nb):
+    """dF/dE_pair (B, n2p, n2p) on the bead pairs of distinct residues that
+    K2 leaves out of its graph because all 36 of their E2 entries are 0,
+    zero elsewhere.  Such an edge is the identity, whose pair belief at the
+    fixed point is the product of the node beliefs, so dF/dE_pair there is
+    nb_i(a) nb_j(b): what the JAX package's solvers return (its XLA path
+    keeps every residue pair with a bead pair inside the cutoff as an edge,
+    its kernel every residue pair).  K2 returns 0 there.  Position
+    gradients do not see the difference (a pair whose energy vanishes
+    identically has no position derivative); table gradients do, because
+    the pair's spline window weights are not 0."""
+    R = st.n_res
+    eye = torch.eye(R, dtype=torch.bool, device=nb.device)
+    adj = (scatter_pairs(st, E_pair) != 0).any(-1).any(-1) | eye
+    s = st.bead_slot.long()
+    res = s // NROT
+    b = nb.reshape(nb.shape[0], R * NROT)[:, s]                # (B, n)
+    out = E_pair.new_zeros(E_pair.shape)
+    n = st.n_bead
+    out[:, :n, :n] = torch.where(~adj[:, res[:, None], res[None, :]],
+                                 b[:, :, None] * b[:, None, :],
+                                 torch.zeros_like(out[:, :n, :n]))
+    return out
+
+
 class BPFreeEnergy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, E1, E_pair, st, init, plain):
+    def forward(ctx, E1, E_pair, st, init, plain, identity_edges):
         F, G1, dE, nb, eb, dev, iters = bp_bethe_pairs_fwd(st, E1, E_pair,
                                                            init, plain)
-        ctx.save_for_backward(G1, dE)
+        ctx.save_for_backward(G1, dE, E_pair if identity_edges else None,
+                              nb if identity_edges else None)
+        ctx.st = st
         ctx.mark_non_differentiable(nb, eb, dev, iters)
         return F, nb, eb, dev, iters
 
     @staticmethod
     def backward(ctx, gF, *unused):
-        G1, dE = ctx.saved_tensors
+        G1, dE, E_pair, nb = ctx.saved_tensors
+        if E_pair is not None:
+            dE = dE + identity_edge_gradient(ctx.st, E_pair, nb)
         return gF[:, None, None] * G1, gF[:, None, None] * dE, None, None, \
-            None
+            None, None
 
 
-def bp_bethe_pairs(st, E1, E_pair, init=None, plain=False):
-    """(F, nb, eb, dev, iters); F differentiable in E1 and E_pair."""
-    return BPFreeEnergy.apply(E1, E_pair, st, init, plain)
+def bp_bethe_pairs(st, E1, E_pair, init=None, plain=False,
+                   identity_edges=False):
+    """(F, nb, eb, dev, iters); F differentiable in E1 and E_pair.  With
+    `identity_edges` the E_pair cotangent also holds the identity edges'
+    term (`identity_edge_gradient`), which the rotamer node asks for when
+    its table requires grad (training)."""
+    return BPFreeEnergy.apply(E1, E_pair, st, init, plain, identity_edges)

@@ -1,13 +1,14 @@
-"""The fused pair block: K1 forward and backward, their plain versions, and
-the autograd rule that joins them.
+"""The fused pair block: K1 forward, K1 backward and K3, their plain
+versions, the table cotangents, and the autograd rule that joins them.
 
 Port of `fused_pair_block_env_prep` (upside_md_tpu/ops/pallas_quadspline.py
-:2403) and its residual-consuming VJP (:2415-2449).  One pass over the
-bead columns evaluates four row bands:
+:2403), `fused_pair_block_env` (:2135) and `fused_pair_block` (:1899).  One
+pass over the bead columns evaluates up to four row bands:
 
   rows [0, r_b)      hbond virtuals, weighted by w = (1 - s)^2
   rows [r_b, r_e)    hydrophobe probes, weighted the same way
-  rows [r_e, r_p)    environment CB probes (compact sigmoids, no spline)
+  rows [r_e, r_p)    environment CB probes (compact sigmoids, no spline);
+                     empty when the graph fuses without its env band
   rows [r_p, n1)     the beads themselves (the rotamer pair grid)
 
 For the spline bands the pair value is wide(r) + ang1(cos1) ang2(cos2)
@@ -22,15 +23,25 @@ each family's cutoff (pallas_quadspline.py:937-946).
 Outputs: the two weighted column sums (hbond and hydrophobe coverage of
 each bead), the env row sums csig(r - r0) csig(dot0 - cos1) wcol[j], and
 the bead-pair grid E_pair (upper triangle, different residues, zero
-elsewhere) at a padded (n2p, n2p) layout.  The forward also saves the
-residual planes the backward reads: three derivative planes (d/d dist,
-d/d cos1, d/d cos2, pre-masked and pre-scaled) and the value plane of the
-coverage bands.
+elsewhere) at a padded (n2p, n2p) layout.
 
-`fused_pair_fwd` / `fused_pair_bwd` take the plain version for CPU tensors
-and launch the CUDA kernels (csrc/fused_pair_fwd.cu, fused_pair_bwd.cu)
-for CUDA tensors; `plain=True` asks for the plain version on the card, for
-comparisons only.
+Two backwards, as in the JAX package:
+
+* K1 backward (`fused_pair_bwd`) reads residual planes that the forward
+  saved with `want_planes=True`: three derivative planes (d/d dist,
+  d/d cos1, d/d cos2, pre-masked and pre-scaled) and the value plane of
+  the coverage bands;
+* K3 (`fused_pair_bwd_recompute`, the recomputing `_fused_bwd_kernel`
+  :1132) keeps no planes: it recomputes each pair's spline terms from the
+  coefficients.  It is the only backward of the block without its env
+  band, and the memory-saving one with it (`FusedPairBlock(residuals=
+  False)`, the JAX package's UPSIDE_FUSED_RESID=0).
+
+The wrappers take the plain version for CPU tensors (or when asked with
+`plain=True`, for comparisons on the card) and launch the CUDA kernels
+(csrc/fused_pair_fwd.cu, fused_pair_bwd.cu) for CUDA tensors.  Table
+cotangents (`table_cotangent`, `env_table_cotangent`) are plain PyTorch,
+as the JAX package computes them in XLA outside any kernel.
 """
 
 from __future__ import annotations
@@ -101,6 +112,7 @@ class FusedPrep:
     mask: torch.Tensor       # (n1, n2) uint8 sequence/triangle mask
     coef: torch.Tensor       # (A_tot, n_ct, ncoef) float32 poly coefficients
     env_tab: torch.Tensor    # (nt1e, nt2e, 4) float32 (r0, rs, dot0, dots)
+    type_rows: tuple         # row types of tab1, tab2 (offsets in row_type)
 
     @property
     def n_e(self):
@@ -122,7 +134,8 @@ def make_prep(tabs, type1, type2, masks, env_tab, device,
     type1 / type2 / masks: per band A, B, E, P the row types, the column
     types and the (rows, n2) interaction mask (sequence exclusion for A, B
     and E; upper triangle and different residues for P).  env_tab
-    (n_type1, n_type2, 4): (r0, r_sharp, dot0, dot_sharp)."""
+    (n_type1, n_type2, 4): (r0, r_sharp, dot0, dot_sharp), or None with an
+    empty E band (the block without its env band)."""
     from .pairs import quadspline_family
     tabs = [np.asarray(t, np.float64) for t in tabs]
     ka, kc, dx = quadspline_family(tabs[0].shape[-1])
@@ -138,8 +151,10 @@ def make_prep(tabs, type1, type2, masks, env_tab, device,
         for t, kf in zip(tabs, (kc, kc, kp))], axis=0)
     A1, A2 = tabs[0].shape[0], tabs[1].shape[0]
     n_a, n_b, n_e, n2 = (len(t) for t in type1)
-    if n_e < 1:
-        raise ValueError("the fused block needs its env band")
+    if env_tab is None:         # fused without the env band
+        if n_e:
+            raise ValueError("env rows need an env table")
+        env_tab = np.zeros((1, 1, 4))
     row_type = np.concatenate([type1[0], A1 + np.asarray(type1[1]), type1[2],
                                A1 + A2 + np.asarray(type1[3])])
 
@@ -154,7 +169,8 @@ def make_prep(tabs, type1, type2, masks, env_tab, device,
         row_type=dev(row_type, torch.int32),
         col_type=dev(np.stack(type2), torch.int32),
         mask=dev(np.concatenate(masks).astype(np.uint8), torch.uint8),
-        coef=dev(coef, dtype), env_tab=dev(np.asarray(env_tab), dtype))
+        coef=dev(coef, dtype), env_tab=dev(np.asarray(env_tab), dtype),
+        type_rows=(A1, A2))
 
 
 # ---------------------------------------------------------------------------
@@ -230,11 +246,12 @@ def _env_fields(prep, x1e, x2):
     return (u, inv, cos1), me, radial, dradial, angular, dangular
 
 
-def fused_pair_fwd_plain(prep, x1, w1, x2, wcol):
+def fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes=True):
     """Plain forward.  x1 (B, n1, 6) row sites, w1 (B, n1) row weights
     (used on the two coverage bands), x2 (B, n2, 6) bead columns, wcol
     (B, n2) env column weights.  Returns (cov (B, 2, n2), E_pair (B, n2p,
-    n2p), env (B, n_e), planes (B, 3, n1, n2), vcov (B, r_e, n2))."""
+    n2p), env (B, n_e), planes (B, 3, n1, n2), vcov (B, r_e, n2)); the
+    last two are None unless `want_planes`."""
     _, _, val, planes = _spline_fields(prep, x1, x2)
     B = x1.shape[0]
     cov = torch.stack([
@@ -247,18 +264,16 @@ def fused_pair_fwd_plain(prep, x1, w1, x2, wcol):
         prep, x1[:, prep.r_e:prep.r_p], x2)
     env = torch.where(me, wcol[:, None, :] * radial * angular,
                       torch.zeros_like(radial)).sum(-1)
+    if not want_planes:
+        return cov, grid, env, None, None
     return cov, grid, env, planes, val[:, :prep.r_e].contiguous()
 
 
-def fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov, g_cov,
-                         g_grid, g_env):
-    """Plain backward from the saved planes.  Returns (d1 (B, n1, 8),
-    d2 (B, n2, 8)): d1 columns are d/d(pos, dir) of each row site and the
-    coverage weight cotangent in column 6; d2 columns are d/d(pos, dir) of
-    each bead column and the env column-weight cotangent in column 6.
-    Cotangents are selected (never multiplied) by mask AND inside-cutoff,
-    so non-finite values in dead slots stay out."""
-    (u, dist, inv, cos1, cos2), live, _, _ = _spline_fields(prep, x1, x2)
+def _bwd_plain(prep, x1, x2, wcol, fields, w1, planes, vcov, g_cov, g_grid,
+               g_env):
+    """The backward of both plain versions, from the spline fields of the
+    pairs (geometry, live mask) and the derivative and value planes."""
+    (u, dist, inv, cos1, cos2), live = fields[:2]
     band = prep.band_of_rows()
     B, n1, n2 = live.shape
     n2_ = prep.n2
@@ -311,6 +326,131 @@ def fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov, g_cov,
     return d1, d2
 
 
+def fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov, g_cov,
+                         g_grid, g_env):
+    """Plain K1 backward from the saved planes.  Returns (d1 (B, n1, 8),
+    d2 (B, n2, 8)): d1 columns are d/d(pos, dir) of each row site and the
+    coverage weight cotangent in column 6; d2 columns are d/d(pos, dir) of
+    each bead column and the env column-weight cotangent in column 6.
+    Cotangents are selected (never multiplied) by mask AND inside-cutoff,
+    so non-finite values in dead slots stay out."""
+    return _bwd_plain(prep, x1, x2, wcol, _spline_fields(prep, x1, x2), w1,
+                      planes, vcov, g_cov, g_grid, g_env)
+
+
+def fused_pair_bwd_recompute_plain(prep, x1, w1, x2, wcol, g_cov, g_grid,
+                                   g_env):
+    """Plain K3: the backward of `fused_pair_bwd_plain` with the planes
+    recomputed from the coefficients instead of read."""
+    fields = _spline_fields(prep, x1, x2)
+    return _bwd_plain(prep, x1, x2, wcol, fields, w1, fields[3],
+                      fields[2][:, :prep.r_e], g_cov, g_grid, g_env)
+
+
+# ---------------------------------------------------------------------------
+# table cotangents (plain PyTorch, as the JAX package computes them in XLA)
+# ---------------------------------------------------------------------------
+
+# replicas per chunk of `table_cotangent`: at ubiquitin size (374 x 374
+# bead pairs, M = 34 table entries) one replica's window weights, gathered
+# table rows and products take ~130 floats per pair, ~70 MB in float32, so
+# a chunk of 8 holds ~0.6 GB
+COTANGENT_CHUNK = 8
+
+
+def table_cotangent(table, t1, t2, x1, x2, mask, g):
+    """d(sum g * value)/d(table) of a pair-spline table (n_t1, n_t2,
+    2 ka + 2 k), summed over replicas: port of `_table_cotangent`
+    (pallas_quadspline.py:753).  x1 (B, n1, >=6) and x2 (B, n2, >=6) are
+    the row and column sites, t1 (n1,) and t2 (n2,) their types, mask
+    (n1, n2) the call site's mask and g (B, n1, n2) the pair cotangent.
+    The cotangent is selected, never multiplied, by mask AND inside the
+    table's own cutoff.  Each pair's window weights and the table row it
+    reads give its (M,) cotangent, which `index_add_` scatters to its
+    (type1, type2) entry."""
+    from .pairs import quadspline_family
+    from .spline import bspline_window_weights
+    ka, k, dx = quadspline_family(table.shape[-1])
+    inv_dx, inv_dth = 1.0 / dx, (ka - 3) / 2.0
+    A, Bt, M = table.shape
+    t1, t2 = t1.long(), t2.long()
+    p = table.detach()[t1[:, None], t2[None, :]]          # (n1, n2, M)
+    idx = (t1[:, None] * Bt + t2[None, :]).reshape(-1)
+    out = table.new_zeros((A * Bt, M))
+    for r0 in range(0, x1.shape[0], COTANGENT_CHUNK):
+        sl = slice(r0, r0 + COTANGENT_CHUNK)
+        _, dist, _, cos1, cos2 = _geometry(x1[sl], x2[sl])
+        s = dist * inv_dx
+        live = mask.bool() & (s < k - 2 - 1e-6)
+        gm = torch.where(live, g[sl], torch.zeros_like(s))
+        wa1 = bspline_window_weights((cos1 + 1.0) * inv_dth + 1.0, ka, False)
+        wa2 = bspline_window_weights((cos2 + 1.0) * inv_dth + 1.0, ka, False)
+        wd = bspline_window_weights(s, k, True)
+        a1 = (wa1 * p[..., :ka]).sum(-1)
+        a2 = (wa2 * p[..., ka:2 * ka]).sum(-1)
+        narrow = (wd * p[..., 2 * ka + k:]).sum(-1)
+        gw = torch.cat([(gm * a2 * narrow)[..., None] * wa1,
+                        (gm * a1 * narrow)[..., None] * wa2,
+                        gm[..., None] * wd,
+                        (gm * a1 * a2)[..., None] * wd], dim=-1)
+        out.index_add_(0, idx, gw.sum(0).reshape(-1, M))
+    return out.reshape(A, Bt, M)
+
+
+def env_rowsums(tab4, t1e, t2e, me, x1e, wcol, xb):
+    """Plain env band rows (B, n_e) as a function of the sigmoid table:
+    port of `_env_xla_rowsums` (pallas_quadspline.py:2172)."""
+    prm = tab4[t1e.long()[:, None], t2e.long()[None, :]]     # (n_e, n2, 4)
+    d = xb[:, None, :, :3] - x1e[:, :, None, :3]
+    dist = torch.sqrt((d * d).sum(-1) + 1e-12)
+    dp = (d * x1e[:, :, None, 3:6]).sum(-1) / dist
+    radial, _ = compact_sigmoid(dist - prm[..., 0], prm[..., 1])
+    angular, _ = compact_sigmoid(prm[..., 2] - dp, prm[..., 3])
+    val = torch.where(me.bool(), wcol[:, None, :] * radial * angular,
+                      torch.zeros_like(radial))
+    return val.sum(-1)
+
+
+def env_table_cotangent(tab4, t1e, t2e, me, x1e, wcol, xb, g_env):
+    """d(sum g_env * env)/d(tab4) by autograd through `env_rowsums`, as
+    the JAX rule does (:2223-2227); the backward of the table gather is
+    PyTorch's accumulating scatter by type."""
+    with torch.enable_grad():
+        t = tab4.detach().requires_grad_(True)
+        total = (g_env * env_rowsums(t, t1e, t2e, me, x1e.detach(),
+                                     wcol.detach(), xb.detach())).sum()
+        (grad,) = torch.autograd.grad(total, t)
+    return grad
+
+
+def block_table_cotangents(prep, needed, tabs, x1, w1, x2, wcol, g_cov,
+                           g_grid, g_env):
+    """Cotangents of (tab1, tab2, tab3, tab4) where `needed` says so, else
+    None.  Pair cotangents as `_fused_bwd_rule` / `_fused_env_bwd_rule`
+    form them (:1943-1952, :2215-2227): w1 g_cov on the coverage bands,
+    the grid cotangent cut to the beads on the pair band."""
+    A1, A2 = prep.type_rows
+    rt, ct, mask = prep.row_type.long(), prep.col_type, prep.mask
+    n2 = prep.n2
+    bands = (
+        (0, prep.r_b, 0, 0,
+         lambda: w1[:, :prep.r_b, None] * g_cov[:, 0:1, :]),
+        (prep.r_b, prep.r_e, 1, A1,
+         lambda: w1[:, prep.r_b:prep.r_e, None] * g_cov[:, 1:2, :]),
+        (prep.r_p, prep.n1, 3, A1 + A2,
+         lambda: g_grid[:, :n2, :n2]))
+    out = []
+    for tab, want, (lo, hi, b, off, pair_g) in zip(tabs[:3], needed[:3],
+                                                  bands):
+        out.append(table_cotangent(tab, rt[lo:hi] - off, ct[b], x1[:, lo:hi],
+                                   x2, mask[lo:hi], pair_g())
+                   if want else None)
+    out.append(env_table_cotangent(
+        tabs[3], rt[prep.r_e:prep.r_p], ct[2], mask[prep.r_e:prep.r_p],
+        x1[:, prep.r_e:prep.r_p], wcol, x2, g_env) if needed[3] else None)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -330,11 +470,35 @@ def _check(prep, x1, w1, x2, wcol, *rest):
                              "CUDA tensors")
 
 
-def fused_pair_fwd(prep, x1, w1, x2, wcol, plain=False):
+def _statics(prep):
+    return (prep.row_type, prep.col_type, prep.mask, prep.coef, prep.env_tab)
+
+
+def _shape(prep, B):
+    return (B, prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
+            prep.ka, prep.k, prep.coef.shape[1], prep.coef.shape[2],
+            prep.env_tab.shape[1], prep.inv_dx, prep.kcut_cov,
+            prep.kcut_pair)
+
+
+def _bwd_parts(prep, B, device):
+    """Per-tile partials of the backwards and their sums."""
+    f32 = dict(dtype=torch.float32, device=device)
+    n_rt = -(-prep.n1 // kernels.TILE_ROWS)
+    n_ct = -(-prep.n2 // kernels.TILE_COLS)
+    return (torch.empty((n_ct, B, prep.n1, 8), **f32),
+            torch.empty((n_rt, B, prep.n2, 8), **f32),
+            torch.empty((B, prep.n1, 8), **f32),
+            torch.empty((B, prep.n2, 8), **f32))
+
+
+def fused_pair_fwd(prep, x1, w1, x2, wcol, plain=False, want_planes=True):
     """K1 forward: the plain version on CPU tensors (or when asked), the
-    CUDA kernel on CUDA tensors."""
+    CUDA kernel on CUDA tensors.  want_planes=False writes no residual
+    planes (the `_fused_fwd_kernel` variant without them, :1021); planes
+    and vcov then come back as None."""
     if plain or not x1.is_cuda:
-        return fused_pair_fwd_plain(prep, x1, w1, x2, wcol)
+        return fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes)
     x1, w1, x2, wcol = (t.contiguous() for t in (x1, w1, x2, wcol))
     _check(prep, x1, w1, x2, wcol)
     B = x1.shape[0]
@@ -342,19 +506,17 @@ def fused_pair_fwd(prep, x1, w1, x2, wcol, plain=False):
     cov = torch.empty((B, 2, prep.n2), **f32)
     grid = torch.zeros((B, prep.n2p, prep.n2p), **f32)
     env = torch.empty((B, prep.n_e), **f32)
-    planes = torch.empty((B, 3, prep.n1, prep.n2), **f32)
-    vcov = torch.empty((B, prep.r_e, prep.n2), **f32)
+    planes = vcov = None
+    if want_planes:
+        planes = torch.empty((B, 3, prep.n1, prep.n2), **f32)
+        vcov = torch.empty((B, prep.r_e, prep.n2), **f32)
     n_rt = -(-prep.r_e // kernels.TILE_ROWS)
     n_ct = -(-prep.n2 // kernels.TILE_COLS)
     colpart = torch.empty((n_rt, B, 2, prep.n2), **f32)
     rowpart = torch.empty((n_ct, B, prep.n_e), **f32)
-    kernels.launch(
-        "fused_pair_fwd", x1, w1, x2, wcol, prep.row_type, prep.col_type,
-        prep.mask, prep.coef, prep.env_tab,
-        B, prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
-        prep.ka, prep.k, prep.coef.shape[1], prep.coef.shape[2],
-        prep.env_tab.shape[1], prep.inv_dx, prep.kcut_cov, prep.kcut_pair,
-        planes, vcov, grid, colpart, rowpart, cov, env)
+    kernels.launch("fused_pair_fwd", x1, w1, x2, wcol, *_statics(prep),
+                   *_shape(prep, B), planes, vcov, grid, colpart, rowpart,
+                   cov, env)
     return cov, grid, env, planes, vcov
 
 
@@ -370,13 +532,7 @@ def fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov, g_cov, g_grid,
     _check(prep, *args)
     x1, w1, x2, wcol, planes, vcov, g_cov, g_grid, g_env = args
     B = x1.shape[0]
-    f32 = dict(dtype=torch.float32, device=x1.device)
-    n_rt = -(-prep.n1 // kernels.TILE_ROWS)
-    n_ct = -(-prep.n2 // kernels.TILE_COLS)
-    d1part = torch.empty((n_ct, B, prep.n1, 8), **f32)
-    d2part = torch.empty((n_rt, B, prep.n2, 8), **f32)
-    d1 = torch.empty((B, prep.n1, 8), **f32)
-    d2 = torch.empty((B, prep.n2, 8), **f32)
+    d1part, d2part, d1, d2 = _bwd_parts(prep, B, x1.device)
     kernels.launch(
         "fused_pair_bwd", x1, w1, x2, wcol, prep.row_type, prep.col_type,
         prep.mask, prep.env_tab, planes, vcov, g_cov, g_grid, g_env,
@@ -386,26 +542,73 @@ def fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov, g_cov, g_grid,
     return d1, d2
 
 
+def fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov, g_grid, g_env,
+                             plain=False):
+    """K3, the recomputing backward: plain on CPU tensors (or when asked),
+    CUDA kernel on CUDA tensors.  Same outputs as `fused_pair_bwd`."""
+    if plain or not x1.is_cuda:
+        return fused_pair_bwd_recompute_plain(prep, x1, w1, x2, wcol, g_cov,
+                                              g_grid, g_env)
+    args = [t.contiguous() for t in (x1, w1, x2, wcol, g_cov, g_grid,
+                                     g_env)]
+    _check(prep, *args)
+    x1, w1, x2, wcol, g_cov, g_grid, g_env = args
+    B = x1.shape[0]
+    if tuple(g_cov.shape) != (B, 2, prep.n2) or \
+            tuple(g_grid.shape) != (B, prep.n2p, prep.n2p) or \
+            tuple(g_env.shape) != (B, prep.n_e):
+        raise ValueError("fused_pair_bwd_recompute: cotangent shapes")
+    d1part, d2part, d1, d2 = _bwd_parts(prep, B, x1.device)
+    kernels.launch("fused_pair_bwd_recompute", x1, w1, x2, wcol,
+                   *_statics(prep), g_cov, g_grid, g_env, *_shape(prep, B),
+                   d1part, d2part, d1, d2)
+    return d1, d2
+
+
 class FusedPairBlock(torch.autograd.Function):
-    """cov, E_pair, env = block(x1, w1, x2, wcol); the backward consumes
-    the forward's residual planes (the custom_vjp of
-    pallas_quadspline.py:2402-2453)."""
+    """cov, E_pair, env = block(x1, w1, x2, wcol; tab1, tab2, tab3, tab4).
+
+    With `residuals` and the env band (the MD path) the forward saves the
+    derivative planes and K1's backward reads them (the custom_vjp of
+    pallas_quadspline.py:2402-2453).  Otherwise the forward writes no
+    planes and K3 recomputes them: always without the env band
+    (`fused_pair_block`, :1899-1957), and with it when `residuals` is
+    False (`fused_pair_block_env` under UPSIDE_FUSED_RESID=0,
+    :2161-2230).  The tables are inputs so that their cotangents reach
+    them; each is computed only when autograd asks for it (training)."""
 
     @staticmethod
-    def forward(ctx, x1, w1, x2, wcol, prep, plain):
+    def forward(ctx, x1, w1, x2, wcol, tab1, tab2, tab3, tab4, prep, plain,
+                residuals):
+        want = residuals and prep.n_e > 0
         cov, grid, env, planes, vcov = fused_pair_fwd(prep, x1, w1, x2,
-                                                      wcol, plain)
-        ctx.save_for_backward(x1, w1, x2, wcol, planes, vcov)
+                                                      wcol, plain, want)
+        ctx.save_for_backward(x1, w1, x2, wcol, tab1, tab2, tab3, tab4,
+                              planes, vcov)
         ctx.prep, ctx.plain = prep, plain
         return cov, grid, env
 
     @staticmethod
     def backward(ctx, g_cov, g_grid, g_env):
-        x1, w1, x2, wcol, planes, vcov = ctx.saved_tensors
-        d1, d2 = fused_pair_bwd(ctx.prep, x1, w1, x2, wcol, planes, vcov,
-                                g_cov, g_grid, g_env, ctx.plain)
-        return d1[..., :6], d1[..., 6], d2[..., :6], d2[..., 6], None, None
+        x1, w1, x2, wcol, *tabs, planes, vcov = ctx.saved_tensors
+        prep = ctx.prep
+        if planes is not None:
+            d1, d2 = fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov,
+                                    g_cov, g_grid, g_env, ctx.plain)
+        else:
+            d1, d2 = fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov,
+                                              g_grid, g_env, ctx.plain)
+        dtabs = block_table_cotangents(prep, ctx.needs_input_grad[4:8], tabs,
+                                       x1, w1, x2, wcol, g_cov, g_grid,
+                                       g_env)
+        return (d1[..., :6], d1[..., 6], d2[..., :6], d2[..., 6], *dtabs,
+                None, None, None)
 
 
-def fused_pair_block(prep, x1, w1, x2, wcol, plain=False):
-    return FusedPairBlock.apply(x1, w1, x2, wcol, prep, plain)
+def fused_pair_block(prep, x1, w1, x2, wcol, plain=False, tabs=None,
+                     residuals=True):
+    """(cov, E_pair, env); `tabs` = (tab1, tab2, tab3, tab4 or None), the
+    tensors `prep` was built from, for their cotangents."""
+    tabs = tuple(tabs) if tabs is not None else (None,) * 4
+    return FusedPairBlock.apply(x1, w1, x2, wcol, *tabs, prep, plain,
+                                residuals)

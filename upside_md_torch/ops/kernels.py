@@ -26,9 +26,9 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
-KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs",
-           "quadspline_fwd", "quadspline_bwd", "colsum_fwd", "colsum_bwd",
-           "bp_bethe_planes")
+KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "fused_pair_bwd_recompute",
+           "bp_bethe_pairs", "quadspline_fwd", "quadspline_bwd",
+           "colsum_fwd", "colsum_bwd", "bp_bethe_planes")
 # tile of the fused pair kernels (must match csrc/fused_pair.cuh)
 TILE_ROWS = 32
 TILE_COLS = 32

@@ -19,8 +19,10 @@ d1 (B, n1, 8) and d2 (B, n2, 8) hold d/d(pos, dir) in columns 0-5, and
 for K4 column 6 of d1 holds d/dw1.  Cotangents are selected, never
 multiplied, by mask AND inside-cutoff.
 
-Table cotangents (`_table_cotangent`, :753, XLA in the JAX package) are
-training's business: the autograd rules raise if the table requires grad.
+The table cotangent (`_table_cotangent`, :753, XLA in the JAX package) is
+plain PyTorch (`fused_pair.table_cotangent`), computed only when the table
+requires grad (training): the pair cotangent is g for K5 (:790-798) and
+w1[i] g[j] for K4 (:900-916).
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .fused_pair import _geometry, poly_coefficients
+from .fused_pair import _geometry, poly_coefficients, table_cotangent
 from .pairs import quadspline_family
 
 
@@ -302,11 +304,12 @@ def colsum_bwd(ps, tab, x1, x2, w1, g, plain=False):
 # autograd rules
 # ---------------------------------------------------------------------------
 
-def _no_table_grad(ctx, index):
-    if ctx.needs_input_grad[index]:
-        raise NotImplementedError(
-            "pair spline: the parameter-table cotangent (_table_cotangent, "
-            "pallas_quadspline.py:753) is not ported; it belongs to training")
+def _table_grad(ctx, index, table, x1, x2, g_pair):
+    """The table's cotangent if autograd asks for it, else None."""
+    if not ctx.needs_input_grad[index]:
+        return None
+    ps = ctx.ps
+    return table_cotangent(table, ps.t1, ps.t2, x1, x2, ps.mask, g_pair())
 
 
 class QuadSpline(torch.autograd.Function):
@@ -315,17 +318,17 @@ class QuadSpline(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, table, ps, plain):
-        _no_table_grad(ctx, 2)
         tab = ps.table(table)
-        ctx.save_for_backward(x1, x2)
+        ctx.save_for_backward(x1, x2, table)
         ctx.ps, ctx.tab, ctx.plain = ps, tab, plain
         return quadspline_fwd(ps, tab, x1, x2, plain)
 
     @staticmethod
     def backward(ctx, g):
-        x1, x2 = ctx.saved_tensors
+        x1, x2, table = ctx.saved_tensors
         d1, d2 = quadspline_bwd(ctx.ps, ctx.tab, x1, x2, g, ctx.plain)
-        return d1[..., :6], d2[..., :6], None, None, None
+        return (d1[..., :6], d2[..., :6],
+                _table_grad(ctx, 2, table, x1, x2, lambda: g), None, None)
 
 
 class QuadSplineColsum(torch.autograd.Function):
@@ -334,24 +337,26 @@ class QuadSplineColsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, w1, table, ps, plain):
-        _no_table_grad(ctx, 3)
         tab = ps.table(table)
-        ctx.save_for_backward(x1, x2, w1)
+        ctx.save_for_backward(x1, x2, w1, table)
         ctx.ps, ctx.tab, ctx.plain = ps, tab, plain
         return colsum_fwd(ps, tab, x1, x2, w1, plain)
 
     @staticmethod
     def backward(ctx, g):
-        x1, x2, w1 = ctx.saved_tensors
+        x1, x2, w1, table = ctx.saved_tensors
         d1, d2 = colsum_bwd(ctx.ps, ctx.tab, x1, x2, w1, g, ctx.plain)
-        return d1[..., :6], d2[..., :6], d1[..., 6], None, None, None
+        dtab = _table_grad(ctx, 3, table, x1, x2,
+                           lambda: w1[:, :, None] * g[:, None, :])
+        return d1[..., :6], d2[..., :6], d1[..., 6], dtab, None, None
 
 
 def quadspline(ps, table, x1, x2, plain=False):
-    """(B, n1, n2) pair values; differentiable in x1 and x2."""
+    """(B, n1, n2) pair values; differentiable in x1, x2 and the table."""
     return QuadSpline.apply(x1, x2, table, ps, plain)
 
 
 def quadspline_colsum(ps, table, x1, x2, w1, plain=False):
-    """(B, n2) sum_i w1[i] value(i, j); differentiable in x1, x2 and w1."""
+    """(B, n2) sum_i w1[i] value(i, j); differentiable in x1, x2, w1 and
+    the table."""
     return QuadSplineColsum.apply(x1, x2, w1, table, ps, plain)

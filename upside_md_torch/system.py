@@ -33,13 +33,16 @@ class EvalContext:
 
 class System:
     def __init__(self, n_atom: int, specs: List, device="cuda",
-                 dtype=torch.float32, kernels=True):
+                 dtype=torch.float32, kernels=True, residuals=True):
         """specs: bundle SpecRecords (or port NodeSpecs).  The system runs
         on the card unless `device` says otherwise (the CPU runs every
         kernel's plain version); without a CUDA device the default raises.
         kernels=False makes every kernel wrapper take its plain version even
         on the card; it exists to compare the two and nothing on the main
-        path sets it."""
+        path sets it.  residuals=False makes the fused block with its env
+        band keep no residual planes between forward and backward (K3
+        recomputes them, as the JAX package does under
+        UPSIDE_FUSED_RESID=0); nothing on the main path sets it either."""
         self.n_atom = n_atom
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -47,6 +50,7 @@ class System:
                                "to run the plain versions on the CPU")
         self.dtype = dtype
         self.plain = not kernels
+        self.residuals = residuals
         node_specs = [s if isinstance(s, NodeSpec) else NodeSpec(
             s.name, resolve_node_type(s.type_name), list(s.args),
             dict(s.consts), dict(s.params)) for s in specs]
@@ -63,6 +67,7 @@ class System:
                 moved = self.specs[i1]
                 self.specs = (self.specs[:i1] + self.specs[i1 + 1:i2]
                               + [moved] + self.specs[i2:])
+        self.by_name = {s.name: s for s in self.specs}
         self.consts = {}
         self.params = {}
         for s in self.specs:
@@ -85,22 +90,33 @@ class System:
 
     # -- parameter-only operands ----------------------------------------------
 
-    def fused_prepared(self):
-        """The fused block's parameter-only operands, rebuilt only when the
-        parameter tensors change (the memo of sim.py:244-271)."""
+    def fused_prepared(self, params=None):
+        """The fused block's parameter-only operands, rebuilt only when a
+        table tensor it reads changes: the memo of sim.py:244-271, keyed on
+        (id, version) of each table, so an in-place optimizer step
+        invalidates it.  The memo holds the tensors, so no new tensor can
+        take a key's id while it stands."""
         if self.pair_fusion is None:
             return None
-        key = tuple(id(t) for p in self.params.values() for t in p.values())
+        params = self.params if params is None else params
+        tabs = self.pair_fusion.tables(params)
+        key = tuple((id(t), t._version) for t in tabs if t is not None)
         if self._prep_memo is None or self._prep_memo[0] != key:
-            self._prep_memo = (key, self.pair_fusion.prepare(
-                self.params, self.device, self.dtype))
-        return self._prep_memo[1]
+            self._prep_memo = (key, tabs, self.pair_fusion.prepare(
+                params, self.device, self.dtype))
+        return self._prep_memo[2]
 
     # -- graph evaluation ---------------------------------------------------
 
-    def evaluate(self, pos, cache: Optional[Dict] = None, fused_prep=None):
+    def evaluate(self, pos, cache: Optional[Dict] = None, fused_prep=None,
+                 params: Optional[Dict] = None,
+                 inject: Optional[Dict] = None):
         """Run the graph on pos (B, n_atom, 3).  Returns (total (B,),
-        outputs, per_term, ctx); ctx.cache_out holds the new solver state."""
+        outputs, per_term, ctx); ctx.cache_out holds the new solver state.
+        params: {node: {name: tensor}} in place of `self.params` (its
+        tensors may require grad); inject: {node: tensor} added to that
+        node's output (how `get_sens` reads output cotangents)."""
+        params = self.params if params is None else params
         ctx = EvalContext(cache, self.plain)
         outputs = {"pos": pos}
         per_term = {}
@@ -108,16 +124,18 @@ class System:
         for s in self.specs:
             if fusion is not None and s.name == fusion.trigger_name:
                 prep = fused_prep if fused_prep is not None \
-                    else self.fused_prepared()
-                ctx.fused = fusion.compute(self.consts, outputs, prep,
-                                           self.plain)
+                    else self.fused_prepared(params)
+                ctx.fused = fusion.compute(self.consts, outputs, prep, params,
+                                           self.plain, self.residuals)
             ctx.node_name = s.name
             out = s.node_type.compute(self.consts[s.name],
-                                      self.params[s.name],
+                                      params.get(s.name, {}),
                                       [outputs[a] for a in s.args], ctx)
             if s.node_type.is_potential:
                 per_term[s.name] = out
             else:
+                if inject is not None and s.name in inject:
+                    out = out + inject[s.name]
                 outputs[s.name] = out
         total = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
         for v in per_term.values():
@@ -133,17 +151,61 @@ class System:
                     self.consts[s.name], n_replica, self.dtype)
         return cache
 
-    def energy_and_cache(self, pos, cache=None, fused_prep=None):
+    def energy_and_cache(self, pos, cache=None, fused_prep=None,
+                         params=None):
         """(energy (B,), new cache): threads per-node solver state."""
-        total, _, _, ctx = self.evaluate(pos, cache, fused_prep)
+        total, _, _, ctx = self.evaluate(pos, cache, fused_prep, params)
         new_cache = dict(cache or {})
         new_cache.update(ctx.cache_out)
         return total, new_cache
 
-    def deriv(self, pos, cache=None, fused_prep=None):
+    def energy(self, pos, params=None):
+        """Total potential from a cold solver start: (B,) for pos (B,
+        n_atom, 3), a scalar for one configuration (n_atom, 3), as the JAX
+        System's `energy(pos, params)`.  Differentiable in `params`."""
+        one = pos.ndim == 2
+        total = self.evaluate(pos[None] if one else pos, params=params)[0]
+        return total[0] if one else total
+
+    def deriv(self, pos, cache=None, fused_prep=None, params=None):
         """(dU/dpos (B, n_atom, 3), energy (B,), new cache)."""
         with torch.enable_grad():
             x = pos.detach().requires_grad_(True)
-            total, new_cache = self.energy_and_cache(x, cache, fused_prep)
+            total, new_cache = self.energy_and_cache(x, cache, fused_prep,
+                                                     params)
             (g,) = torch.autograd.grad(total.sum(), x)
         return g, total.detach(), new_cache
+
+    # -- outputs, sensitivities and parameter derivatives (system.py:133-152)
+
+    def get_output(self, pos, name, params=None):
+        """Output of node `name` (B, n_elem, width) at pos (B, n_atom, 3)."""
+        with torch.no_grad():
+            return self.evaluate(pos, params=params)[1][name]
+
+    def get_sens(self, pos, name, params=None):
+        """Cotangent of the summed total potential with respect to node
+        `name`'s output (the reference's 'sens'): the gradient at a zero
+        injection into that output."""
+        z = torch.zeros_like(self.get_output(pos, name, params),
+                             requires_grad=True)
+        with torch.enable_grad():
+            total = self.evaluate(pos.detach(), params=params,
+                                  inject={name: z})[0]
+            (g,) = torch.autograd.grad(total.sum(), z)
+        return g
+
+    def param_deriv(self, pos, name, params=None):
+        """Gradient of the summed total potential with respect to node
+        `name`'s parameter tensors: {param name: tensor}."""
+        params = dict(self.params if params is None else params)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params[name].items()
+                  if isinstance(v, torch.Tensor) and v.is_floating_point()}
+        params[name] = {**params[name], **leaves}
+        with torch.enable_grad():
+            total = self.evaluate(pos.detach(), params=params)[0]
+            grads = torch.autograd.grad(total.sum(), list(leaves.values()),
+                                        allow_unused=True)
+        return {k: torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(leaves.items(), grads)}
