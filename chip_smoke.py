@@ -24,21 +24,38 @@ the bundle's seed.  Phases:
    process per source, all started together;
 3. kernel vs plain PyTorch at each path's shapes (4 replicas, perturbed
    positions): forwards rel 1e-5, backwards under a random cotangent rel
-   1e-4, BP at tol 1e-6 cold and warm (F, gradients, beliefs rel 1e-4,
-   bitwise repeatable, sweep counts printed), and the whole evaluation's
+   1e-4, BP at tol 1e-6 and at MD's 1e-3, cold and warm (F, gradients,
+   beliefs and messages rel 1e-4; sweep counts equal to the plain solve's
+   at 1e-3 and on the synthetic cases, printed at 1e-6, where float32
+   rounding of the deviation decides the stop; bitwise repeatable
+   twice over, the kernel's compact edge list, reverse and factor indices
+   equal to the plain `compact_edges`, each replica's solve in the layout
+   `solve_layout` gives for its edge count; prints each bundle's edge
+   counts and the layout its solve blocks took), the same on the synthetic
+   BP cases the bundles do not reach (`ops/bp_cases.py`: three beads in a
+   rotamer slot, 128 residues, enough edges for the solve's layouts 1 and
+   2, mixed batches whose replicas stop after different sweep counts, one
+   without any edge; sweep counts equal at their tol 1e-4, values also at
+   1e-6), and the whole evaluation's
    energy and force RMS against `kernels=False` (rel < 1e-3); K3 at both
    band layouts (bitwise repeatable, and unmoved by NaN/Inf in dead slots
    of the grid cotangent), and `param_deriv` of the rotamer, both
    coverage and (env bundle) environment tables against `kernels=False`
    (rel < 1e-3);
-4. times each kernel and its plain version with CUDA events (median) at
-   64 replicas, beside its bound: the larger of the bytes it must move
-   over the card's memory rate and the operations this run's data needs
-   over the card's float32 rate (H100 SXM data sheet), both counted over
-   the pairs and edges this run's data needs.  The BP kernels (K2, K6)
-   are also timed at two fixed sweep counts with the convergence test
-   off: the slope is the time of one dependent sweep, and that times the
-   most sweeps a replica of the timed run took is their latency floor;
+4. times each kernel and its plain version with CUDA events around one
+   wrapper call on an idle card (median; `ms`, host side included) at 64
+   replicas, and sums the device time of the call's kernels and memsets
+   as `torch.profiler` records them (`device_ms`), beside its bound: the
+   larger of the bytes it must move over the card's memory rate and the
+   operations this run's data needs over the card's float32 rate (H100
+   SXM data sheet), both counted over the pairs and edges this run's data
+   needs.  The BP kernels (K2, K6) are also timed at two fixed sweep
+   counts with the convergence test off: the slope is the time of one
+   dependent sweep, and that times the most sweeps a replica of the timed
+   run took is their latency floor; and at 64 and 512 replicas (the
+   64-replica inputs tiled), where the profiler's records of one call are
+   split by pass: the launches before the solve (prologue), the solve
+   with the Bethe edge pass, and the launches after (epilogue);
 5. MD: `Simulation.advance` at 64 and 512 replicas on each path after a
    warm-up, the launch counts set to 0 just before each path and read just
    after; positions must stay finite and each path's kernels must have
@@ -121,6 +138,16 @@ OPS_ENV_FWD, OPS_ENV_BWD, OPS_PLANE_BWD = 46, 70, 45
 OPS_SWEEP_EDGE, OPS_BETHE_EDGE = 110, 540
 COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
+BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
+# The bundles' BP kernels are held against their plain versions at tol 1e-6
+# (values; the deviation's float32 rounding, a few 1e-6 at 76-124 residues,
+# decides there when either version stops, so sweep counts are printed) and
+# at the tol MD runs with, 1e-3, where the sweep counts must be equal too.
+BP_COMPARE_TOLS = (1e-6, 1e-3)
+BP_SWEEPS_TOL = 1e-4
+# mean BP sweeps per evaluation of the ubiquitin MD paths must not rise
+# above what the solver took before its redesign
+MAX_MEAN_SWEEPS = 3.99
 
 
 def log(msg):
@@ -143,6 +170,9 @@ def rel_err(a, b):
 
 
 def cuda_ms(fn, reps=20, warm=3):
+    """Median time of fn() between two CUDA events on an idle card: a call
+    whose host side (allocations, several launches) is slower than its
+    kernels is timed at the host's pace."""
     import torch
     for _ in range(warm):
         fn()
@@ -157,6 +187,38 @@ def cuda_ms(fn, reps=20, warm=3):
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def device_events(fn, reps=20):
+    """[(name, device microseconds)] of every kernel and memset that `reps`
+    calls of fn() ran, in the order the card ran them (`torch.profiler`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.device_time) for e in ev]
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of fn(): its kernels' and memsets' times
+    summed, without the gaps between launches.  None where the profiler
+    recorded no device activity."""
+    ev = device_events(fn, reps)
+    return sum(t for _, t in ev) / reps * 1e-3 if ev else None
+
+
+def timed(kernel_fn, plain_fn):
+    """(ms, plain ms, device ms) of a kernel's wrapper call."""
+    return (cuda_ms(kernel_fn), cuda_ms(plain_fn, reps=5),
+            device_ms(kernel_fn))
 
 
 def check(name, err, tol):
@@ -225,13 +287,147 @@ def bp_bound(adj, warm, out, pair_bytes, *dense):
 
 
 def sweep_latency(run, st, iters):
-    """(ms per dependent sweep, latency floor ms): `run(st)` timed at two
-    fixed sweep counts with the convergence test off, and the slope times
-    the most sweeps a replica of the timed run took (its block ends last)."""
-    t_lo, t_hi = (cuda_ms(lambda: run(dataclasses.replace(
-        st, max_iter=m, tol=-1.0))) for m in (SWEEPS_LO, SWEEPS_HI))
+    """(ms per dependent sweep, latency floor ms): the device time of
+    `run(st)` at two fixed sweep counts with the convergence test off (the
+    call on an idle card where the profiler records nothing), and the
+    slope times the most sweeps a replica of the timed run took (its block
+    ends last)."""
+    def ms(max_iter):
+        s_ = dataclasses.replace(st, max_iter=max_iter, tol=-1.0)
+        t = device_ms(lambda: run(s_))
+        return cuda_ms(lambda: run(s_)) if t is None else t
+
+    t_lo, t_hi = ms(SWEEPS_LO), ms(SWEEPS_HI)
     per = (t_hi - t_lo) / (SWEEPS_HI - SWEEPS_LO)
     return per, per * int(iters.max())
+
+
+def check_bp(label, run, plain, adj, shared, equal_sweeps=True):
+    """K2 or K6 against its plain version, cold and then warm from the cold
+    solution: `run(warm, init)` -> (outputs, scratch) and `plain(warm,
+    init)` -> outputs choose the warm problem themselves; `adj` is the
+    dense adjacency (no diagonal), `shared` whether factor blocks are per
+    undirected pair (K2).  Sweep counts equal (unless `equal_sweeps` is
+    off: at a tolerance below the float32 rounding of the deviation, a few
+    1e-6 at these sizes, rounding decides when either version stops, and
+    they are only printed); F, both gradients, beliefs and messages rel
+    1e-4; bitwise repeatable twice over; each replica's solve in the
+    layout `solve_layout` gives for its edge count; the compact edge list,
+    reverse and factor indices equal to `compact_edges`.  Returns (max abs
+    err over F and the gradients, counts (B, 4) of the cold run, cold sweep
+    counts)."""
+    import torch
+    from upside_md_torch.ops.bp_pairs import compact_edges, solve_layout
+    cnt, edges, rev, pair = compact_edges(adj)
+    worst, init, first = 0.0, None, None
+    for warm in (False, True):
+        tag = f"{label} {'warm' if warm else 'cold'}"
+        k, sc = run(warm, init)
+        for _ in range(2):
+            repeatable(tag, k, run(warm, init)[0])
+        p = plain(warm, init)
+        torch.cuda.synchronize()
+        log(f"  {tag} sweeps kernel {k[6].tolist()} plain {p[6].tolist()}, "
+            f"final dev kernel {k[5].max().item():.2e} plain "
+            f"{p[5].max().item():.2e}")
+        if equal_sweeps and k[6].tolist() != p[6].tolist():
+            raise AssertionError(f"{tag}: sweep counts differ")
+        worst = max(worst, compare(
+            [f"{tag} {n}" for n in ("F", "G1", "pair gradient")], k[:3],
+            p[:3], 1e-4))
+        compare([f"{tag} beliefs", f"{tag} messages"], k[3:5], p[3:5], 1e-4)
+        counts = sc.counts.cpu()
+        n_edges = counts[:, 0].tolist()
+        n_blocks = counts[:, 1].tolist() if shared else n_edges
+        if n_edges != cnt.tolist():
+            raise AssertionError(f"{tag}: edge counts {n_edges} != plain "
+                                 f"{cnt.tolist()}")
+        for r, n in enumerate(n_edges):
+            same = sc.edges[r, :n].equal(edges[r, :n]) \
+                and sc.reverse[r, :n].equal(rev[r, :n]) \
+                and (not shared or sc.pair_index[r, :n].equal(pair[r, :n]))
+            if not same:
+                raise AssertionError(f"{tag}: compact edges of replica {r} "
+                                     "differ from compact_edges")
+        want = [solve_layout(e, f) for e, f in zip(n_edges, n_blocks)]
+        if counts[:, 2].tolist() != want:
+            raise AssertionError(f"{tag}: layouts {counts[:, 2].tolist()} "
+                                 f"!= {want}")
+        if first is None:
+            first = (counts, k[6].tolist())
+        init = (k[3], k[4])
+    log(f"  {label}: compact edges, reverse and factor indices equal "
+        f"compact_edges; layouts {sorted(set(first[0][:, 2].tolist()))}; "
+        "repeatable")
+    return worst, first[0], first[1]
+
+
+def check_k2(label, st, E1, E_pair, adj):
+    """`check_bp` of K2 at each of BP_COMPARE_TOLS, warm from the cold
+    solution on the problem with E1 scaled by 0.98.  Returns (max abs err,
+    counts of the last run)."""
+    from upside_md_torch.ops.bp_pairs import (bp_bethe_pairs_fwd,
+                                              bp_pairs_kernel)
+    worst = 0.0
+    for tol in BP_COMPARE_TOLS:
+        s_ = dataclasses.replace(st, tol=tol)
+        err, counts, _ = check_bp(
+            f"{label} tol {tol:g}", lambda w, init: bp_pairs_kernel(
+                s_, E1 * (0.98 if w else 1.0), E_pair, init),
+            lambda w, init: bp_bethe_pairs_fwd(
+                s_, E1 * (0.98 if w else 1.0), E_pair, init, plain=True),
+            adj, True, equal_sweeps=tol >= BP_SWEEPS_TOL)
+        worst = max(worst, err)
+    return worst, counts
+
+
+def log_layout(label, counts, n_rep):
+    """Edge counts of a bundle and the layout its solve blocks took."""
+    from upside_md_torch.ops.bp_pairs import LAYOUTS, SOLVE_SMEM_BYTES
+    e, u, lay = (counts[:, c].tolist() for c in range(3))
+    log(f"[layout] {label}: adjacent directed edges {min(e)}-{max(e)} "
+        f"({n_rep} replicas); with {SOLVE_SMEM_BYTES} bytes of shared "
+        f"memory a block the solve ran with "
+        f"{'; '.join(LAYOUTS[i] for i in sorted(set(lay)))}")
+    return {"directed_edges": e, "undirected_pairs": u, "layout_ran": lay}
+
+
+def time_bp_passes(label, fwd, n_rep):
+    """One wrapper call `fwd()` of K2 or K6: the CUDA-event median on an
+    idle card, and the device time of its launches from the profiler,
+    split by pass: what runs before `bp_solve_kernel` is the prologue, the
+    solve and `bp_bethe_edges_kernel` the solve, what follows up to the
+    call's last launch (`bp_messages_kernel`) the epilogue."""
+    import torch
+    reps = 20
+    alone = cuda_ms(fwd, reps)
+    split = {"prologue": 0.0, "solve": 0.0, "epilogue": 0.0}
+    by_launch, after_solve = {}, False
+    for name, us in device_events(fwd, reps):
+        short = name.split("(")[0].replace("void ", "").strip()
+        by_launch[short] = by_launch.get(short, 0.0) + us / reps
+        if "bp_solve_kernel" in name or "bp_bethe_edges_kernel" in name:
+            after_solve, key = True, "solve"
+        else:
+            key = "epilogue" if after_solve else "prologue"
+        split[key] += us / reps * 1e-3
+        if "bp_messages_kernel" in name:
+            after_solve = False
+    total = sum(split.values()) if by_launch else None
+    log(f"[time] {label} at {n_rep} replicas: {alone:.4f} ms a call on an "
+        f"idle card; device time of its launches "
+        f"{'not measured' if total is None else f'{total:.4f} ms'}: "
+        f"prologue {split['prologue']:.4f}, solve {split['solve']:.4f}, "
+        f"epilogue {split['epilogue']:.4f} ms; by launch (us) "
+        f"{ {k: round(v, 2) for k, v in by_launch.items()} }")
+    torch.cuda.empty_cache()
+    return {"ms": alone, "device_ms": total,
+            "prologue_ms": split["prologue"], "solve_ms": split["solve"],
+            "epilogue_ms": split["epilogue"], "launch_us": by_launch}
+
+
+def tiled(t, k):
+    return t.repeat(k, *([1] * (t.dim() - 1)))
 
 
 def perturbed(base, n, gen, dev):
@@ -352,7 +548,7 @@ def fused_operands(system, outs, gen, dev):
 
 def compare_fused(dev, gen, base, path):
     import torch
-    from upside_md_torch.ops.bp_pairs import bp_bethe_pairs_fwd
+    from upside_md_torch.ops.bp_pairs import scatter_pairs
     from upside_md_torch.ops.fused_pair import fused_pair_bwd, fused_pair_fwd
     sys_k, _ = load_system(path, dev, True, tol=1e-6)
     sys_p, _ = load_system(path, dev, False, tol=1e-6)
@@ -385,27 +581,18 @@ def compare_fused(dev, gen, base, path):
                                       "environment_coverage"))
 
     st, E1, E_pair = o["st"], o["E1"], fp[1]
-    kk = bp_bethe_pairs_fwd(st, E1, E_pair)
-    pp = bp_bethe_pairs_fwd(st, E1, E_pair, plain=True)
-    repeatable("K2", kk, bp_bethe_pairs_fwd(st, E1, E_pair))
-    log(f"  K2 sweeps kernel {kk[6].tolist()} plain {pp[6].tolist()}, "
-        f"final dev kernel {kk[5].max().item():.2e}")
-    e_bp = compare(["K2 F", "K2 G1", "K2 dE"], kk[:3], pp[:3], 1e-4)
-    compare(["K2 beliefs"], kk[3:4], pp[3:4], 1e-4)
-    warm = (kk[3], kk[4])
-    kw = bp_bethe_pairs_fwd(st, E1, E_pair, warm)
-    pw = bp_bethe_pairs_fwd(st, E1, E_pair, warm, plain=True)
-    e_bp = max(e_bp, compare(["K2 F warm", "K2 G1 warm", "K2 dE warm"],
-                             kw[:3], pw[:3], 1e-4))
-    errs["bp_bethe_pairs"] = e_bp
+    eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
+    adj = (scatter_pairs(st, E_pair) != 0).any(-1).any(-1) & ~eye
+    errs["bp_bethe_pairs"], counts = check_k2("K2", st, E1, E_pair, adj)
+    layout = log_layout("K2 ubiquitin", counts, COMPARE_REPLICAS)
     whole = compare_whole(sys_k, sys_p, pos, "ubiquitin")
-    return errs, whole
+    return errs, whole, layout
 
 
 def time_fused(dev, gen, base, path):
     import torch
-    from upside_md_torch.ops.bp_pairs import bp_bethe_pairs_fwd, \
-        scatter_pairs
+    from upside_md_torch.ops.bp_pairs import (bp_bethe_pairs_fwd,
+                                              scatter_pairs)
     from upside_md_torch.ops.fused_pair import (_env_fields, fused_pair_bwd,
                                                 fused_pair_fwd)
     system, _ = load_system(path, dev, True)
@@ -421,18 +608,16 @@ def time_fused(dev, gen, base, path):
     cold = bp_bethe_pairs_fwd(st, E1, fk[1])
     warm = (cold[3], cold[4])
     res = {}
-    res["fused_pair_fwd"] = (
-        cuda_ms(lambda: fused_pair_fwd(prep, *x)),
-        cuda_ms(lambda: fused_pair_fwd(prep, *x, plain=True), reps=5))
-    res["fused_pair_bwd"] = (
-        cuda_ms(lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g)),
-        cuda_ms(lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g,
-                                       plain=True), reps=5))
+    res["fused_pair_fwd"] = timed(
+        lambda: fused_pair_fwd(prep, *x),
+        lambda: fused_pair_fwd(prep, *x, plain=True))
+    res["fused_pair_bwd"] = timed(
+        lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g),
+        lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g, plain=True))
     out_bp = bp_bethe_pairs_fwd(st, E1, fk[1], warm)
-    res["bp_bethe_pairs"] = (
-        cuda_ms(lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm)),
-        cuda_ms(lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm, plain=True),
-                reps=5))
+    res["bp_bethe_pairs"] = timed(
+        lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm),
+        lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm, plain=True))
 
     # bounds from this run's inputs
     statics = (prep.row_type, prep.col_type, prep.mask, prep.coef,
@@ -461,9 +646,16 @@ def time_fused(dev, gen, base, path):
         st.slot_beads, st.bead_slot, st.valid)
     lat = {"bp_bethe_pairs": sweep_latency(
         lambda s: bp_bethe_pairs_fwd(s, E1, fk[1], warm), st, out_bp[6])}
+    passes = {}
+    for n in BP_TIME_REPLICAS:
+        e1, ep = tiled(E1, n // n_t), tiled(fk[1], n // n_t)
+        w = tuple(tiled(t, n // n_t) for t in warm)
+        passes[n] = time_bp_passes(
+            "bp_bethe_pairs", lambda: bp_bethe_pairs_fwd(st, e1, ep, w), n)
+        del e1, ep, w
     del system, sys_p, outs, fk
     torch.cuda.empty_cache()
-    return res, bounds, lat
+    return res, bounds, lat, {"bp_bethe_pairs": passes}
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +664,7 @@ def time_fused(dev, gen, base, path):
 
 def compare_noenv(dev, gen, base, path):
     import torch
+    from upside_md_torch.ops.bp_pairs import scatter_pairs
     from upside_md_torch.ops.fused_pair import fused_pair_fwd
     sys_k, _ = load_system(path, dev, True, tol=1e-6)
     sys_p, _ = load_system(path, dev, False, tol=1e-6)
@@ -501,8 +694,14 @@ def compare_noenv(dev, gen, base, path):
     errs["param_deriv"] = compare_param_deriv(
         path, dev, pos, "no-env ubiquitin",
         ("rotamer", "hbond_coverage", "hbond_coverage_hydrophobe"))
+    st, E1, E_pair = o["st"], o["E1"], fpl[1]
+    eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
+    adj = (scatter_pairs(st, E_pair) != 0).any(-1).any(-1) & ~eye
+    errs["bp_bethe_pairs"], counts = check_k2("K2 no env", st, E1, E_pair,
+                                              adj)
+    layout = log_layout("K2 no-env ubiquitin", counts, COMPARE_REPLICAS)
     whole = compare_whole(sys_k, sys_p, pos, "no-env ubiquitin")
-    return errs, whole
+    return errs, whole, layout
 
 
 def time_noenv(dev, gen, base, path):
@@ -520,10 +719,9 @@ def time_noenv(dev, gen, base, path):
     prep, x = o["prep"], o["x"]
     fk = fused_pair_fwd(prep, *x, want_planes=False)
     g = [o["randn"](t) for t in fk[:3]]
-    res = {"fused_pair_bwd_recompute": (
-        cuda_ms(lambda: fused_pair_bwd_recompute(prep, *x, *g)),
-        cuda_ms(lambda: fused_pair_bwd_recompute(prep, *x, *g, plain=True),
-                reps=5))}
+    res = {"fused_pair_bwd_recompute": timed(
+        lambda: fused_pair_bwd_recompute(prep, *x, *g),
+        lambda: fused_pair_bwd_recompute(prep, *x, *g, plain=True))}
     masked, live, live_grid = fused_pairs(prep, x[0], x[2])
     d = fused_pair_bwd_recompute(prep, *x, *g)
     # inputs once (the grid cotangent only where a live pair reads it),
@@ -642,7 +840,8 @@ def bp_planes_inputs(rot_ops, grid):
 def compare_unfused(dev, gen, base, path):
     import torch
     from upside_md_torch.ops import quadspline as qs
-    from upside_md_torch.ops.bp_planes import bp_bethe_planes_fwd
+    from upside_md_torch.ops.bp_planes import (bp_bethe_planes_fwd,
+                                               bp_planes_kernel)
     sys_k, _ = load_system(path, dev, True, tol=1e-6)
     sys_p, _ = load_system(path, dev, False, tol=1e-6)
     if sys_k.pair_fusion is not None:
@@ -686,25 +885,21 @@ def compare_unfused(dev, gen, base, path):
             qs.colsum_bwd(cps, ctab, x1, x2, w1, g4, plain=True), 1e-4))
 
     st, P, adj = bp_planes_inputs(rot_ops, k5)
-    kk = bp_bethe_planes_fwd(st, E1, P, adj)
-    pp = bp_bethe_planes_fwd(st, E1, P, adj, plain=True)
-    repeatable("K6", kk, bp_bethe_planes_fwd(st, E1, P, adj))
-    log(f"  K6 sweeps kernel {kk[6].tolist()} plain {pp[6].tolist()}, "
-        f"final dev kernel {kk[5].max().item():.2e}, edges "
-        f"{adj.sum((1, 2)).tolist()}")
-    e6 = compare(["K6 F", "K6 G1", "K6 G2", "K6 beliefs"], kk[:4], pp[:4],
-                 1e-4)
-    warm = (kk[3], kk[4])
-    kw = bp_bethe_planes_fwd(st, E1 + 0.01, P, adj, warm)
-    pw = bp_bethe_planes_fwd(st, E1 + 0.01, P, adj, warm, plain=True)
-    repeatable("K6 warm", kw, bp_bethe_planes_fwd(st, E1 + 0.01, P, adj,
-                                                  warm))
-    log(f"  K6 warm sweeps kernel {kw[6].tolist()} plain {pw[6].tolist()}")
-    errs["bp_bethe_planes"] = max(e6, compare(
-        ["K6 F warm", "K6 G1 warm", "K6 G2 warm", "K6 beliefs warm"],
-        kw[:4], pw[:4], 1e-4))
+    worst = 0.0
+    for tol in BP_COMPARE_TOLS:
+        # warm: a perturbed problem from the cold solution
+        s_ = dataclasses.replace(st, tol=tol)
+        err, counts, _ = check_bp(
+            f"K6 tol {tol:g}", lambda w, init: bp_planes_kernel(
+                s_, E1 * (0.98 if w else 1.0), P, adj, init),
+            lambda w, init: bp_bethe_planes_fwd(
+                s_, E1 * (0.98 if w else 1.0), P, adj, init, plain=True),
+            adj, False, equal_sweeps=tol >= BP_SWEEPS_TOL)
+        worst = max(worst, err)
+    errs["bp_bethe_planes"] = worst
+    layout = log_layout("K6 RNase A", counts, COMPARE_REPLICAS)
     whole = compare_whole(sys_k, sys_p, pos, "RNase A")
-    return errs, whole
+    return errs, whole, layout
 
 
 def time_unfused(dev, gen, base, path):
@@ -738,22 +933,18 @@ def time_unfused(dev, gen, base, path):
                 for o, g in zip(cov_ops, g4)]
 
     res = {
-        "quadspline_fwd": (
-            cuda_ms(lambda: qs.quadspline_fwd(ps, tab, beads, beads)),
-            cuda_ms(lambda: qs.quadspline_fwd(ps, tab, beads, beads,
-                                              plain=True), reps=5)),
-        "quadspline_bwd": (
-            cuda_ms(lambda: qs.quadspline_bwd(ps, tab, beads, beads, g5)),
-            cuda_ms(lambda: qs.quadspline_bwd(ps, tab, beads, beads, g5,
-                                              plain=True), reps=5)),
-        "colsum_fwd": (cuda_ms(lambda: k4_fwd(False)),
-                       cuda_ms(lambda: k4_fwd(True), reps=5)),
-        "colsum_bwd": (cuda_ms(lambda: k4_bwd(False)),
-                       cuda_ms(lambda: k4_bwd(True), reps=5)),
-        "bp_bethe_planes": (
-            cuda_ms(lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm)),
-            cuda_ms(lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm,
-                                                plain=True), reps=5)),
+        "quadspline_fwd": timed(
+            lambda: qs.quadspline_fwd(ps, tab, beads, beads),
+            lambda: qs.quadspline_fwd(ps, tab, beads, beads, plain=True)),
+        "quadspline_bwd": timed(
+            lambda: qs.quadspline_bwd(ps, tab, beads, beads, g5),
+            lambda: qs.quadspline_bwd(ps, tab, beads, beads, g5,
+                                      plain=True)),
+        "colsum_fwd": timed(lambda: k4_fwd(False), lambda: k4_fwd(True)),
+        "colsum_bwd": timed(lambda: k4_bwd(False), lambda: k4_bwd(True)),
+        "bp_bethe_planes": timed(
+            lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm),
+            lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm, plain=True)),
     }
 
     def statics(sp, t):
@@ -790,9 +981,96 @@ def time_unfused(dev, gen, base, path):
             adj, st.valid)
     lat = {"bp_bethe_planes": sweep_latency(
         lambda s: bp_bethe_planes_fwd(s, E1, P, adj, warm), st, out6[6])}
-    del system, sys_p, outs, grid, P
+    del system, sys_p, outs, grid, out6, cold
+    passes = {}
+    for n in BP_TIME_REPLICAS:
+        e1, pl, ad = (tiled(t, n // n_t) for t in (E1, P, adj))
+        w = tuple(tiled(t, n // n_t) for t in warm)
+        passes[n] = time_bp_passes(
+            "bp_bethe_planes", lambda: bp_bethe_planes_fwd(st, e1, pl, ad, w),
+            n)
+        del e1, pl, ad, w
+    del P
     torch.cuda.empty_cache()
-    return res, bounds, lat
+    return res, bounds, lat, {"bp_bethe_planes": passes}
+
+
+# ---------------------------------------------------------------------------
+# the BP cases the bundles do not reach
+# ---------------------------------------------------------------------------
+
+def compare_bp_cases(dev):
+    """K2 and K6 against their plain versions on the synthetic cases of
+    ops/bp_cases.py (three beads in a rotamer slot, 128 residues, enough
+    edges for each layout of the solve, mixed batches: replicas that stop
+    after different sweep counts, one without any edge, a residue without
+    a neighbour, invalid slots), cold and warm on the problem with E1
+    scaled by WARM_SCALE, at the cases' BP tol with equal sweep counts and
+    at TIGHT_TOL for the values.  Returns the max abs error of each
+    kernel."""
+    import torch
+    from upside_md_torch.ops import bp_cases as bc
+    from upside_md_torch.ops import bp_pairs as bp
+    from upside_md_torch.ops import bp_planes as bpp
+    f32 = dict(dtype=torch.float32, device=dev)
+    tols = ((bc.BP_SETTINGS[2], True), (bc.TIGHT_TOL, False))
+
+    def scale(w):
+        return bc.WARM_SCALE if w else 1.0
+
+    def check_case(kernel, name, run, plain, st, adj, shared):
+        worst = 0.0
+        for tol, equal_sweeps in tols:
+            s_ = dataclasses.replace(st, tol=tol)
+            err, counts, iters = check_bp(
+                f"{kernel} ({name}) tol {tol:g}",
+                lambda w, init: run(s_, w, init),
+                lambda w, init: plain(s_, w, init), adj, shared,
+                equal_sweeps)
+            worst = max(worst, err)
+            if equal_sweeps and len(set(iters)) < 2:
+                raise AssertionError(f"case {name}: the replicas did not "
+                                     f"stop at different sweep counts "
+                                     f"({iters})")
+            if counts[:, 2].max().item() != bc.CASE_LAYOUT.get(name, 0):
+                raise AssertionError(f"case {name}: layouts "
+                                     f"{counts[:, 2].tolist()}")
+        return worst
+
+    errs = {"bp_bethe_pairs": 0.0, "bp_bethe_planes": 0.0}
+    for name, kw in bc.PAIRS_CASES.items():
+        E1, E, res, rot, valid, n2p = bc.pairs_case(**bc.MIXED, **kw)
+        st = bp.make_statics(res, rot, valid, n2p, *bc.BP_SETTINGS, dev)
+        if st.slot_beads.shape[1] != kw["m_slot"]:
+            raise AssertionError(f"case {name}: wrong beads per slot")
+        e1, ep = torch.tensor(E1, **f32), torch.tensor(E, **f32)
+        eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
+        adj = (bp.scatter_pairs(st, ep) != 0).any(-1).any(-1) & ~eye
+        log(f"[compare K2 case: {name}] {st.n_res} residues, {st.n_bead} "
+            f"beads, {st.slot_beads.shape[1]} beads a slot, edges "
+            f"{adj.sum((1, 2)).tolist()}")
+        errs["bp_bethe_pairs"] = max(errs["bp_bethe_pairs"], check_case(
+            "K2", name,
+            lambda s_, w, init: bp.bp_pairs_kernel(s_, scale(w) * e1, ep,
+                                                   init),
+            lambda s_, w, init: bp.bp_bethe_pairs_fwd(s_, scale(w) * e1, ep,
+                                                      init, plain=True),
+            st, adj, True))
+    for name, kw in bc.PLANES_CASES.items():
+        E1, E2, adj, res, rot, valid = bc.planes_case(**bc.MIXED, **kw)
+        st = bp.make_statics(res, rot, valid, 128, *bc.BP_SETTINGS, dev)
+        e1, e2 = torch.tensor(E1, **f32), torch.tensor(E2, **f32)
+        a = torch.tensor(adj, device=dev)
+        P = bpp.boltzmann_planes(e2, st.valid)
+        log(f"[compare K6 case: {name}] edges {a.sum((1, 2)).tolist()}")
+        errs["bp_bethe_planes"] = max(errs["bp_bethe_planes"], check_case(
+            "K6", name,
+            lambda s_, w, init: bpp.bp_planes_kernel(s_, scale(w) * e1, P, a,
+                                                     init),
+            lambda s_, w, init: bpp.bp_bethe_planes_fwd(
+                s_, scale(w) * e1, P, a, init, plain=True),
+            st, a, False))
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -813,10 +1091,11 @@ def compare_whole(sys_k, sys_p, pos, label):
     return {"energy_rel": err_e, "force_rms_rel": err_g}
 
 
-def run_md(path, dev, label, names, rounds=5, absent=()):
+def run_md(path, dev, label, names, rounds=5, absent=(), max_sweeps=None):
     """MD on one path at 64 and 512 replicas; the launch counts are set to 0
     just before and read just after, each of `names` must be > 0 and each
-    of `absent` 0."""
+    of `absent` 0; the mean BP sweeps per evaluation (two decimals) must
+    not exceed `max_sweeps`."""
     import torch
     from upside_md_torch.md.sim import Simulation
     from upside_md_torch.ops import kernels
@@ -842,6 +1121,9 @@ def run_md(path, dev, label, names, rounds=5, absent=()):
                 and torch.isfinite(state.pos).all()):
             raise AssertionError(f"{label} MD at {n_rep} replicas: bad "
                                  "positions")
+        if max_sweeps is not None and round(sweeps, 2) > max_sweeps:
+            raise AssertionError(f"{label} MD at {n_rep} replicas: mean BP "
+                                 f"sweeps {sweeps:.4f} above {max_sweeps}")
         rate = 3 * rounds * n_rep / statistics.median(times)
         md[n_rep] = {"steps_per_s": rate, "times_s": times,
                      "mean_bp_sweeps": sweeps,
@@ -911,22 +1193,30 @@ def main():
     base_f = torch.as_tensor(bundle.load(fused_path)[1], device=dev)
     base_u = torch.as_tensor(bundle.load(unfused_path)[1], device=dev)
     base_n = torch.as_tensor(bundle.load(noenv_path)[1], device=dev)
-    errs, whole_f = compare_fused(dev, gen, base_f, fused_path)
-    errs_u, whole_u = compare_unfused(dev, gen, base_u, unfused_path)
-    errs_n, whole_n = compare_noenv(dev, gen, base_n, noenv_path)
+    errs, whole_f, layout_f = compare_fused(dev, gen, base_f, fused_path)
+    errs_u, whole_u, layout_u = compare_unfused(dev, gen, base_u,
+                                                unfused_path)
+    errs_n, whole_n, layout_n = compare_noenv(dev, gen, base_n, noenv_path)
     errs.update(errs_u)
-    for nm, e in errs_n.items():
-        errs[nm] = max(errs[nm], e)
+    for part in (errs_n, compare_bp_cases(dev)):
+        for nm, e in part.items():
+            errs[nm] = max(errs[nm], e)
     results["phases"]["compare"] = {"max_abs_err": errs,
                                     "ubiquitin": whole_f,
                                     "rnase_a": whole_u,
-                                    "ubiquitin_noenv": whole_n}
+                                    "ubiquitin_noenv": whole_n,
+                                    "bp_layout": {
+                                        "ubiquitin": layout_f,
+                                        "rnase_a": layout_u,
+                                        "ubiquitin_noenv": layout_n}}
     torch.cuda.empty_cache()
 
     # ---- 4. timing, kernel vs plain, at 64 replicas with the config's BP
     # tolerance and a warm start, as in MD
-    ms, bounds, lat = time_fused(dev, gen, base_f, fused_path)
-    ms_u, bounds_u, lat_u = time_unfused(dev, gen, base_u, unfused_path)
+    ms, bounds, lat, passes = time_fused(dev, gen, base_f, fused_path)
+    ms_u, bounds_u, lat_u, passes_u = time_unfused(dev, gen, base_u,
+                                                   unfused_path)
+    passes.update(passes_u)
     ms_n, bounds_n = time_noenv(dev, gen, base_n, noenv_path)
     for part in (ms_u, ms_n):
         ms.update(part)
@@ -934,9 +1224,11 @@ def main():
     bounds.update(bounds_n)
     lat.update(lat_u)
     for nm in kernels.KERNELS:
-        log(f"[time] {nm}: kernel {ms[nm][0]:.4f} ms, plain {ms[nm][1]:.4f}"
-            f" ms, bound {bounds[nm][0]:.4f} ms ({bounds[nm][1]}), "
-            f"{TIME_REPLICAS} replicas")
+        dms = "not measured" if ms[nm][2] is None else f"{ms[nm][2]:.4f} ms"
+        log(f"[time] {nm}: kernel {ms[nm][0]:.4f} ms a call on an idle "
+            f"card, device time of its launches {dms}, plain "
+            f"{ms[nm][1]:.4f} ms, bound {bounds[nm][0]:.4f} ms "
+            f"({bounds[nm][1]}), {TIME_REPLICAS} replicas")
     for nm, (per, floor) in lat.items():
         log(f"[time] {nm}: {per:.5f} ms per dependent sweep (slope over "
             f"{SWEEPS_LO} and {SWEEPS_HI} sweeps), latency floor "
@@ -944,12 +1236,15 @@ def main():
     results["phases"]["time_ms"] = ms
     results["phases"]["bound_ms"] = bounds
     results["phases"]["sweep_latency_ms"] = lat
+    results["phases"]["bp_passes"] = passes
 
     # ---- 5. MD through each path
-    md_f, launches_f = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS)
+    md_f, launches_f = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS,
+                              max_sweeps=MAX_MEAN_SWEEPS)
     md_u, launches_u = run_md(unfused_path, dev, "RNase A", UNFUSED_KERNELS)
     md_n, launches_n = run_md(noenv_path, dev, "no-env ubiquitin",
-                              NOENV_KERNELS, absent=("fused_pair_bwd",))
+                              NOENV_KERNELS, absent=("fused_pair_bwd",),
+                              max_sweeps=MAX_MEAN_SWEEPS)
     results["phases"]["md"] = {"ubiquitin": md_f, "rnase_a": md_u,
                                "ubiquitin_noenv": md_n}
 
@@ -966,7 +1261,8 @@ def main():
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],
-         "max_abs_err": errs[nm], "ms": ms[nm][0], "plain_ms": ms[nm][1],
+         "max_abs_err": errs[nm], "ms": ms[nm][0],
+         "device_ms": ms[nm][2], "plain_ms": ms[nm][1],
          "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
          "library_ms": None}
         for nm in kernels.KERNELS]}

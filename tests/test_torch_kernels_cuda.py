@@ -10,14 +10,22 @@ runs on the GPU machine too, without the JAX conftest:
 Problems are seeded numpy, float32, several replicas that differ, and span
 several 32x32 tiles with ragged edges so the per-tile partial sums are
 exercised.  Tolerances: K1, K4 and K5 forward rel 1e-5 and backward (K3
-too) rel 1e-4 (f32, two summation orders); K2 and K6 at BP tol 1e-6, rel
-1e-4.  Kernels must be bitwise repeatable.
+too) rel 1e-4 (f32, two summation orders); K2 and K6 at the BP tol of
+`bp_cases` (1e-4), rel 1e-4, sweep counts equal to the plain solve's, the
+compact edge list and its indices equal to `compact_edges`, each case in
+the layout of the solve its edge count calls for (messages and factors in
+shared memory, messages only, global scratch); and again at BP tol 1e-6,
+values rel 1e-4 (there float32 rounding of the deviation decides the stop,
+so sweep counts are not compared).  Kernels must be bitwise repeatable.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from upside_md_torch.ops import bp_cases
 from upside_md_torch.ops import bp_pairs as bp
 from upside_md_torch.ops import bp_planes as bpp
 from upside_md_torch.ops import fused_pair as fp
@@ -140,39 +148,79 @@ def test_recomputing_backward_matches_plain(cuda, env_band):
         assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
-def bp_problem(rng, n_res=12, contact=0.35):
-    n_rot = rng.choice([1, 3, 6], size=n_res)
-    res = np.repeat(np.arange(n_res), n_rot)
-    rot = np.concatenate([np.arange(n) for n in n_rot])
-    valid = np.arange(6)[None, :] < n_rot[:, None]
-    n = len(res)
-    near = rng.random((n_res, n_res)) < contact
-    keep = (np.arange(n)[:, None] < np.arange(n)[None, :]) \
-        & (res[:, None] != res[None, :]) \
-        & (near | near.T)[res[:, None], res[None, :]]
-    E = np.zeros((128, 128))
-    E[:n, :n] = np.where(keep, rng.normal(scale=1.5, size=(n, n)), 0.0)
-    E1 = np.where(valid, rng.normal(size=(n_res, 6)), 0.0)
-    return E1, E, res, rot, valid
+def _check_bp(run, plain, adj_of, want_layout):
+    """K2 or K6 against its plain version, cold and then warm from the cold
+    solution on the problem with E1 scaled by `bp_cases.WARM_SCALE`:
+    `run(scale, init, tol)` -> (outputs, scratch), `plain(scale, init,
+    tol)` -> outputs, `adj_of()` the dense adjacency.  At the cases' BP
+    tol: sweep counts equal, F, the gradients, the beliefs and the dense
+    messages rel 1e-4, bitwise repeatable twice over, the compact edge
+    list equal to `compact_edges`, the layout of each replica's solve the
+    one `solve_layout` gives and `want_layout` among them.  At
+    `bp_cases.TIGHT_TOL` the same values rel 1e-4.  Returns the cold sweep
+    counts."""
+    tol = bp_cases.BP_SETTINGS[2]
+    cold_iters = None
+    init = None
+    for start, scale in (("cold", 1.0), ("warm", bp_cases.WARM_SCALE)):
+        k, sc = run(scale, init, tol)
+        for _ in range(2):
+            again, _ = run(scale, init, tol)
+            assert all(torch.equal(a, b) for a, b in zip(k, again)), start
+        p = plain(scale, init, tol)
+        assert k[6].tolist() == p[6].tolist(), start
+        for i in range(5):          # F, gradients, beliefs, messages
+            assert _rel(k[i], p[i]) < 1e-4, (start, i)
+        kt, _ = run(scale, init, bp_cases.TIGHT_TOL)
+        pt = plain(scale, init, bp_cases.TIGHT_TOL)
+        assert (kt[6] >= k[6]).all()
+        for i in range(5):
+            assert _rel(kt[i], pt[i]) < 1e-4, (start, "tight", i)
+        counts = sc.counts.cpu()
+        # K2 keeps one factor block per undirected pair, K6 per edge
+        shared = sc.factors.shape[1] < sc.edges.shape[1]
+        n_edges = counts[:, 0]
+        n_blocks = counts[:, 1] if shared else n_edges
+        want = [bp.solve_layout(int(e), int(f))
+                for e, f in zip(n_edges, n_blocks)]
+        assert counts[:, 2].tolist() == want and max(want) == want_layout
+        cnt, edges, rev, pair = bp.compact_edges(adj_of())
+        assert n_edges.tolist() == cnt.tolist()
+        for r, n in enumerate(cnt.tolist()):
+            assert torch.equal(sc.edges[r, :n], edges[r, :n])
+            assert torch.equal(sc.reverse[r, :n], rev[r, :n])
+            if shared:
+                assert torch.equal(sc.pair_index[r, :n], pair[r, :n])
+        if cold_iters is None:
+            cold_iters = k[6].tolist()
+        init = (k[3], k[4])
+    return cold_iters
 
 
 @pytest.mark.requires_cuda
-def test_bp_kernel_matches_plain(cuda):
-    E1, E, res, rot, valid = bp_problem(np.random.default_rng(0))
-    st = bp.make_statics(res, rot, valid, 128, 0.1, 1000, 1e-6, 2, cuda)
-    e1 = torch.tensor(np.stack([E1, 0.9 * E1, E1 + 0.1]), dtype=torch.float32,
-                      device=cuda)
-    ep = torch.tensor(np.stack([E] * 3), dtype=torch.float32, device=cuda)
-    k = bp.bp_bethe_pairs_fwd(st, e1, ep)
-    p = bp.bp_bethe_pairs_fwd(st, e1, ep, plain=True)
-    assert all(torch.equal(a, b) for a, b in
-               zip(k, bp.bp_bethe_pairs_fwd(st, e1, ep)))
-    for i in (0, 1, 2, 3):
-        assert _rel(k[i], p[i]) < 1e-4
-    kw = bp.bp_bethe_pairs_fwd(st, e1, ep, (k[3], k[4]))
-    pw = bp.bp_bethe_pairs_fwd(st, e1, ep, (k[3], k[4]), plain=True)
-    for i in (0, 1, 2):
-        assert _rel(kw[i], pw[i]) < 1e-4
+@pytest.mark.parametrize("case", list(bp_cases.PAIRS_CASES))
+def test_bp_kernel_matches_plain(cuda, case):
+    """K2 on a mixed batch (replicas that take different sweep counts, one
+    without any edge, a residue without a neighbour, invalid slots)."""
+    kw = bp_cases.PAIRS_CASES[case]
+    E1, E, res, rot, valid, n2p = bp_cases.pairs_case(**bp_cases.MIXED, **kw)
+    st = bp.make_statics(res, rot, valid, n2p, *bp_cases.BP_SETTINGS, cuda)
+    assert st.slot_beads.shape[1] == kw["m_slot"]
+    f32 = dict(dtype=torch.float32, device=cuda)
+    e1, ep = torch.tensor(E1, **f32), torch.tensor(E, **f32)
+
+    def adj_of():
+        eye = torch.eye(st.n_res, dtype=torch.bool, device=cuda)
+        return (bp.scatter_pairs(st, ep) != 0).any(-1).any(-1) & ~eye
+
+    iters = _check_bp(
+        lambda c, init, tol: bp.bp_pairs_kernel(
+            dataclasses.replace(st, tol=tol), c * e1, ep, init),
+        lambda c, init, tol: bp.bp_bethe_pairs_fwd(
+            dataclasses.replace(st, tol=tol), c * e1, ep, init, plain=True),
+        adj_of, bp_cases.CASE_LAYOUT.get(case, 0))
+    assert len(set(iters)) > 1 and not adj_of()[2].any()
+    assert not adj_of()[:, 3].any()
 
 
 def _repeatable(fn):
@@ -244,32 +292,53 @@ def test_pair_spline_kernels_match_plain(cuda):
 
 
 @pytest.mark.requires_cuda
-def test_bp_planes_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(4)
-    R, n_rep = 40, 3
-    n_rot = rng.choice([1, 3, 6], size=R)
-    valid = np.arange(6)[None, :] < n_rot[:, None]
-    adj = np.triu(rng.random((R, R)) < 0.15, 1)
-    adj = adj | adj.T
-    E2 = 0.5 * rng.normal(size=(n_rep, 6, 6, R, R))
-    E2 = E2 + E2.transpose(0, 2, 1, 4, 3)
-    E2 = np.where(adj, E2, 0.0).reshape(n_rep, 36, R, R)
-    E1 = np.where(valid, 2.0 * rng.normal(size=(n_rep, R, 6)), 0.0)
-    res = np.repeat(np.arange(R), n_rot)
-    rot = np.concatenate([np.arange(n) for n in n_rot])
-    st = bp.make_statics(res, rot, valid, 128, 0.1, 1000, 1e-6, 2, cuda)
+@pytest.mark.parametrize("case", list(bp_cases.PLANES_CASES))
+def test_bp_planes_kernel_matches_plain(cuda, case):
+    """K6 on a mixed batch, each replica with its own adjacency."""
+    E1, E2, adj, res, rot, valid = bp_cases.planes_case(
+        **bp_cases.MIXED, **bp_cases.PLANES_CASES[case])
+    st = bp.make_statics(res, rot, valid, 128, *bp_cases.BP_SETTINGS, cuda)
     f32 = dict(dtype=torch.float32, device=cuda)
     e1, e2 = torch.tensor(E1, **f32), torch.tensor(E2, **f32)
-    a = torch.tensor(np.broadcast_to(adj, (n_rep, R, R)).copy(), device=cuda)
+    a = torch.tensor(adj, device=cuda)
     P = bpp.boltzmann_planes(e2, st.valid)
-    k = _repeatable(lambda: bpp.bp_bethe_planes_fwd(st, e1, P, a))
-    p = bpp.bp_bethe_planes_fwd(st, e1, P, a, plain=True)
-    for i in (0, 1, 2, 3):                       # F, G1, G2, beliefs
+    iters = _check_bp(
+        lambda c, init, tol: bpp.bp_planes_kernel(
+            dataclasses.replace(st, tol=tol), c * e1, P, a, init),
+        lambda c, init, tol: bpp.bp_bethe_planes_fwd(
+            dataclasses.replace(st, tol=tol), c * e1, P, a, init,
+            plain=True),
+        lambda: a, bp_cases.CASE_LAYOUT.get(case, 0))
+    assert len(set(iters)) > 1
+    k = bpp.bp_bethe_planes_fwd(st, e1, P, a)
+    assert k[2].count_nonzero() > 0 and not k[2][2].any()
+
+
+@pytest.mark.requires_cuda
+def test_bp_planes_kernel_symmetrises_adjacency(cuda):
+    """An adjacency given on one side of the diagonal only joins the same
+    residues as the symmetric one: K6 returns the same bits for both, and
+    its compact list is that of the symmetric adjacency."""
+    E1, E2, adj, res, rot, valid = bp_cases.planes_case(
+        **bp_cases.MIXED, **bp_cases.PLANES_CASES["40 residues"])
+    st = bp.make_statics(res, rot, valid, 128, *bp_cases.BP_SETTINGS, cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    e1, e2 = torch.tensor(E1, **f32), torch.tensor(E2, **f32)
+    a = torch.tensor(adj, device=cuda)
+    one_sided = a.clone()
+    one_sided[0] = torch.triu(a[0])
+    one_sided[1] = torch.tril(a[1])
+    assert not torch.equal(one_sided, a)
+    P = bpp.boltzmann_planes(e2, st.valid)
+    k, sc = bpp.bp_planes_kernel(st, e1, P, one_sided)
+    want, sc_w = bpp.bp_planes_kernel(st, e1, P, a)
+    assert all(torch.equal(x, y) for x, y in zip(k, want))
+    cnt, edges, rev, _ = bp.compact_edges(a)
+    assert sc.counts[:, 0].tolist() == cnt.tolist()
+    for r, n in enumerate(cnt.tolist()):
+        assert torch.equal(sc.edges[r, :n], edges[r, :n])
+        assert torch.equal(sc.reverse[r, :n], rev[r, :n])
+    p = bpp.bp_bethe_planes_fwd(st, e1, P, one_sided, plain=True)
+    assert k[6].tolist() == p[6].tolist()
+    for i in range(5):
         assert _rel(k[i], p[i]) < 1e-4
-    assert k[2].count_nonzero() > 0
-    init = (k[3], k[4])
-    kw = _repeatable(lambda: bpp.bp_bethe_planes_fwd(st, e1 + 0.05, P, a,
-                                                     init))
-    pw = bpp.bp_bethe_planes_fwd(st, e1 + 0.05, P, a, init, plain=True)
-    for i in (0, 1, 2, 3):
-        assert _rel(kw[i], pw[i]) < 1e-4

@@ -200,3 +200,21 @@ def test_param_deriv_through_identity_edges(trp):
     want = np.asarray(want)
     assert np.abs(want[10:, :, 16:]).max() > 0
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_params_from_jax_device_default():
+    """`params_from_jax` puts the tensors on the card by default, as
+    `System` and `Upside` do, and raises without one; on request it keeps
+    them on the CPU, floats in the asked dtype and integers as they are."""
+    jp = {"node": {"table": np.arange(6.0).reshape(2, 3),
+                   "index": np.arange(4)}}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            params_from_jax(jp)
+    else:
+        assert params_from_jax(jp)["node"]["table"].is_cuda
+    p = params_from_jax(jp, "cpu", torch.float64)
+    assert p["node"]["table"].dtype == torch.float64
+    assert p["node"]["index"].dtype == torch.int64
+    np.testing.assert_array_equal(params_to_numpy(p)["node"]["table"],
+                                  jp["node"]["table"])

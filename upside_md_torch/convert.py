@@ -48,10 +48,16 @@ def from_jax_specs(specs: Iterable, pos) -> Tuple[List[SpecRecord],
     return records, np.asarray(pos, np.float32)
 
 
-def params_from_jax(jax_params, device="cpu", dtype=torch.float32):
+def params_from_jax(jax_params, device="cuda", dtype=torch.float32):
     """A JAX parameter pytree {node: {name: array}} (numpy or jax arrays)
     -> the port's {node: {name: tensor}}: floating arrays in `dtype`,
-    others keep their kind (the port's `System.params` layout)."""
+    others keep their kind (the port's `System.params` layout).  The
+    tensors go to the card, as `System` and `Upside` do, unless `device`
+    says otherwise; without a CUDA device the default raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("params_from_jax: no CUDA device; pass "
+                           "device='cpu'")
     out = {}
     for node, p in jax_params.items():
         out[node] = {}

@@ -24,6 +24,16 @@ The VJP is an elementwise scale of (G1, dE) by the cotangent of F.
 Besides F it returns the sum-normalised node beliefs nb (B, R, 6), the
 edge messages eb (B, R, R, 6), the final deviation (B,) and the sweep
 count (B,).
+
+On the card the C entry point runs a grid-wide prologue (adjacency bits,
+the compact list of adjacent directed edges with each edge's reverse and
+factor index, the factor blocks), the per-replica solve on the compact
+edges, and a grid-wide epilogue that spreads the compact gradient and
+messages into the dense outputs (csrc/bp_common.cuh).  Each of those
+passes has its plain version here (`compact_edges`, `compact_factors`,
+`compact_messages`, `dense_messages`, `dense_pair_gradient`), which the
+CPU tests and the comparison on the card use; the plain solve itself
+stays dense.
 """
 
 from __future__ import annotations
@@ -38,6 +48,20 @@ from . import kernels
 NROT = 6
 EPS = 1e-10
 MAX_RES = 128       # residues one BP kernel block holds (bp_common.cuh)
+NPAIR = NROT * NROT
+ADJ_WORDS = MAX_RES // 32
+N_FSUM = 17         # F's node term and the edge pass's 16 blocks, a replica
+N_COUNTS = 4        # per-replica integers of the scratch's `counts`
+# Dynamic shared memory of each solve block (bp_common.cuh launches with
+# the same numbers): what a block may ask for (232,448 bytes) less the
+# solve's static node arrays.  The solve takes 116-128 registers a thread
+# at 512 threads, so one block fills an SM's registers whatever shared
+# memory it leaves free.
+SOLVE_STATIC_BYTES = 13568      # >= sizeof(BPNodes), bp_common.cuh
+SOLVE_SMEM_BYTES = 232448 - SOLVE_STATIC_BYTES
+LAYOUTS = ("messages and factors in shared memory",
+           "messages in shared memory, factors through L2",
+           "messages and factors in global scratch")
 
 
 @dataclass
@@ -209,6 +233,159 @@ def bp_bethe_pairs_plain(st, E1, E_pair, init=None):
     F, G1, G = bethe_and_gradients(E1, offset, prob, P, adj, valid, nb, eb)
     return F, G1, bead_gradient(st, G, E_pair.shape[-1]), nb, eb, dev, it
 
+# ---------------------------------------------------------------------------
+# plain versions of the kernel's compact-edge passes
+# ---------------------------------------------------------------------------
+
+def compact_edges(adj):
+    """The adjacent directed edges of adj (B, R, R) bool (symmetric; the
+    diagonal is ignored) in row-major (i, j) order, which is CSR by
+    residue.  Returns (count (B,), edges, reverse, pair_index), the last
+    three (B, R (R - 1)) int32, -1 beyond each replica's count:
+    edges[e] = i * R + j, reverse[e] the index of the edge (j, i), and
+    pair_index[e] the rank of the undirected pair (min, max) among the
+    adjacent pairs i < j in row-major order (the factor block both
+    directions share in K2)."""
+    B, R = adj.shape[:2]
+    adj = adj & ~torch.eye(R, dtype=torch.bool, device=adj.device)
+    cap = R * (R - 1)
+    flat = adj.reshape(B, R * R)
+    count = flat.sum(-1).to(torch.int32)
+    order = torch.argsort((~flat).to(torch.uint8), dim=-1, stable=True)
+    edges = order[:, :cap]
+    live = torch.arange(cap, device=adj.device)[None, :] < count[:, None]
+    rank = flat.long().cumsum(-1) - 1                 # edge index by (i, j)
+    urank = torch.triu(adj, 1).reshape(B, R * R).long().cumsum(-1) - 1
+    i, j = edges // R, edges % R
+    reverse = rank.gather(1, j * R + i)
+    pair = urank.gather(1, torch.minimum(i, j) * R + torch.maximum(i, j))
+    none = torch.full_like(edges, -1)
+    return count, *(torch.where(live, t, none).to(torch.int32)
+                    for t in (edges, reverse, pair))
+
+
+def compact_factors(P, edges, pair_index=None):
+    """Factor blocks (B, n_blocks, 36) of P (B, R, R, 6, 6), 0 where unused.
+    With `pair_index` one block per undirected pair, P[i, j] of i < j, in
+    (B, R (R - 1) / 2, 36) (K2); without, one per directed edge (K6)."""
+    B, R = P.shape[:2]
+    live = edges >= 0
+    blocks = P.reshape(B, R * R, NPAIR).gather(
+        1, edges.clamp(min=0).long()[..., None].expand(-1, -1, NPAIR))
+    blocks = torch.where(live[..., None], blocks, torch.zeros_like(blocks))
+    if pair_index is None:
+        return blocks
+    upper = live & (edges // R < edges % R)
+    out = P.new_zeros((B, R * (R - 1) // 2 + 1, NPAIR))
+    slot = torch.where(upper, pair_index, torch.full_like(pair_index, -1))
+    out.scatter_(1, (slot.long() % out.shape[1])[..., None]
+                 .expand(-1, -1, NPAIR), blocks)
+    return out[:, :-1]
+
+
+def compact_messages(eb, edges):
+    """Dense messages (B, R, R, 6) -> (B, R (R - 1), 6) on the compact
+    edges, 0 beyond each replica's count."""
+    B, R = eb.shape[:2]
+    m = eb.reshape(B, R * R, NROT).gather(
+        1, edges.clamp(min=0).long()[..., None].expand(-1, -1, NROT))
+    return torch.where((edges >= 0)[..., None], m, torch.zeros_like(m))
+
+
+def dense_messages(msg, edges, R):
+    """Compact messages (B, R (R - 1), 6) -> dense (B, R, R, 6), identity
+    (1.0) where there is no edge."""
+    B = msg.shape[0]
+    out = msg.new_ones((B, R * R + 1, NROT))
+    slot = torch.where(edges >= 0, edges, torch.full_like(edges, R * R))
+    out.scatter_(1, slot.long()[..., None].expand(-1, -1, NROT), msg)
+    return out[:, :-1].reshape(B, R, R, NROT)
+
+
+def dense_pair_gradient(G, edges, pair_index, R):
+    """Compact gradient blocks (B, n_blocks, 36) -> dense (B, R, R, 6, 6),
+    nonzero on adjacent i < j only.  With `pair_index` the blocks are per
+    undirected pair (K2), without per directed edge (K6)."""
+    B = G.shape[0]
+    upper = (edges >= 0) & (edges // R < edges % R)
+    block = (pair_index if pair_index is not None else torch.arange(
+        edges.shape[1], device=edges.device)[None].expand(B, -1))
+    vals = G.gather(1, block.clamp(min=0).long()[..., None]
+                    .expand(-1, -1, NPAIR))
+    out = G.new_zeros((B, R * R + 1, NPAIR))
+    slot = torch.where(upper, edges, torch.full_like(edges, R * R))
+    out.scatter_(1, slot.long()[..., None].expand(-1, -1, NPAIR), vals)
+    return out[:, :-1].reshape(B, R, R, NROT, NROT)
+
+
+def solve_layout(n_edges, n_blocks, smem_bytes=SOLVE_SMEM_BYTES):
+    """The layout (index into LAYOUTS) the solve block of a replica with
+    `n_edges` adjacent directed edges and `n_blocks` factor blocks (K2: one
+    per undirected pair; K6: one per directed edge) takes with
+    `smem_bytes` of dynamic shared memory: the rule of `bp_solve_kernel`,
+    a rule of size.  With the kernel's budget K2 holds up to 1,710 edges
+    in layout 0 and K6 1,094; both hold up to 3,908 in layout 1."""
+    info = (8 * n_edges + 15) // 16 * 16
+    messages = info + 2 * n_edges * NROT * 4
+    if messages + n_blocks * NPAIR * 4 <= smem_bytes:
+        return 0
+    return 1 if messages <= smem_bytes else 2
+
+
+class BPScratch:
+    """Global scratch of one K2 or K6 call: one int32 and one float32
+    buffer, cut into arrays with a leading replica axis as
+    `make_scratch` (csrc/bp_common.cuh) cuts them.  After a call:
+    `counts[:, 0]` adjacent directed edges, `[:, 1]` undirected pairs,
+    `[:, 2]` the layout the solve took; `edges`, `reverse`, `pair_index`
+    as `compact_edges` gives them (unset beyond the count; K6's factor
+    index is the edge's own); `factors` the gradient blocks;
+    `messages[:, 0]` the final compact messages."""
+
+    def __init__(self, B, R, shared_factors, device):
+        self.B, self.R, self.cap = B, R, R * (R - 1)
+        self.f_cap = self.cap // 2 if shared_factors else self.cap
+        sizes = (("adjw", R * ADJ_WORDS), ("cand", R * ADJ_WORDS),
+                 ("counts", N_COUNTS), ("row_start", R + 1),
+                 ("edges", self.cap), ("reverse", self.cap),
+                 ("pair_index", self.cap), ("upair", self.cap // 2))
+        self._ints, n = {}, 0
+        for name, per in sizes:
+            self._ints[name] = (n, per)
+            n += B * per
+        self.ibuf = torch.empty(n, dtype=torch.int32, device=device)
+        self.fbuf = torch.empty(
+            B * (self.f_cap * NPAIR + 2 * self.cap * NROT + N_FSUM),
+            dtype=torch.float32, device=device)
+
+    def __getattr__(self, name):
+        ints = self.__dict__.get("_ints", {})
+        if name not in ints:
+            raise AttributeError(name)
+        start, per = ints[name]
+        return self.ibuf[start:start + self.B * per].view(self.B, per)
+
+    @property
+    def factors(self):
+        return self.fbuf[:self.B * self.f_cap * NPAIR].view(
+            self.B, self.f_cap, NPAIR)
+
+    @property
+    def messages(self):
+        start = self.B * self.f_cap * NPAIR
+        return self.fbuf[start:start + self.B * 2 * self.cap * NROT].view(
+            self.B, 2, self.cap, NROT)
+
+
+def small_outputs(B, R, device):
+    """F (B,), dev (B,), G1 and nb (B, R, 6) cut from one allocation, and
+    the sweep counts (B,) int32."""
+    n = B * R * NROT
+    buf = torch.empty(2 * B + 2 * n, dtype=torch.float32, device=device)
+    return (buf[:B], buf[B:2 * B], buf[2 * B:2 * B + n].view(B, R, NROT),
+            buf[2 * B + n:].view(B, R, NROT),
+            torch.empty(B, dtype=torch.int32, device=device))
+
 
 # ---------------------------------------------------------------------------
 # kernel wrapper and autograd rule
@@ -219,6 +396,14 @@ def bp_bethe_pairs_fwd(st, E1, E_pair, init=None, plain=False):
     kernel on CUDA tensors."""
     if plain or not E1.is_cuda:
         return bp_bethe_pairs_plain(st, E1, E_pair, init)
+    return bp_pairs_kernel(st, E1, E_pair, init)[0]
+
+
+def bp_pairs_kernel(st, E1, E_pair, init=None):
+    """One call of K2's C entry point on CUDA tensors: ((F, G1, dE, nb, eb,
+    dev, iters), scratch).  The scratch holds the compact edge list and
+    the layout each replica's solve took, which the comparisons on the
+    card read."""
     B, R, n2p = E1.shape[0], st.n_res, st.n2p
     f32 = dict(dtype=torch.float32, device=E1.device)
     warm = init is not None
@@ -230,30 +415,24 @@ def bp_bethe_pairs_fwd(st, E1, E_pair, init=None, plain=False):
     if warm:
         checks += [(nb0, (B, R, NROT)), (eb0, (B, R, R, NROT))]
     for t, shape in checks:
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"bp_bethe_pairs kernel takes float32 {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    if R > MAX_RES:
-        raise ValueError(f"bp_bethe_pairs kernel supports <= {MAX_RES} "
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"bp_bethe_pairs kernel takes CUDA float32 "
+                             f"{shape}, got {t.device} {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not 2 <= R <= MAX_RES:
+        raise ValueError(f"bp_bethe_pairs kernel supports 2 to {MAX_RES} "
                          f"residues, got {R}")
-    F = torch.empty((B,), **f32)
-    G1 = torch.empty((B, R, NROT), **f32)
+    scratch = BPScratch(B, R, True, E1.device)
+    F, dev, G1, nb, iters = small_outputs(B, R, E1.device)
     dE = torch.empty((B, n2p, n2p), **f32)
-    nb = torch.empty((B, R, NROT), **f32)
     eb = torch.empty((B, R, R, NROT), **f32)
-    dev = torch.empty((B,), **f32)
-    iters = torch.empty((B,), dtype=torch.int32, device=E1.device)
-    pbuf = torch.empty((B, R, R, NROT * NROT), **f32)     # P, then G
-    ebuf = torch.empty((B, 2, R, R, NROT), **f32)         # messages
-    edges = torch.empty((B, R * (R - 1)), dtype=torch.int32,
-                        device=E1.device)
     kernels.launch(
         "bp_bethe_pairs", E1, E_pair, st.slot_beads, st.bead_slot, st.valid,
         nb0, eb0,
         B, R, st.n_bead, n2p, st.slot_beads.shape[1],
-        st.damping, st.max_iter, st.tol, st.chunk,
-        F, G1, dE, nb, eb, dev, iters, pbuf, ebuf, edges)
-    return F, G1, dE, nb, eb, dev, iters
+        st.damping, st.max_iter, st.tol, st.chunk, F, G1, dE, nb, eb, dev, iters, scratch.ibuf, scratch.fbuf)
+    return (F, G1, dE, nb, eb, dev, iters), scratch
 
 
 def identity_edge_gradient(st, E_pair, nb):

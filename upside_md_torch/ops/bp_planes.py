@@ -22,7 +22,14 @@ The VJP scales the envelope gradients G1 (B, R, 6) and G2 (B, 36, R, R)
 The plain version reuses `bp_solve_plain` and `bethe_and_gradients` of
 ops/bp_pairs.py; the wrapper takes it for CPU tensors (or when asked, for
 comparisons on the card) and launches csrc/bp_bethe_planes.cu for CUDA
-tensors.
+tensors: a grid-wide prologue (adjacency bits, compact edges, each
+directed edge's 36 factors gathered out of the planes), the per-replica
+solve on the compact edges, and a grid-wide epilogue that writes G2 and
+the dense messages (csrc/bp_common.cuh; the plain versions of those passes
+are in ops/bp_pairs.py).  Residues i != j are joined where either
+adj[i, j] or adj[j, i] is set, in the kernel and in the plain version: the
+rotamer node's adjacency is symmetric, and one that is not is symmetrised
+rather than trusted.
 """
 
 from __future__ import annotations
@@ -30,10 +37,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .bp_pairs import (MAX_RES, NROT, bethe_and_gradients, bp_solve_plain,
-                       node_potentials)
-
-NPAIR = NROT * NROT
+from .bp_pairs import (MAX_RES, NPAIR, NROT, BPScratch, bethe_and_gradients,
+                       bp_solve_plain, node_potentials, small_outputs)
 
 
 def boltzmann_planes(E2planes, valid):
@@ -49,7 +54,8 @@ def bp_bethe_planes_plain(st, E1, P, adj, init=None):
     """Plain version of K6: (F, G1, G2, nb, eb, dev, iters)."""
     B, R = E1.shape[:2]
     P5 = P.reshape(B, NROT, NROT, R, R).permute(0, 3, 4, 1, 2)
-    adj = adj & ~torch.eye(R, dtype=torch.bool, device=adj.device)
+    adj = (adj | adj.transpose(1, 2)) \
+        & ~torch.eye(R, dtype=torch.bool, device=adj.device)
     offset, prob = node_potentials(E1, st.valid)
     nb, eb, dev, it = bp_solve_plain(prob, P5, adj, st.valid, st.damping,
                                      st.max_iter, st.tol, st.chunk, init)
@@ -64,9 +70,15 @@ def bp_bethe_planes_fwd(st, E1, P, adj, init=None, plain=False):
     kernel on CUDA tensors."""
     if plain or not E1.is_cuda:
         return bp_bethe_planes_plain(st, E1, P, adj, init)
+    return bp_planes_kernel(st, E1, P, adj, init)[0]
+
+
+def bp_planes_kernel(st, E1, P, adj, init=None):
+    """One call of K6's C entry point on CUDA tensors: ((F, G1, G2, nb, eb,
+    dev, iters), scratch), the scratch as in `bp_pairs.bp_pairs_kernel`."""
     B, R = E1.shape[0], st.n_res
-    if R > MAX_RES:
-        raise ValueError(f"bp_bethe_planes kernel supports <= {MAX_RES} "
+    if not 2 <= R <= MAX_RES:
+        raise ValueError(f"bp_bethe_planes kernel supports 2 to {MAX_RES} "
                          f"residues, got {R}")
     warm = init is not None
     # a cold start passes null warm-start pointers
@@ -76,28 +88,25 @@ def bp_bethe_planes_fwd(st, E1, P, adj, init=None, plain=False):
     if warm:
         checks += [(nb0, (B, R, NROT)), (eb0, (B, R, R, NROT))]
     for t, shape in checks:
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"bp_bethe_planes kernel takes float32 {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    if adj.dtype != torch.bool or tuple(adj.shape) != (B, R, R):
-        raise ValueError(f"bp_bethe_planes kernel takes a bool adjacency "
-                         f"{(B, R, R)}, got {adj.dtype} {tuple(adj.shape)}")
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"bp_bethe_planes kernel takes CUDA float32 "
+                             f"{shape}, got {t.device} {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not adj.is_cuda or adj.dtype != torch.bool \
+            or tuple(adj.shape) != (B, R, R):
+        raise ValueError(f"bp_bethe_planes kernel takes a CUDA bool "
+                         f"adjacency {(B, R, R)}, got {adj.device} "
+                         f"{adj.dtype} {tuple(adj.shape)}")
+    scratch = BPScratch(B, R, False, E1.device)
     f32 = dict(dtype=torch.float32, device=E1.device)
-    F = torch.empty((B,), **f32)
-    G1 = torch.empty((B, R, NROT), **f32)
+    F, dev, G1, nb, iters = small_outputs(B, R, E1.device)
     G2 = torch.empty((B, NPAIR, R, R), **f32)
-    nb = torch.empty((B, R, NROT), **f32)
     eb = torch.empty((B, R, R, NROT), **f32)
-    dev = torch.empty((B,), **f32)
-    iters = torch.empty((B,), dtype=torch.int32, device=E1.device)
-    ebuf = torch.empty((B, 2, R, R, NROT), **f32)        # messages
-    edges = torch.empty((B, R * (R - 1)), dtype=torch.int32,
-                        device=E1.device)
     kernels.launch(
         "bp_bethe_planes", E1, P, adj, st.valid, nb0, eb0,
-        B, R, st.damping, st.max_iter, st.tol, st.chunk,
-        F, G1, G2, nb, eb, dev, iters, ebuf, edges)
-    return F, G1, G2, nb, eb, dev, iters
+        B, R, st.damping, st.max_iter, st.tol, st.chunk, F, G1, G2, nb, eb, dev, iters, scratch.ibuf, scratch.fbuf)
+    return (F, G1, G2, nb, eb, dev, iters), scratch
 
 
 class BPPlanesFreeEnergy(torch.autograd.Function):

@@ -130,8 +130,9 @@ def launch(name, *args):
     fn = getattr(library(), name)
     cargs = [_carg(a) for a in args]
     cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    fn.argtypes = [type(c) for c in cargs]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:         # the kinds of a function's arguments
+        fn.argtypes = [type(c) for c in cargs]      # are the same each call
+        fn.restype = ctypes.c_int
     rc = fn(*cargs)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
