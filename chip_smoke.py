@@ -41,7 +41,8 @@ the bundle's seed.  Phases:
    band layouts (bitwise repeatable, and unmoved by NaN/Inf in dead slots
    of the grid cotangent), and `param_deriv` of the rotamer, both
    coverage and (env bundle) environment tables against `kernels=False`
-   (rel < 1e-3);
+   (rel < 1e-3); the tile decisions of K3's and K4's backward cull equal
+   to their plain `cull_tiles`, bit for bit;
 4. times each kernel and its plain version with CUDA events around one
    wrapper call on an idle card (median; `ms`, host side included) at 64
    replicas, and sums the device time of the call's kernels and memsets
@@ -49,13 +50,21 @@ the bundle's seed.  Phases:
    larger of the bytes it must move over the card's memory rate and the
    operations this run's data needs over the card's float32 rate (H100
    SXM data sheet), both counted over the pairs and edges this run's data
-   needs.  The BP kernels (K2, K6) are also timed at two fixed sweep
+   needs (for K3 and K4's backward only the pairs inside the cutoff and
+   the packed mask the kernels read; the bound as PRs 1-4 counted it,
+   with the geometry of every masked pair, is printed beside it and kept
+   as `bound_table_ms` in the kernel table).  The BP kernels (K2, K6) are also timed at two fixed sweep
    counts with the convergence test off: the slope is the time of one
    dependent sweep, and that times the most sweeps a replica of the timed
    run took is their latency floor; and at 64 and 512 replicas (the
    64-replica inputs tiled), where the profiler's records of one call are
    split by pass: the launches before the solve (prologue), the solve
-   with the Bethe edge pass, and the launches after (epilogue);
+   with the Bethe edge pass, and the launches after (epilogue).  K3 and
+   K4's backward (the row-tile kernels with the per-replica cull) are
+   timed at 64 and 512 replicas too, their device time split by launch,
+   beside their bounds, with a `[cull]` line each: tiles walked out of
+   all tiles and live pairs out of masked pairs, the kernel's decisions
+   held to `cull_tiles` again;
 5. MD: `Simulation.advance` at 64 and 512 replicas on each path after a
    warm-up, the launch counts set to 0 just before each path and read just
    after; positions must stay finite and each path's kernels must have
@@ -139,6 +148,7 @@ OPS_SWEEP_EDGE, OPS_BETHE_EDGE = 110, 540
 COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
+ROW_TILE_REPLICAS = (64, 512)    # K3 and K4's backward, by launch, at both
 # The bundles' BP kernels are held against their plain versions at tol 1e-6
 # (values; the deviation's float32 rounding, a few 1e-6 at 76-124 residues,
 # decides there when either version stops, so sweep counts are printed) and
@@ -268,6 +278,12 @@ def spline_ops(ps, tab, x1, x2, per_live):
     return masked * OPS_GEOM + live * (per_live - OPS_GEOM)
 
 
+def as_before(b):
+    """', as PRs 1-4 counted it x ms (by)' for a bound that changed."""
+    return "" if b is None else \
+        f", as PRs 1-4 counted it {b[0]:.4f} ms ({b[1]})"
+
+
 def bp_ops(adj, iters):
     """BP work this run's data needs: sweeps over directed edges, then the
     Bethe pass over undirected ones."""
@@ -393,37 +409,27 @@ def log_layout(label, counts, n_rep):
 
 
 def time_bp_passes(label, fwd, n_rep):
-    """One wrapper call `fwd()` of K2 or K6: the CUDA-event median on an
-    idle card, and the device time of its launches from the profiler,
-    split by pass: what runs before `bp_solve_kernel` is the prologue, the
-    solve and `bp_bethe_edges_kernel` the solve, what follows up to the
-    call's last launch (`bp_messages_kernel`) the epilogue."""
-    import torch
-    reps = 20
-    alone = cuda_ms(fwd, reps)
-    split = {"prologue": 0.0, "solve": 0.0, "epilogue": 0.0}
-    by_launch, after_solve = {}, False
-    for name, us in device_events(fwd, reps):
-        short = name.split("(")[0].replace("void ", "").strip()
-        by_launch[short] = by_launch.get(short, 0.0) + us / reps
+    """`time_launches` of one wrapper call `fwd()` of K2 or K6, its device
+    time also split by pass: what runs before `bp_solve_kernel` is the
+    prologue, the solve and `bp_bethe_edges_kernel` the solve, what
+    follows up to the call's last launch (`bp_messages_kernel`) the
+    epilogue."""
+    after_solve = False
+
+    def pass_of(name):
+        nonlocal after_solve
         if "bp_solve_kernel" in name or "bp_bethe_edges_kernel" in name:
-            after_solve, key = True, "solve"
-        else:
-            key = "epilogue" if after_solve else "prologue"
-        split[key] += us / reps * 1e-3
+            after_solve = True
+            return "solve"
+        key = "epilogue" if after_solve else "prologue"
         if "bp_messages_kernel" in name:
             after_solve = False
-    total = sum(split.values()) if by_launch else None
-    log(f"[time] {label} at {n_rep} replicas: {alone:.4f} ms a call on an "
-        f"idle card; device time of its launches "
-        f"{'not measured' if total is None else f'{total:.4f} ms'}: "
-        f"prologue {split['prologue']:.4f}, solve {split['solve']:.4f}, "
-        f"epilogue {split['epilogue']:.4f} ms; by launch (us) "
-        f"{ {k: round(v, 2) for k, v in by_launch.items()} }")
-    torch.cuda.empty_cache()
-    return {"ms": alone, "device_ms": total,
-            "prologue_ms": split["prologue"], "solve_ms": split["solve"],
-            "epilogue_ms": split["epilogue"], "launch_us": by_launch}
+        return key
+
+    rec = time_launches(label, fwd, n_rep, pass_of,
+                        ("prologue", "solve", "epilogue"))
+    return {**{k: v for k, v in rec.items() if k != "pass_ms"},
+            **{f"{k}_ms": v for k, v in rec["pass_ms"].items()}}
 
 
 def tiled(t, k):
@@ -458,10 +464,16 @@ def compare_k3(label, prep, x, plain_fwd, randn):
     grid cotangent (the padding, masked pairs, pairs beyond the cutoff):
     the port's copy of the poisoned-dead-slot test on the card."""
     import torch
-    from upside_md_torch.ops.fused_pair import fused_pair_bwd_recompute
+    from upside_md_torch.ops.fused_pair import (cull_tiles,
+                                                fused_pair_bwd_recompute)
     g = [randn(t) for t in plain_fwd[:3]]
-    bk = fused_pair_bwd_recompute(prep, *x, *g)
+    keep = cull_tiles(prep, x[0], x[2])
+    flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=keep.device)
+    bk = fused_pair_bwd_recompute(prep, *x, *g, flags=flags)
     repeatable(f"K3 {label}", bk, fused_pair_bwd_recompute(prep, *x, *g))
+    masked, live, _ = fused_pairs(prep, x[0], x[2])
+    check_cull(f"K3 {label}, {x[0].shape[0]} replicas", flags, keep, live,
+               masked)
     bp = fused_pair_bwd_recompute(prep, *x, *g, plain=True)
     torch.cuda.synchronize()
     err = compare([f"K3 {label} d1", f"K3 {label} d2"], bk, bp, 1e-4)
@@ -525,6 +537,59 @@ def fused_pairs(prep, x1, x2):
     spline, live = fused_live(prep, x1, x2)
     return (int(spline.sum()) * x1.shape[0], int(live.sum()),
             int(live[:, prep.r_p:].sum()))
+
+
+def check_cull(label, flags, keep, live, masked):
+    """The row-tile kernel's tile decisions (`flags`, as it wrote them)
+    against `keep`, its plain `cull_tiles`, bit for bit; logs the `[cull]`
+    line (tiles walked, tiles that held a candidate pair and so wrote
+    column partials, live pairs out of masked ones)."""
+    import torch
+    from upside_md_torch.ops.tile_cull import KEPT, WRITTEN
+    kept = (flags & KEPT) != 0
+    written = (flags & WRITTEN) != 0
+    if not torch.equal(kept, keep):
+        raise AssertionError(f"{label}: the kernel's tile cull differs from "
+                             f"cull_tiles in {int((kept != keep).sum())} "
+                             "tiles")
+    if (written & ~kept).any():
+        raise AssertionError(f"{label}: partials written for a culled tile")
+    rec = {"tiles": kept.numel(), "kept": int(kept.sum()),
+           "written": int(written.sum()), "masked_pairs": masked,
+           "live_pairs": live}
+    log(f"[cull] {label}: tiles walked {rec['kept']} of {rec['tiles']} "
+        f"({rec['kept'] / rec['tiles']:.3f}), with a candidate pair "
+        f"{rec['written']}; live pairs {live} of {masked} masked "
+        f"({live / max(masked, 1):.4f}); equal to cull_tiles")
+    return rec
+
+
+def time_launches(label, fn, n_rep, pass_of=None, passes=()):
+    """One wrapper call `fn()`: the CUDA-event median on an idle card, and
+    the device time of its launches from the profiler, split by launch;
+    with `pass_of`, which names the pass (one of `passes`) of each launch
+    the card ran, in order, also split by pass (`pass_ms`)."""
+    import torch
+    reps = 20
+    alone = cuda_ms(fn, reps)
+    by_launch, by_pass = {}, dict.fromkeys(passes, 0.0)
+    for name, us in device_events(fn, reps):
+        short = name.split("(")[0].replace("void ", "").strip()
+        by_launch[short] = by_launch.get(short, 0.0) + us / reps
+        if pass_of is not None:
+            by_pass[pass_of(name)] += us / reps * 1e-3
+    total = sum(by_launch.values()) * 1e-3 if by_launch else None
+    split = "".join(f", {k} {v:.4f}" for k, v in by_pass.items())
+    log(f"[time] {label} at {n_rep} replicas: {alone:.4f} ms a call on an "
+        f"idle card; device time of its launches "
+        f"{'not measured' if total is None else f'{total:.4f} ms'}"
+        f"{split}; by launch (us) "
+        f"{ {k: round(v, 2) for k, v in by_launch.items()} }")
+    torch.cuda.empty_cache()
+    rec = {"ms": alone, "device_ms": total, "launch_us": by_launch}
+    if pass_of is not None:
+        rec["pass_ms"] = by_pass
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -705,7 +770,8 @@ def compare_noenv(dev, gen, base, path):
 
 
 def time_noenv(dev, gen, base, path):
-    """K3 and its plain version at TIME_REPLICAS, beside its bound."""
+    """K3 and its plain version at TIME_REPLICAS, beside its bounds (the
+    live pairs' and the table's of PRs 1-4, `k3_bounds`)."""
     import torch
     from upside_md_torch.ops.fused_pair import (fused_pair_bwd_recompute,
                                                 fused_pair_fwd)
@@ -724,18 +790,72 @@ def time_noenv(dev, gen, base, path):
         lambda: fused_pair_bwd_recompute(prep, *x, *g, plain=True))}
     masked, live, live_grid = fused_pairs(prep, x[0], x[2])
     d = fused_pair_bwd_recompute(prep, *x, *g)
-    # inputs once (the grid cotangent only where a live pair reads it),
-    # outputs once; geometry for every masked pair, the recomputed spline
-    # and its backward for the live ones
-    statics = (prep.row_type, prep.col_type, prep.mask, prep.coef)
-    bounds = {"fused_pair_bwd_recompute": bound(
-        nbytes(*x, *statics, g[0], g[2], *d) + live_grid * g[1].element_size(),
-        masked * OPS_GEOM + live * (OPS_BWD - OPS_GEOM))}
+    bounds, before = ({"fused_pair_bwd_recompute": b} for b in k3_bounds(
+        prep, x, g, d, masked, live, live_grid))
     log(f"[time] no-env ubiquitin at {n_t} replicas: {masked} masked and "
         f"{live} live pairs ({live_grid} in the pair band)")
-    del system, sys_p, outs, fk
+    del sys_p, outs, fk
+    rows = {}
+    for n in ROW_TILE_REPLICAS:
+        rows[n] = row_tile_k3(system, base, n, gen, dev)
+    del system
     torch.cuda.empty_cache()
-    return res, bounds
+    return res, bounds, before, {"fused_pair_bwd_recompute": rows}
+
+
+def k3_bounds(prep, x, g, d, masked, live, live_grid):
+    """K3's bound: the live pairs' work alone (the spline and its backward;
+    a pair beyond the cutoff needs none, and the kernel's cull skips it),
+    with each input read once (the packed mask the kernel reads, the grid
+    cotangent only where a live pair reads it) and each output written
+    once; and the bound as PRs 1-4 counted it, kept to compare with them:
+    also the geometry of every masked pair, and the dense uint8 mask."""
+    common = nbytes(*x, prep.row_type, prep.col_type, prep.coef, g[0], g[2],
+                    *d) + live_grid * g[1].element_size()
+    return (bound(common + nbytes(prep.mask_words), live * OPS_BWD),
+            bound(common + nbytes(prep.mask),
+                  masked * OPS_GEOM + live * (OPS_BWD - OPS_GEOM)))
+
+
+def row_tile_k3(system, base, n, gen, dev):
+    """K3 at n replicas of perturbed no-env ubiquitin (its operands from
+    the kernels' own evaluation): its cull held to `cull_tiles`, its time
+    split by launch, its bounds."""
+    import torch
+    from upside_md_torch.ops.fused_pair import (cull_tiles,
+                                                fused_pair_bwd_recompute,
+                                                fused_pair_fwd)
+    pos = perturbed(base, n, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(pos)
+        o = fused_operands(system, outs, gen, dev)
+        prep, x = o["prep"], o["x"]
+        g = [o["randn"](t)
+             for t in fused_pair_fwd(prep, *x, want_planes=False)[:3]]
+        keep = cull_tiles(prep, x[0], x[2])
+        flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+        d = fused_pair_bwd_recompute(prep, *x, *g, flags=flags)
+        masked, live, live_grid = fused_pairs(prep, x[0], x[2])
+        rec = {"cull": check_cull(f"K3 no-env ubiquitin, {n} replicas",
+                                  flags, keep, live, masked)}
+        # the first replicas against the plain version: at 512 replicas
+        # the kernel gives each row tile one warp, at 64 four
+        first = slice(0, COMPARE_REPLICAS)
+        rec["max_abs_err"] = compare(
+            [f"K3 at {n} replicas, the first {COMPARE_REPLICAS}, d1",
+             f"K3 at {n} replicas, the first {COMPARE_REPLICAS}, d2"],
+            [t[first] for t in d], fused_pair_bwd_recompute(
+                prep, *(t[first] for t in x), *(t[first] for t in g),
+                plain=True), 1e-4)
+        rec.update(time_launches(
+            "fused_pair_bwd_recompute (K3)",
+            lambda: fused_pair_bwd_recompute(prep, *x, *g), n))
+        rec["bound_ms"], rec["bound_table_ms"] = k3_bounds(
+            prep, x, g, d, masked, live, live_grid)
+    log_bounds("K3", n, rec)
+    del outs, o, x, g, d, keep, flags
+    torch.cuda.empty_cache()
+    return rec
 
 
 def run_train(path, dev, gen, base):
@@ -878,8 +998,13 @@ def compare_unfused(dev, gen, base, path):
             [f"K4 fwd {name}"], (k4,),
             (qs.colsum_fwd(cps, ctab, x1, x2, w1, plain=True),), 1e-5))
         g4 = randn(k4)
-        kb = qs.colsum_bwd(cps, ctab, x1, x2, w1, g4)
+        keep = qs.cull_tiles(cps, ctab, x1, x2)
+        flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+        kb = qs.colsum_bwd(cps, ctab, x1, x2, w1, g4, flags=flags)
         repeatable("K4 bwd", kb, qs.colsum_bwd(cps, ctab, x1, x2, w1, g4))
+        masked, live = spline_pairs(cps, ctab, x1, x2)
+        check_cull(f"K4 bwd {name}, {COMPARE_REPLICAS} replicas", flags,
+                   keep, live, masked)
         errs["colsum_bwd"] = max(errs["colsum_bwd"], compare(
             [f"K4 bwd {name} d1 (dw in col 6)", f"K4 bwd {name} d2"], kb,
             qs.colsum_bwd(cps, ctab, x1, x2, w1, g4, plain=True), 1e-4))
@@ -964,16 +1089,16 @@ def time_unfused(dev, gen, base, path):
                 + live5 * g5.element_size(),
                 spline_ops(ps, tab, beads, beads, OPS_BWD)),
         }
-        f_bytes = f_ops = b_bytes = b_ops = 0
-        for (cps, ctab, x1, x2, w1), g in zip(cov_ops, g4):
+        f_bytes = f_ops = 0
+        for cps, ctab, x1, x2, w1 in cov_ops:
             out = qs.colsum_fwd(cps, ctab, x1, x2, w1)
-            d = qs.colsum_bwd(cps, ctab, x1, x2, w1, g)
             f_bytes += nbytes(x1, x2, w1, *statics(cps, ctab), out)
-            b_bytes += nbytes(x1, x2, w1, g, *statics(cps, ctab), *d)
             f_ops += spline_ops(cps, ctab, x1, x2, OPS_VALUE + 2)
-            b_ops += spline_ops(cps, ctab, x1, x2, OPS_BWD + 5)
         bounds["colsum_fwd"] = bound(f_bytes, f_ops)
-        bounds["colsum_bwd"] = bound(b_bytes, b_ops)
+        calls = [(*o, g) for o, g in zip(cov_ops, g4)]
+        bounds["colsum_bwd"], before = k4_bwd_bounds(
+            calls, [qs.colsum_bwd(*c) for c in calls],
+            [spline_pairs(*c[:4]) for c in calls])
         out6 = bp_bethe_planes_fwd(st, E1, P, adj, warm)
         # 36 factors of each adjacent directed edge
         bounds["bp_bethe_planes"] = bp_bound(
@@ -981,7 +1106,11 @@ def time_unfused(dev, gen, base, path):
             adj, st.valid)
     lat = {"bp_bethe_planes": sweep_latency(
         lambda s: bp_bethe_planes_fwd(s, E1, P, adj, warm), st, out6[6])}
-    del system, sys_p, outs, grid, out6, cold
+    del sys_p, outs, grid, out6, cold
+    rows = {}
+    for n in ROW_TILE_REPLICAS:
+        rows[n] = row_tile_k4(system, base, n, gen, dev)
+    del system
     passes = {}
     for n in BP_TIME_REPLICAS:
         e1, pl, ad = (tiled(t, n // n_t) for t in (E1, P, adj))
@@ -992,7 +1121,77 @@ def time_unfused(dev, gen, base, path):
         del e1, pl, ad, w
     del P
     torch.cuda.empty_cache()
-    return res, bounds, lat, {"bp_bethe_planes": passes}
+    return res, bounds, {"colsum_bwd": before}, lat, \
+        {"bp_bethe_planes": passes}, {"colsum_bwd": rows}
+
+
+def k4_bwd_bounds(calls, outs, pairs):
+    """K4 backward's bounds over its calls [(spline statics, table, x1, x2,
+    w1, g)] with outputs `outs` and (masked, live) pairs `pairs`: the live
+    pairs' work alone, with each input read once (the packed mask the
+    kernel reads) and each output written once; and the bound as PRs 2-4
+    counted it, kept to compare with them: also the geometry of every
+    masked pair, and the dense uint8 mask."""
+    n_live = n_table = ops_live = ops_table = 0
+    for (cps, ctab, x1, x2, w1, g), d, (masked, live) in zip(calls, outs,
+                                                             pairs):
+        common = nbytes(x1, x2, w1, g, cps.t1, cps.t2, cps.tile_alive,
+                        ctab.coef, *d)
+        n_live += common + nbytes(cps.mask_words)
+        n_table += common + nbytes(cps.mask)
+        ops_live += live * (OPS_BWD + 5)
+        ops_table += masked * OPS_GEOM + live * (OPS_BWD + 5 - OPS_GEOM)
+    return bound(n_live, ops_live), bound(n_table, ops_table)
+
+
+def log_bounds(label, n, rec):
+    log(f"[time] {label} at {n} replicas: bound of the live pairs "
+        f"{rec['bound_ms'][0]:.4f} ms ({rec['bound_ms'][1]}), as PRs 1-4 "
+        f"counted it {rec['bound_table_ms'][0]:.4f} ms "
+        f"({rec['bound_table_ms'][1]})")
+
+
+def row_tile_k4(system, base, n, gen, dev):
+    """K4's backward, both coverage calls of one evaluation, at n replicas
+    of perturbed RNase A (operands from the kernels' own evaluation): each
+    call's cull held to `cull_tiles`, the pair's time split by launch, its
+    bounds (`k4_bwd_bounds`)."""
+    import torch
+    from upside_md_torch.ops import quadspline as qs
+    pos = perturbed(base, n, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(pos)
+        covs, _ = unfused_operands(system, outs)
+        calls, outs_, pairs, rec = [], [], [], {"cull": {}}
+        for name, cps, table, x1, x2, w1 in covs:
+            ctab = cps.table(table)
+            g = torch.randn(x2[..., 0].shape, generator=gen, device=dev)
+            keep = qs.cull_tiles(cps, ctab, x1, x2)
+            flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+            d = qs.colsum_bwd(cps, ctab, x1, x2, w1, g, flags=flags)
+            masked, live = spline_pairs(cps, ctab, x1, x2)
+            rec["cull"][name] = check_cull(
+                f"K4 bwd {name}, RNase A, {n} replicas", flags, keep, live,
+                masked)
+            first = slice(0, COMPARE_REPLICAS)
+            compare([f"K4 bwd {name} at {n} replicas, the first "
+                     f"{COMPARE_REPLICAS}, d1", f"K4 bwd {name} at {n} "
+                     f"replicas, the first {COMPARE_REPLICAS}, d2"],
+                    [t[first] for t in d],
+                    qs.colsum_bwd(cps, ctab, x1[first], x2[first],
+                                  w1[first], g[first], plain=True), 1e-4)
+            calls.append((cps, ctab, x1, x2, w1, g))
+            outs_.append(d)
+            pairs.append((masked, live))
+        rec.update(time_launches(
+            "colsum_bwd (K4 bwd, both calls)",
+            lambda: [qs.colsum_bwd(*c) for c in calls], n))
+        rec["bound_ms"], rec["bound_table_ms"] = k4_bwd_bounds(calls, outs_,
+                                                               pairs)
+    log_bounds("K4 bwd", n, rec)
+    del outs, covs, calls, outs_
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1214,10 +1413,13 @@ def main():
     # ---- 4. timing, kernel vs plain, at 64 replicas with the config's BP
     # tolerance and a warm start, as in MD
     ms, bounds, lat, passes = time_fused(dev, gen, base_f, fused_path)
-    ms_u, bounds_u, lat_u, passes_u = time_unfused(dev, gen, base_u,
-                                                   unfused_path)
+    ms_u, bounds_u, before, lat_u, passes_u, rows = time_unfused(
+        dev, gen, base_u, unfused_path)
     passes.update(passes_u)
-    ms_n, bounds_n = time_noenv(dev, gen, base_n, noenv_path)
+    ms_n, bounds_n, before_n, rows_n = time_noenv(dev, gen, base_n,
+                                                  noenv_path)
+    before.update(before_n)
+    rows.update(rows_n)
     for part in (ms_u, ms_n):
         ms.update(part)
     bounds.update(bounds_u)
@@ -1228,15 +1430,18 @@ def main():
         log(f"[time] {nm}: kernel {ms[nm][0]:.4f} ms a call on an idle "
             f"card, device time of its launches {dms}, plain "
             f"{ms[nm][1]:.4f} ms, bound {bounds[nm][0]:.4f} ms "
-            f"({bounds[nm][1]}), {TIME_REPLICAS} replicas")
+            f"({bounds[nm][1]}){as_before(before.get(nm))}, {TIME_REPLICAS} "
+            "replicas")
     for nm, (per, floor) in lat.items():
         log(f"[time] {nm}: {per:.5f} ms per dependent sweep (slope over "
             f"{SWEEPS_LO} and {SWEEPS_HI} sweeps), latency floor "
             f"{floor:.4f} ms for the timed run's sweeps")
     results["phases"]["time_ms"] = ms
     results["phases"]["bound_ms"] = bounds
+    results["phases"]["bound_table_ms"] = before
     results["phases"]["sweep_latency_ms"] = lat
     results["phases"]["bp_passes"] = passes
+    results["phases"]["row_tile"] = rows
 
     # ---- 5. MD through each path
     md_f, launches_f = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS,
@@ -1264,7 +1469,8 @@ def main():
          "max_abs_err": errs[nm], "ms": ms[nm][0],
          "device_ms": ms[nm][2], "plain_ms": ms[nm][1],
          "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
-         "library_ms": None}
+         "library_ms": None,
+         **({"bound_table_ms": before[nm][0]} if nm in before else {})}
         for nm in kernels.KERNELS]}
     results.update(table)
     results["total_s"] = time.perf_counter() - t_start

@@ -17,6 +17,13 @@ the layout of the solve its edge count calls for (messages and factors in
 shared memory, messages only, global scratch); and again at BP tol 1e-6,
 values rel 1e-4 (there float32 rounding of the deviation decides the stop,
 so sweep counts are not compared).  Kernels must be bitwise repeatable.
+K3 and K4's backward, the row-tile kernels with the per-replica cull, are
+also run on layouts that cull every tile, none, different tiles in
+different replicas, and hold pairs at the cutoff +- 1e-5 A on tile
+corners: rel 1e-4 against the plain versions, their tile decisions equal
+to `cull_tiles`, NaN/Inf in dead and culled slots leaving them unmoved.
+The layouts (chain-ordered sites, corner pairs) serve the CPU tests of the
+cull too (tests/test_torch_tile_cull.py).
 """
 
 import dataclasses
@@ -74,6 +81,107 @@ def fused_problem(rng, n_a=40, n_b=37, n_e=9, n2=70, ka=8, kc=7, kp=9,
     x2 = x1[:, n_a + n_b + n_e:]
     wcol = rng.uniform(0.1, 1.5, (n_rep, n2))
     return tabs, types1, types2, masks, env, (x1, w1, x2, wcol)
+
+
+def walk(rng, n, step, persist=0.6):
+    """(n, 3) a random walk of n steps of `step` A, each step's direction
+    leaning `persist` on the last one (a stiff chain)."""
+    d = rng.normal(size=(n, 3))
+    for a in range(1, n):
+        d[a] = persist * d[a - 1] / np.linalg.norm(d[a - 1]) \
+            + (1 - persist) * d[a] / np.linalg.norm(d[a])
+    return np.cumsum(step * d / np.linalg.norm(d, axis=-1, keepdims=True), 0)
+
+
+def chain_sites(rng, path, n, n_rep, jitter=0.3):
+    """(n_rep, n, 6) sites spread along `path` (m, 3) in order, each
+    replica jittered on its own, with random unit directions: rows and
+    columns of neighbouring indices lie close, as along a protein."""
+    idx = np.linspace(0, len(path) - 1, n).round().astype(int)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.stack([np.concatenate(
+        [path[idx] + jitter * rng.normal(size=(n, 3)), d], 1)
+        for _ in range(n_rep)])
+
+
+def _f32(a, device):
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def fused_case(seed, env_band, step, device, n_rep=3, steps=None):
+    """A fused block (prep, (x1, w1, x2, wcol)) of `fused_problem`'s
+    tables, whose band edges (40, 77, 86) and n2 = 70 fall inside tiles;
+    the beads follow a random walk of `step` A (or, per replica, of
+    `steps`), and each band's rows lie along it."""
+    rng = np.random.default_rng(seed)
+    tabs, t1, t2, masks, env, dyn = fused_problem(rng, n_rep=n_rep)
+    _, w1, _, wcol = dyn
+    steps = steps or [step] * n_rep
+    paths = [walk(rng, len(t1[3]), st) for st in steps]
+    x1 = np.concatenate([np.concatenate([chain_sites(rng, path, len(t), 1)
+                                         for t in t1], 1) for path in paths])
+    if not env_band:
+        n_e = len(t1[2])
+        t1[2], t2[2], masks[2], env = t1[2][:0], 0 * t2[2], masks[2][:0], None
+        keep = np.ones(x1.shape[1], bool)
+        keep[len(t1[0]) + len(t1[1]):][:n_e] = False
+        x1, w1, wcol = x1[:, keep], w1[:, keep], 0 * wcol
+    prep = fp.make_prep(tabs, t1, t2, masks, env, device, torch.float32)
+    x1 = _f32(x1, device)
+    return prep, (x1, _f32(w1, device), x1[:, prep.r_p:].contiguous(),
+                  _f32(wcol, device))
+
+
+def fused_live(prep, x1, x2):
+    """(B, n1, n2) the live pairs of the fused block's spline bands: mask
+    and s = dist / dx below the band's cutoff."""
+    with torch.no_grad():
+        dist = fp._geometry(x1, x2)[1]
+        band = prep.band_of_rows()
+        kcut = torch.where(band == 3, prep.kcut_pair, prep.kcut_cov)
+        return prep.mask.bool() & (band != 2)[:, None] & \
+            (dist * prep.inv_dx < kcut[:, None])
+
+
+def spline_case(seed, n1=100, n2=135, n_t=4, ka=8, k=9, n_rep=3, step=3.8,
+                device=None, steps=None):
+    """K4's operands (ps, tab, x1, x2, w1): columns along a random walk of
+    `step` A (or, per replica, of `steps`), rows along the same walk."""
+    rng = np.random.default_rng(seed)
+    table = _f32(0.5 * rng.normal(size=(n_t, n_t + 1, 2 * ka + 2 * k)),
+                 device)
+    t1, t2 = rng.integers(0, n_t, n1), rng.integers(0, n_t + 1, n2)
+    mask = rng.random((n1, n2)) > 0.2
+    steps = steps or [step] * n_rep
+    x1, x2 = [], []
+    for st in steps:
+        path = walk(rng, n2, st)
+        x1.append(chain_sites(rng, path, n1, 1))
+        x2.append(chain_sites(rng, path, n2, 1))
+    w1 = _f32(rng.uniform(0.1, 1.0, (n_rep, n1)), device)
+    ps = qs.PairSpline(t1, t2, mask, device)
+    return (ps, ps.table(table), _f32(np.concatenate(x1), device),
+            _f32(np.concatenate(x2), device), w1)
+
+
+def corner_layout(n1, n2, i, j, p, q, device, seed=0):
+    """(x1 (1, n1, 6), x2 (1, n2, 6)): row i sits at p and column j at q,
+    at the facing corners of their tiles' boxes: the other sites of i's
+    tile lie at or below p on every axis, those of j's tile at or above q
+    (p <= q), and every other tile 1000 A away."""
+    rng = np.random.default_rng(seed)
+    x1 = np.zeros((n1, 6))
+    x2 = np.zeros((n2, 6))
+    x1[:, 3] = x2[:, 3] = 1.0
+    x1[:, :3] = 1000.0 * (1 + np.arange(n1) // 32)[:, None]
+    x2[:, :3] = -1000.0 * (1 + np.arange(n2) // 32)[:, None]
+    ri = np.arange(n1) // 32 == i // 32
+    cj = np.arange(n2) // 32 == j // 32
+    x1[ri, :3] = p - np.abs(rng.normal(0.0, 2.0, (ri.sum(), 3)))
+    x2[cj, :3] = q + np.abs(rng.normal(0.0, 2.0, (cj.sum(), 3)))
+    x1[i, :3], x2[j, :3] = p, q
+    return _f32(x1[None], device), _f32(x2[None], device)
 
 
 @pytest.mark.requires_cuda
@@ -342,3 +450,192 @@ def test_bp_planes_kernel_symmetrises_adjacency(cuda):
     assert k[6].tolist() == p[6].tolist()
     for i in range(5):
         assert _rel(k[i], p[i]) < 1e-4
+
+
+# the row-tile backwards with the per-replica cull (K3, K4's backward):
+# layouts that cull every tile, none, tiles that differ between replicas,
+# and pairs at the cutoff on tile corners
+CULL_STEPS = {"none_culled": [0.02] * 3, "all_culled": [40.0] * 3,
+              "mixed": [0.02, 3.8, 20.0]}
+
+
+def _k3_layout(layout, env_band, device):
+    if layout == "at_cutoff":
+        prep, x = fused_case(11, env_band, 3.8, device, n_rep=4)
+        x1, w1, x2, wcol = (t.clone() for t in x)
+        u = np.array([1.0, 0.6, 0.3]) / np.linalg.norm([1.0, 0.6, 0.3])
+        p = np.array([2.0, -1.0, 4.0])
+        cut_p = prep.kcut_pair / prep.inv_dx
+        cut_c = prep.kcut_cov / prep.inv_dx
+        for r, (i, j, cut, off) in enumerate(
+                ((prep.r_p + 18, 31, cut_p, -1e-5), (prep.r_p + 19, 32, cut_p,
+                                                     1e-5),
+                 (31, 32, cut_c, -1e-5), (32, 69, cut_c, 1e-5))):
+            a, b = corner_layout(prep.n1, prep.n2, i, j, p,
+                                 p + (cut + off) * u, device, seed=r)
+            x1[r, :, :3], x2[r, :, :3] = a[0, :, :3], b[0, :, :3]
+        return prep, (x1, w1, x2, wcol)
+    prep, (x1, w1, x2, wcol) = fused_case(12, env_band, None, device,
+                                          steps=CULL_STEPS[layout])
+    if layout == "all_culled":                  # rows far from the beads
+        x1 = x1.clone()
+        x1[:, :prep.r_p, :3] += 1000.0
+    return prep, (x1.contiguous(), w1, x2, wcol)
+
+
+def _check_rows(got, want):
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["none_culled", "all_culled", "mixed",
+                                    "at_cutoff"])
+@pytest.mark.parametrize("env_band", [True, False])
+def test_k3_cull_layouts(cuda, layout, env_band):
+    """K3 against its plain version (rel 1e-4), bitwise repeatable, its
+    cull decisions equal to `cull_tiles`, its written flags exactly the
+    kept tiles with a live pair, and unmoved by NaN/Inf in the grid
+    cotangent's dead and culled slots."""
+    from upside_md_torch.ops import tile_cull as tc
+    prep, x = _k3_layout(layout, env_band, cuda)
+    B = x[0].shape[0]
+    fwd = fp.fused_pair_fwd(prep, *x, plain=True, want_planes=False)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g = [torch.randn(t.shape, generator=gen, device=cuda) for t in fwd[:3]]
+    flags = torch.full((B, tc.n_tiles(prep.n1), tc.n_tiles(prep.n2)), 7,
+                       dtype=torch.uint8, device=cuda)
+    bk = fp.fused_pair_bwd_recompute(prep, *x, *g, flags=flags)
+    assert all(torch.equal(a, b) for a, b in zip(
+        bk, fp.fused_pair_bwd_recompute(prep, *x, *g)))
+    _check_rows(bk, fp.fused_pair_bwd_recompute(prep, *x, *g, plain=True))
+    keep = fp.cull_tiles(prep, x[0], x[2])
+    assert torch.equal((flags & tc.KEPT) != 0, keep)
+    # written: kept, and a pair passed the candidate test (every tile with
+    # a live pair or a masked-in env pair, and maybe some within the margin)
+    live = fused_live(prep, x[0], x[2])
+    n_rt, n_ct = keep.shape[1:]
+    pad = torch.zeros((B, n_rt * 32, n_ct * 32), dtype=torch.bool,
+                      device=cuda)
+    pad[:, :prep.n1, :prep.n2] = live
+    pad[:, prep.r_e:prep.r_p, :prep.n2] |= prep.mask[prep.r_e:prep.r_p].bool()
+    must = pad.reshape(B, n_rt, 32, n_ct, 32).any(4).any(2) & keep
+    written = (flags & tc.WRITTEN) != 0
+    assert not (must & ~written).any() and not (written & ~keep).any()
+    env_tiles = torch.isinf(prep.tile_thresholds)
+    if layout == "none_culled":
+        assert keep.all()
+    elif layout == "all_culled":
+        assert not keep[:, :prep.r_e // 32].any()
+        assert not keep[:, ~env_tiles].all()
+        if not env_band:
+            assert not live[:, :prep.r_p].any()
+    elif layout == "mixed":
+        assert keep[0].all() and not keep[2].all()
+    # NaN/Inf in every dead or culled slot of the grid cotangent
+    gg = g[1].clone()
+    gg[:, prep.n2:] = float("nan")
+    gg[:, :, prep.n2:] = float("inf")
+    inner = gg[:, :prep.n2, :prep.n2]
+    inner[~live[:, prep.r_p:]] = float("nan")
+    dirty = fp.fused_pair_bwd_recompute(prep, *x, g[0], gg, g[2])
+    assert all(torch.isfinite(a).all() and torch.equal(a, b)
+               for a, b in zip(dirty, bk))
+
+
+def _k4_layout(layout, device):
+    if layout == "at_cutoff":
+        ps, tab, x1, x2, w1 = spline_case(13, n_rep=4, device=device)
+        x1, x2 = x1.clone(), x2.clone()
+        u = np.array([0.2, 1.0, 0.5]) / np.linalg.norm([0.2, 1.0, 0.5])
+        p = np.array([-3.0, 1.0, 2.0])
+        cut = tab.kcut / tab.inv_dx
+        for r, (i, j, off) in enumerate(((31, 32, -1e-5), (32, 31, 1e-5),
+                                         (99, 134, -1e-5), (0, 128, 1e-5))):
+            a, b = corner_layout(ps.n1, ps.n2, i, j, p, p + (cut + off) * u,
+                                 device, seed=r)
+            x1[r, :, :3], x2[r, :, :3] = a[0, :, :3], b[0, :, :3]
+        return ps, tab, x1, x2, w1
+    ps, tab, x1, x2, w1 = spline_case(14, device=device,
+                                      steps=CULL_STEPS[layout])
+    if layout == "all_culled":
+        x1 = x1.clone()
+        x1[..., :3] += 1000.0
+    return ps, tab, x1, x2, w1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["none_culled", "all_culled", "mixed",
+                                    "at_cutoff"])
+def test_k4_bwd_cull_layouts(cuda, layout):
+    """K4's backward against its plain version (rel 1e-4), bitwise
+    repeatable, its cull decisions equal to `cull_tiles` (with the static
+    mask's empty tiles), and unmoved by NaN/Inf in the column cotangent and
+    row weights where no live pair reads them."""
+    from upside_md_torch.ops import tile_cull as tc
+    ps, tab, x1, x2, w1 = _k4_layout(layout, cuda)
+    ps.tile_alive[1, 2] = 0               # a tile the static mask empties
+    ps.mask[32:64, 64:96] = 0
+    ps.mask_words = tc.mask_words(ps.mask.cpu().numpy()).to(cuda)
+    B = x1.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g = torch.randn((B, ps.n2), generator=gen, device=cuda)
+    flags = torch.full((B,) + tuple(ps.tile_alive.shape), 7,
+                       dtype=torch.uint8, device=cuda)
+    bk = qs.colsum_bwd(ps, tab, x1, x2, w1, g, flags=flags)
+    assert all(torch.equal(a, b) for a, b in zip(
+        bk, qs.colsum_bwd(ps, tab, x1, x2, w1, g)))
+    _check_rows(bk, qs.colsum_bwd(ps, tab, x1, x2, w1, g, plain=True))
+    keep = qs.cull_tiles(ps, tab, x1, x2)
+    assert torch.equal((flags & tc.KEPT) != 0, keep)
+    assert not keep[:, 1, 2].any()
+    live = qs.live_pairs(ps, tab, x1, x2)
+    if layout == "none_culled":
+        assert keep.sum() == B * ps.tile_alive.sum()
+    elif layout == "all_culled":
+        assert not keep.any() and not live.any()
+        assert all(not a.any() for a in bk)
+    elif layout == "mixed":
+        assert not torch.equal(keep[0], keep[2])
+    gd, wd = g.clone(), w1.clone()
+    gd[~live.any(1)] = float("nan")
+    wd[~live.any(2)] = float("inf")
+    dirty = qs.colsum_bwd(ps, tab, x1, x2, wd, gd)
+    assert all(torch.isfinite(a).all() and torch.equal(a, b)
+               for a, b in zip(dirty, bk))
+
+
+@pytest.mark.requires_cuda
+def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
+    """With enough replicas that the row tiles alone fill the card, K3 and
+    K4's backward give each row tile one warp (four below that): both
+    against their plain versions at rel 1e-4, bitwise repeatable."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    prep, x = fused_case(15, True, 3.8, cuda, n_rep=1)
+    n_rep = -(-sms * 32 // -(-prep.n1 // 32)) + 1
+    x = tuple(t.repeat(n_rep, *([1] * (t.dim() - 1))) for t in x)
+    x1 = x[0].clone()
+    x1[..., :3] += 0.2 * torch.randn(x1[..., :3].shape, device=cuda,
+                                     generator=torch.Generator(
+                                         device=cuda).manual_seed(6))
+    x = (x1, x[1], x1[:, prep.r_p:].contiguous(), x[3])
+    fwd = fp.fused_pair_fwd(prep, *x, plain=True, want_planes=False)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g = [torch.randn(t.shape, generator=gen, device=cuda) for t in fwd[:3]]
+    bk = fp.fused_pair_bwd_recompute(prep, *x, *g)
+    assert all(torch.equal(a, b) for a, b in zip(
+        bk, fp.fused_pair_bwd_recompute(prep, *x, *g)))
+    _check_rows(bk, fp.fused_pair_bwd_recompute(prep, *x, *g, plain=True))
+
+    ps, tab, x1, x2, w1 = spline_case(16, n_rep=1, device=cuda)
+    n_rep = -(-sms * 32 // -(-ps.n1 // 32)) + 1
+    x1, x2, w1 = (t.repeat(n_rep, *([1] * (t.dim() - 1)))
+                  for t in (x1, x2, w1))
+    x1 = x1 + 0.2 * torch.randn(x1.shape, device=cuda, generator=gen) \
+        * torch.tensor([1.0, 1, 1, 0, 0, 0], device=cuda)
+    gc = torch.randn((n_rep, ps.n2), generator=gen, device=cuda)
+    kb = qs.colsum_bwd(ps, tab, x1, x2, w1, gc)
+    assert all(torch.equal(a, b) for a, b in zip(
+        kb, qs.colsum_bwd(ps, tab, x1, x2, w1, gc)))
+    _check_rows(kb, qs.colsum_bwd(ps, tab, x1, x2, w1, gc, plain=True))

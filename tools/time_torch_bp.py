@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""Times the two rotamer-BP kernels of the tree it is run in, K2
-(`bp_bethe_pairs_fwd`, ubiquitin) and K6 (`bp_bethe_planes_fwd`, RNase A),
-on one NVIDIA GPU: one wrapper call, warm-started from its own solution at
-the bundle's BP tolerance, at 64 and at 512 replicas (the 64-replica
-inputs tiled).  Prints one JSON object.  What it measures is chosen by
-flags (`--calls` when none is given):
+"""Times two redesigned hand-written kernels of the tree it is run in, on
+one NVIDIA GPU, and prints one JSON object.  Which two:
+
+* by default the rotamer-BP kernels, K2 (`bp_bethe_pairs_fwd`, ubiquitin)
+  and K6 (`bp_bethe_planes_fwd`, RNase A): one wrapper call, warm-started
+  from its own solution at the bundle's BP tolerance, at 64 and at 512
+  replicas (the 64-replica inputs tiled);
+* with `--spline-bwd` the row-tile pair-spline backwards, K3
+  (`fused_pair_bwd_recompute`, no-env ubiquitin) and K4's backward
+  (`colsum_bwd`, both coverage calls of an RNase A evaluation): one
+  wrapper call under a random cotangent, at SPLINE_REPLICAS replicas of
+  perturbed positions (64 to 512, across the replica counts where the
+  kernels change from four warps a row tile to one).
+
+What it measures is chosen by flags (`--calls` when none is given):
 
     --calls   for each kernel and replica count `ms`, the CUDA-event
               median of a call on an idle card (host side included), and
               from `torch.profiler` the device time of the call's
-              launches (`device_ms`), split by pass and by launch
-    --tight   the cold and warm sweep counts and final deviations of the
-              kernel and of the plain version at BP tol 1e-6 on four
+              launches (`device_ms`), split by launch (and for K2 and K6
+              by pass)
+    --tight   (BP) the cold and warm sweep counts and final deviations of
+              the kernel and of the plain version at BP tol 1e-6 on four
               replicas, and the deviation after 200 sweeps with the
               convergence test off: the floor float32 rounding leaves it
-    --md      MD steps/s at 64 and 512 replicas on both bundles
+    --share   (--spline-bwd, with --calls) each kernel's share of the
+              device time of an MD round on its bundle: its device ms per
+              call times its calls per evaluation, over the profiled
+              round's device time per evaluation, at 64 and 512 replicas
+    --md      MD steps/s at 64 and 512 replicas on both kernels' bundles
+    --train   (--spline-bwd) seconds per `fit_packed` step on no-env
+              ubiquitin, as chip_smoke.py's training phase runs it
 
 The timing functions are those of this file's own tree (`chip_smoke.py`
 beside `tools/`); the operands come from the `chip_smoke` and
 `upside_md_torch` of the current directory, through functions every
-version of the port has, so two trees can be compared on one card within
-one command:
+version of the port since K3 has, so two trees can be compared on one card
+within one command, in turns:
 
     (cd OLD_TREE && python3 NEW_TREE/tools/time_torch_bp.py) ; \\
     python3 tools/time_torch_bp.py ; python3 tools/time_torch_bp.py ; \\
@@ -37,6 +53,12 @@ sys.path.insert(0, os.getcwd())
 
 REPLICAS = (64, 512)
 TIGHT_TOL, TIGHT_REPLICAS, FLOOR_SWEEPS = 1e-6, 4, 200
+# K3 gives a row tile one warp from 176 replicas of no-env ubiquitin on
+# (24 row tiles a replica, 132 SMs x 32 warps), K4's backward from 352
+# (hydrophobe coverage, 12 row tiles) and 528 (hbond coverage, 8)
+SPLINE_REPLICAS = (64, 128, 256, 384, 512)
+ROUNDS = 5          # rounds of the profiled MD advance (--share)
+CALLS_PER_EVAL = {"fused_pair_bwd_recompute": 1, "colsum_bwd": 2}
 
 
 def own_smoke():
@@ -143,6 +165,101 @@ def time_kernels(cs, timing, flags, dev, out):
     torch.cuda.empty_cache()
 
 
+def time_k3(cs, timing, dev, gen, n):
+    """K3 at n replicas of perturbed no-env ubiquitin."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops.fused_pair import (fused_pair_bwd_recompute,
+                                                fused_pair_fwd)
+    path = os.path.join(DATA_DIR, cs.BUNDLE_NOENV)
+    base = torch.as_tensor(bundle.load(path)[1], device=dev)
+    system, _ = cs.load_system(path, dev, True)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(cs.perturbed(base, n, gen, dev))
+        o = cs.fused_operands(system, outs, gen, dev)
+        prep, x = o["prep"], o["x"]
+        g = [o["randn"](t)
+             for t in fused_pair_fwd(prep, *x, want_planes=False)[:3]]
+        rec = timing.time_launches(
+            "fused_pair_bwd_recompute",
+            lambda: fused_pair_bwd_recompute(prep, *x, *g), n)
+    return rec
+
+
+def time_k4(cs, timing, dev, gen, n):
+    """K4's backward, both coverage calls, at n replicas of perturbed
+    RNase A."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import quadspline as qs
+    path = os.path.join(DATA_DIR, cs.BUNDLE_UNFUSED)
+    base = torch.as_tensor(bundle.load(path)[1], device=dev)
+    system, _ = cs.load_system(path, dev, True)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(cs.perturbed(base, n, gen, dev))
+        covs, _ = cs.unfused_operands(system, outs)
+        calls = [(cps, cps.table(table), x1, x2, w1,
+                  torch.randn(x2[..., 0].shape, generator=gen, device=dev))
+                 for _, cps, table, x1, x2, w1 in covs]
+        rec = timing.time_launches(
+            "colsum_bwd", lambda: [qs.colsum_bwd(*c) for c in calls], n)
+    return rec
+
+
+def md_device_s_per_eval(cs, dev, bundle_name, n):
+    """Device time of one evaluation of an MD round (`torch.profiler` over
+    ROUNDS rounds after a 2-round warm-up), and the idle share."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.md.sim import Simulation
+    system, pos0 = cs.load_system(os.path.join(DATA_DIR, bundle_name), dev)
+    sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=3)
+    state = sim.advance(sim.initial_state(pos0, n, temperature=0.85), 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.advance(state, ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_s = sum(e.device_time for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA) * 1e-6
+    del sim, state, system
+    torch.cuda.empty_cache()
+    return dev_s / (3 * ROUNDS), 1.0 - dev_s / wall
+
+
+def time_spline_bwd(cs, timing, flags, dev, out):
+    """K3 and K4's backward at SPLINE_REPLICAS (`--calls`), and their
+    shares of an MD round's device time (`--share`), into `out`."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n in SPLINE_REPLICAS:
+        out["calls"][f"fused_pair_bwd_recompute@{n}"] = time_k3(
+            cs, timing, dev, gen, n)
+        out["calls"][f"colsum_bwd@{n}"] = time_k4(cs, timing, dev, gen, n)
+    if "--share" not in flags:
+        return
+    out["share"] = {}
+    for name, bundle_name in (("fused_pair_bwd_recompute", cs.BUNDLE_NOENV),
+                              ("colsum_bwd", cs.BUNDLE_UNFUSED)):
+        for n in REPLICAS:
+            per_eval, idle = md_device_s_per_eval(cs, dev, bundle_name, n)
+            call = out["calls"][f"{name}@{n}"]["device_ms"]
+            share = None if call is None else \
+                call * 1e-3 * CALLS_PER_EVAL[name] / per_eval
+            out["share"][f"{name}@{n}"] = {
+                "device_s_per_eval": per_eval, "idle_share": idle,
+                "share_of_device": share}
+            print(f"[share] {name} at {n} replicas: device time per "
+                  f"evaluation {per_eval * 1e3:.4f} ms (idle share "
+                  f"{idle:.3f}), the kernel's share {share}", flush=True)
+
+
 def main():
     import torch
     import chip_smoke as cs
@@ -150,20 +267,32 @@ def main():
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
         return 2
-    flags = sys.argv[1:] or ["--calls"]
+    spline = "--spline-bwd" in sys.argv[1:]
+    flags = [f for f in sys.argv[1:] if f != "--spline-bwd"] or ["--calls"]
     dev = torch.device("cuda", 0)
     out = {"tree": os.getcwd(), "card": cs.card_line(), "calls": {}}
-    if "--calls" in flags or "--tight" in flags:
+    if spline and "--calls" in flags:
+        time_spline_bwd(cs, own_smoke(), flags, dev, out)
+    elif not spline and ("--calls" in flags or "--tight" in flags):
         time_kernels(cs, own_smoke(), flags, dev, out)
     if "--md" in flags:
         out["md_steps_per_s"] = {}
         for label, name, names in (
-                ("ubiquitin", cs.BUNDLE, cs.FUSED_KERNELS),
+                ("no-env ubiquitin", cs.BUNDLE_NOENV, cs.NOENV_KERNELS)
+                if spline else ("ubiquitin", cs.BUNDLE, cs.FUSED_KERNELS),
                 ("RNase A", cs.BUNDLE_UNFUSED, cs.UNFUSED_KERNELS)):
             md, _ = cs.run_md(os.path.join(DATA_DIR, name), dev, label, names)
             out["md_steps_per_s"][label] = {
                 n: {"steps_per_s": r["steps_per_s"], "times_s": r["times_s"]}
                 for n, r in md.items()}
+    if spline and "--train" in flags:
+        from upside_md_torch.config import bundle
+        path = os.path.join(DATA_DIR, cs.BUNDLE_NOENV)
+        base = torch.as_tensor(bundle.load(path)[1], device=dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        train, _ = cs.run_train(path, dev, gen, base)
+        out["train"] = {k: train[k] for k in ("loss", "s_per_step",
+                                              "step_s")}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -35,7 +35,10 @@ Two backwards, as in the JAX package:
   :1132) keeps no planes: it recomputes each pair's spline terms from the
   coefficients.  It is the only backward of the block without its env
   band, and the memory-saving one with it (`FusedPairBlock(residuals=
-  False)`, the JAX package's UPSIDE_FUSED_RESID=0).
+  False)`, the JAX package's UPSIDE_FUSED_RESID=0).  Its kernel walks
+  each row tile's column tiles and skips those farther apart in a replica
+  than the row tile's cutoff (`ops/tile_cull.py`; `cull_tiles` gives its
+  decisions).
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
@@ -46,6 +49,7 @@ as the JAX package computes them in XLA outside any kernel.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,6 +57,9 @@ import torch
 
 from . import kernels
 from .sigmoid import compact_sigmoid
+from .tile_cull import (cutoff_sq, flags_buffer, mask_words, n_tiles,
+                        no_flags, pair_keep, row_tile_thresholds,
+                        tile_cull)
 
 # uniform cubic B-spline basis in powers of the in-interval fraction t:
 # value = sum_kk w_kk(t) C[i-1+kk] = sum_d t^d Q_d(i), Q_d = sum_kk
@@ -123,6 +130,28 @@ class FusedPrep:
         rows = torch.arange(self.n1, device=self.mask.device)
         return ((rows >= self.r_b).long() + (rows >= self.r_e).long()
                 + (rows >= self.r_p).long())
+
+    @property
+    def cut2(self):
+        """(coverage, pair) squared cutoffs in Angstrom with the cull's
+        margin (`tile_cull.cutoff_sq`): K3's per-pair candidate test."""
+        return (cutoff_sq(self.kcut_cov, self.inv_dx),
+                cutoff_sq(self.kcut_pair, self.inv_dx))
+
+    @functools.cached_property
+    def tile_thresholds(self):
+        """(n_rt,) float32 squared cull thresholds of K3's row tiles: the
+        larger band cutoff of each tile's rows, +inf for a tile with env
+        rows (no spline cutoff)."""
+        band = self.band_of_rows().cpu().numpy()
+        cov, pair = self.cut2
+        rows = np.where(band == 2, np.inf, np.where(band == 3, pair, cov))
+        return row_tile_thresholds(rows).to(self.mask.device)
+
+    @functools.cached_property
+    def mask_words(self):
+        """(n1, n_ct) int32 packed mask (`tile_cull.mask_words`): K3's."""
+        return mask_words(self.mask.cpu().numpy()).to(self.mask.device)
 
 
 def make_prep(tabs, type1, type2, masks, env_tab, device,
@@ -270,12 +299,16 @@ def fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes=True):
 
 
 def _bwd_plain(prep, x1, x2, wcol, fields, w1, planes, vcov, g_cov, g_grid,
-               g_env):
+               g_env, keep=None):
     """The backward of both plain versions, from the spline fields of the
-    pairs (geometry, live mask) and the derivative and value planes."""
+    pairs (geometry, live mask) and the derivative and value planes; with
+    `keep` (B, n_rt, n_ct) only the pairs of those tiles take part."""
     (u, dist, inv, cos1, cos2), live = fields[:2]
     band = prep.band_of_rows()
     B, n1, n2 = live.shape
+    kept = None if keep is None else pair_keep(keep, n1, n2)
+    if kept is not None:
+        live = live & kept
     n2_ = prep.n2
     g_raw = torch.zeros_like(dist)
     g_raw[:, :prep.r_b] = w1[:, :prep.r_b, None] * g_cov[:, 0:1, :]
@@ -312,6 +345,8 @@ def _bwd_plain(prep, x1, x2, wcol, fields, w1, planes, vcov, g_cov, g_grid,
     # env band: recomputed from geometry (no residual planes)
     x1e = x1[:, prep.r_e:prep.r_p]
     (ue, inve, cos1e), me, rad, drad, ang, dang = _env_fields(prep, x1e, x2)
+    if kept is not None:
+        me = me & kept[:, prep.r_e:prep.r_p]
     ze = torch.zeros_like(rad)
     ge = torch.where(me, g_env[:, :, None] * wcol[:, None, :], ze)
     rr = ge * drad * ang
@@ -339,12 +374,21 @@ def fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov, g_cov,
 
 
 def fused_pair_bwd_recompute_plain(prep, x1, w1, x2, wcol, g_cov, g_grid,
-                                   g_env):
+                                   g_env, keep=None):
     """Plain K3: the backward of `fused_pair_bwd_plain` with the planes
-    recomputed from the coefficients instead of read."""
+    recomputed from the coefficients instead of read.  `keep` (B, n_rt,
+    n_ct), e.g. `cull_tiles`, restricts it to those tiles' pairs; the
+    kernel's cull keeps every live pair, so restricted to its tiles the
+    result is the same, bit for bit."""
     fields = _spline_fields(prep, x1, x2)
     return _bwd_plain(prep, x1, x2, wcol, fields, w1, fields[3],
-                      fields[2][:, :prep.r_e], g_cov, g_grid, g_env)
+                      fields[2][:, :prep.r_e], g_cov, g_grid, g_env, keep)
+
+
+def cull_tiles(prep, x1, x2):
+    """(B, n_rt, n_ct) bool: the tiles K3 walks for row sites x1 and bead
+    columns x2 (`tile_cull` at the row tiles' thresholds)."""
+    return tile_cull(x1, x2, prep.tile_thresholds)
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +526,7 @@ def _shape(prep, B):
 
 
 def _bwd_parts(prep, B, device):
-    """Per-tile partials of the backwards and their sums."""
+    """Per-tile partials of K1's backward and their sums."""
     f32 = dict(dtype=torch.float32, device=device)
     n_rt = -(-prep.n1 // kernels.TILE_ROWS)
     n_ct = -(-prep.n2 // kernels.TILE_COLS)
@@ -543,10 +587,14 @@ def fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov, g_cov, g_grid,
 
 
 def fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov, g_grid, g_env,
-                             plain=False):
+                             plain=False, flags=None):
     """K3, the recomputing backward: plain on CPU tensors (or when asked),
-    CUDA kernel on CUDA tensors.  Same outputs as `fused_pair_bwd`."""
+    CUDA kernel on CUDA tensors.  Same outputs as `fused_pair_bwd`.  The
+    kernel makes its own cull and, given `flags` (B, n_rt, n_ct) uint8,
+    writes its decisions there (`tile_cull.KEPT`, `WRITTEN`); the plain
+    version has none and refuses `flags`."""
     if plain or not x1.is_cuda:
+        no_flags(flags)
         return fused_pair_bwd_recompute_plain(prep, x1, w1, x2, wcol, g_cov,
                                               g_grid, g_env)
     args = [t.contiguous() for t in (x1, w1, x2, wcol, g_cov, g_grid,
@@ -558,10 +606,16 @@ def fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov, g_grid, g_env,
             tuple(g_grid.shape) != (B, prep.n2p, prep.n2p) or \
             tuple(g_env.shape) != (B, prep.n_e):
         raise ValueError("fused_pair_bwd_recompute: cotangent shapes")
-    d1part, d2part, d1, d2 = _bwd_parts(prep, B, x1.device)
+    n_rt, n_ct = n_tiles(prep.n1), n_tiles(prep.n2)
+    flags = flags_buffer(flags, (B, n_rt, n_ct), x1.device)
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    d2part = torch.empty((B, n_rt, prep.n2, 8), **f32)
+    d1 = torch.empty((B, prep.n1, 8), **f32)
+    d2 = torch.empty((B, prep.n2, 8), **f32)
     kernels.launch("fused_pair_bwd_recompute", x1, w1, x2, wcol,
-                   *_statics(prep), g_cov, g_grid, g_env, *_shape(prep, B),
-                   d1part, d2part, d1, d2)
+                   prep.row_type, prep.col_type, prep.mask_words, prep.coef,
+                   prep.env_tab, g_cov, g_grid, g_env, prep.tile_thresholds,
+                   *_shape(prep, B), *prep.cut2, d2part, flags, d1, d2)
     return d1, d2
 
 

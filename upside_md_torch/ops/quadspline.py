@@ -26,7 +26,10 @@ w1[i] g[j] for K4 (:900-916).
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
-(csrc/quadspline.cu) for CUDA tensors.
+(csrc/quadspline.cu) for CUDA tensors.  K4's backward kernel walks each
+row tile's column tiles and skips those whose static mask is empty or that
+lie farther apart in a replica than the cutoff (`ops/tile_cull.py`;
+`cull_tiles` gives its decisions).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ import torch
 from . import kernels
 from .fused_pair import _geometry, poly_coefficients, table_cotangent
 from .pairs import quadspline_family
+from .tile_cull import (cutoff_sq, flags_buffer, mask_words, no_flags,
+                        pair_keep, tile_cull)
 
 
 @dataclass
@@ -62,7 +67,8 @@ class SplineTable:
 
 class PairSpline:
     """Static operands of one call site (row types, column types, the
-    (n1, n2) interaction mask and its per-tile liveness), and the memo of
+    (n1, n2) interaction mask, packed as K4's backward reads it, and its
+    per-tile liveness), and the memo of
     its table's coefficients, rebuilt only when the table tensor changes
     (as System.fused_prepared is)."""
 
@@ -79,6 +85,7 @@ class PairSpline:
         self.mask = torch.as_tensor(mask.astype(np.uint8), device=device)
         self.tile_alive = torch.as_tensor(alive.astype(np.uint8),
                                           device=device)
+        self.mask_words = mask_words(mask).to(device)
         self._memo = None
 
     def table(self, table):
@@ -163,11 +170,14 @@ def colsum_fwd_plain(ps, tab, x1, x2, w1):
     return (w1[:, :, None] * quadspline_fwd_plain(ps, tab, x1, x2)).sum(1)
 
 
-def _backward(ps, tab, x1, x2, g_pair, g_col=None):
+def _backward(ps, tab, x1, x2, g_pair, g_col=None, keep=None):
     """d1 (B, n1, 8), d2 (B, n2, 8) from the pair cotangent g_pair
-    (B, n1, n2); with g_col (B, n2) (K4) also d/dw1 = sum_j g_col value."""
+    (B, n1, n2); with g_col (B, n2) (K4) also d/dw1 = sum_j g_col value.
+    With `keep` (B, n_rt, n_ct) only the pairs of those tiles take part."""
     (u, dist, inv, cos1, cos2), live, a1, a2, wide, nar = _terms(
         ps, tab, x1, x2)
+    if keep is not None:
+        live = live & pair_keep(keep, ps.n1, ps.n2)
     inv_dth = (tab.ka - 3) / 2.0
     zero = torch.zeros_like(dist)
     g = torch.where(live, g_pair, zero)
@@ -198,10 +208,23 @@ def quadspline_bwd_plain(ps, tab, x1, x2, g):
     return _backward(ps, tab, x1, x2, g)
 
 
-def colsum_bwd_plain(ps, tab, x1, x2, w1, g):
+def colsum_bwd_plain(ps, tab, x1, x2, w1, g, keep=None):
     """Plain K4 backward from the (B, n2) cotangent: the pair cotangent is
-    w1[i] g[j]."""
-    return _backward(ps, tab, x1, x2, w1[:, :, None] * g[:, None, :], g)
+    w1[i] g[j].  `keep` (B, n_rt, n_ct), e.g. `cull_tiles`, restricts it to
+    those tiles' pairs; the kernel's cull keeps every live pair, so
+    restricted to its tiles the result is the same, bit for bit."""
+    return _backward(ps, tab, x1, x2, w1[:, :, None] * g[:, None, :], g,
+                     keep)
+
+
+def cull_tiles(ps, tab, x1, x2):
+    """(B, n_rt, n_ct) bool: the tiles K4's backward walks for row sites
+    x1 and columns x2: static mask alive and the boxes within the cutoff
+    (`tile_cull` at `cutoff_sq` of the table's family)."""
+    n_rt = ps.tile_alive.shape[0]
+    thr = torch.full((n_rt,), cutoff_sq(tab.kcut, tab.inv_dx),
+                     dtype=torch.float32)
+    return tile_cull(x1, x2, thr, ps.tile_alive)
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +260,8 @@ def _family(ps, tab, B):
 
 
 def _parts(ps, B, x):
-    """Per-tile partial buffers (n_ct, B, n1, 8) and (n_rt, B, n2, 8)."""
+    """K5 backward's per-tile partial buffers (n_ct, B, n1, 8) and (n_rt,
+    B, n2, 8), and its outputs."""
     f32 = dict(dtype=torch.float32, device=x.device)
     n_rt, n_ct = ps.tile_alive.shape
     return (torch.empty((n_ct, B, ps.n1, 8), **f32),
@@ -287,16 +311,26 @@ def colsum_fwd(ps, tab, x1, x2, w1, plain=False):
     return out
 
 
-def colsum_bwd(ps, tab, x1, x2, w1, g, plain=False):
-    """K4 backward: (d1 (B, n1, 8) with d/dw1 in column 6, d2 (B, n2, 8))."""
+def colsum_bwd(ps, tab, x1, x2, w1, g, plain=False, flags=None):
+    """K4 backward: (d1 (B, n1, 8) with d/dw1 in column 6, d2 (B, n2, 8)).
+    The kernel makes its own cull and, given `flags` (B, n_rt, n_ct)
+    uint8, writes its decisions there (`tile_cull.KEPT`, `WRITTEN`); the
+    plain version has none and refuses `flags`."""
     if plain or not x1.is_cuda:
+        no_flags(flags)
         return colsum_bwd_plain(ps, tab, x1, x2, w1, g)
     B, (x1, x2, w1, g) = _operands(ps, tab, x1, x2, w1, g)
     if tuple(w1.shape) != (B, ps.n1) or tuple(g.shape) != (B, ps.n2):
         raise ValueError("colsum_bwd: weight or cotangent shape")
-    d1part, d2part, d1, d2 = _parts(ps, B, x1)
-    kernels.launch("colsum_bwd", x1, x2, w1, g, *_static(ps, tab),
-                   *_family(ps, tab, B), d1part, d2part, d1, d2)
+    n_rt, n_ct = ps.tile_alive.shape
+    flags = flags_buffer(flags, (B, n_rt, n_ct), x1.device)
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    d2part = torch.empty((B, n_rt, ps.n2, 8), **f32)
+    d1 = torch.empty((B, ps.n1, 8), **f32)
+    d2 = torch.empty((B, ps.n2, 8), **f32)
+    kernels.launch("colsum_bwd", x1, x2, w1, g, ps.t1, ps.t2, ps.mask_words,
+                   ps.tile_alive, tab.coef, *_family(ps, tab, B),
+                   cutoff_sq(tab.kcut, tab.inv_dx), d2part, flags, d1, d2)
     return d1, d2
 
 
