@@ -5,7 +5,7 @@ Drives the port's paths through the hand-written Hopper kernels, and
 checks them:
 
 * the fused path: full-force-field MD of 76-residue ubiquitin (374 beads;
-  kernels K1 fwd, K1 bwd, K2);
+  kernels K1 fwd, K1 bwd from K1 fwd's compact residual, K2);
 * the unfused path of more than 512 beads: 124-residue RNase A (543 beads;
   K4 fwd/bwd for both coverage nodes, K5 fwd/bwd for the rotamer grid, K6
   for residue-plane BP);
@@ -37,12 +37,18 @@ the bundle's seed.  Phases:
    2, mixed batches whose replicas stop after different sweep counts, one
    without any edge; sweep counts equal at their tol 1e-4, values also at
    1e-6), and the whole evaluation's
-   energy and force RMS against `kernels=False` (rel < 1e-3); K3 at both
-   band layouts (bitwise repeatable, and unmoved by NaN/Inf in dead slots
-   of the grid cotangent), and `param_deriv` of the rotamer, both
-   coverage and (env bundle) environment tables against `kernels=False`
-   (rel < 1e-3); the tile decisions of K3's and K4's backward cull equal
-   to their plain `cull_tiles`, bit for bit;
+   energy and force RMS against `kernels=False` (rel < 1e-3); K1's
+   compact residual (counts and codes equal to `pack_residuals` of the
+   plain forward, values rel 1e-5), its backward from that residual
+   against the plain one from the dense planes, the block's round trip
+   (outputs and input gradients through autograd), both K1 kernels
+   bitwise repeatable and the backward unmoved by NaN/Inf in dead slots;
+   K3 at both band layouts (bitwise repeatable, and unmoved by NaN/Inf in
+   dead slots of the grid cotangent), and `param_deriv` of the rotamer,
+   both coverage and (env bundle) environment tables against
+   `kernels=False` (rel < 1e-3); the tile decisions of K1's forward, K3's
+   and K4's backward cull equal to their plain `cull_tiles`, bit for
+   bit;
 4. times each kernel and its plain version with CUDA events around one
    wrapper call on an idle card (median; `ms`, host side included) at 64
    replicas, and sums the device time of the call's kernels and memsets
@@ -50,21 +56,28 @@ the bundle's seed.  Phases:
    larger of the bytes it must move over the card's memory rate and the
    operations this run's data needs over the card's float32 rate (H100
    SXM data sheet), both counted over the pairs and edges this run's data
-   needs (for K3 and K4's backward only the pairs inside the cutoff and
-   the packed mask the kernels read; the bound as PRs 1-4 counted it,
-   with the geometry of every masked pair, is printed beside it and kept
-   as `bound_table_ms` in the kernel table).  The BP kernels (K2, K6) are also timed at two fixed sweep
+   needs (for K1, K3 and K4's backward only the pairs inside the cutoff,
+   the packed mask the kernels read and, for K1, the dense E_pair grid
+   written once and the compact residual of the live pairs; the bound as
+   counted before, with the geometry of every masked pair and for K1 the
+   dense residual planes, is printed beside it and kept as
+   `bound_table_ms` in the kernel table).  The BP kernels (K2, K6) are also timed at two fixed sweep
    counts with the convergence test off: the slope is the time of one
    dependent sweep, and that times the most sweeps a replica of the timed
    run took is their latency floor; and at 64 and 512 replicas (the
    64-replica inputs tiled), where the profiler's records of one call are
    split by pass: the launches before the solve (prologue), the solve
-   with the Bethe edge pass, and the launches after (epilogue).  K3 and
-   K4's backward (the row-tile kernels with the per-replica cull) are
-   timed at 64 and 512 replicas too, their device time split by launch,
-   beside their bounds, with a `[cull]` line each: tiles walked out of
-   all tiles and live pairs out of masked pairs, the kernel's decisions
-   held to `cull_tiles` again;
+   with the Bethe edge pass, and the launches after (epilogue).  K1's
+   forward and backward, K3 and K4's backward (the row-tile kernels with
+   the per-replica cull, and K1's backward over the forward's residual)
+   are timed at 64 and 512 replicas too, their device time split by
+   launch, beside their bounds, with a `[cull]` line each: tiles walked
+   out of all tiles and live pairs out of masked pairs, the kernel's
+   decisions held to `cull_tiles` again (K1: and its residual to
+   `pack_residuals`, both kernels against the plain versions on the first
+   replicas); a `[resid]` line gives the bytes of K1's residual a replica
+   against the dense planes', and K3 with the env band (the backward of
+   `System(residuals=False)`) is timed beside K1's backward;
 5. MD: `Simulation.advance` at 64 and 512 replicas on each path after a
    warm-up, the launch counts set to 0 just before each path and read just
    after; positions must stay finite and each path's kernels must have
@@ -279,9 +292,10 @@ def spline_ops(ps, tab, x1, x2, per_live):
 
 
 def as_before(b):
-    """', as PRs 1-4 counted it x ms (by)' for a bound that changed."""
+    """', as counted before x ms (by)' for a bound that changed: with the
+    geometry of every masked pair and, for K1, the dense residual planes."""
     return "" if b is None else \
-        f", as PRs 1-4 counted it {b[0]:.4f} ms ({b[1]})"
+        f", as counted before {b[0]:.4f} ms ({b[1]})"
 
 
 def bp_ops(adj, iters):
@@ -519,16 +533,11 @@ def compare_param_deriv(path, dev, pos, label, nodes):
 
 def fused_live(prep, x1, x2):
     """(n1, n2) pairs of the spline bands' mask and (B, n1, n2) those also
-    inside their band's cutoff: the pairs the fused kernels evaluate."""
-    import torch
-    with torch.no_grad():
-        d2 = sum((x2[:, None, :, a] - x1[:, :, None, a]) ** 2
-                 for a in range(3)) + 1e-12
-        s = d2 * torch.rsqrt(d2) * prep.inv_dx
-        band = prep.band_of_rows()
-        kcut = torch.where(band == 3, prep.kcut_pair, prep.kcut_cov)
-        spline = prep.mask.bool() & (band != 2)[:, None]
-        return spline, spline & (s < kcut[:, None])
+    inside their band's cutoff (`live_pairs`, the kernels' exact test):
+    the pairs the fused kernels evaluate."""
+    from upside_md_torch.ops.fused_pair import live_pairs
+    spline = prep.mask.bool() & (prep.band_of_rows() != 2)[:, None]
+    return spline, live_pairs(prep, x1, x2)
 
 
 def fused_pairs(prep, x1, x2):
@@ -542,8 +551,8 @@ def fused_pairs(prep, x1, x2):
 def check_cull(label, flags, keep, live, masked):
     """The row-tile kernel's tile decisions (`flags`, as it wrote them)
     against `keep`, its plain `cull_tiles`, bit for bit; logs the `[cull]`
-    line (tiles walked, tiles that held a candidate pair and so wrote
-    column partials, live pairs out of masked ones)."""
+    line (tiles walked, tiles whose column partials the kernel wrote, live
+    pairs out of masked ones)."""
     import torch
     from upside_md_torch.ops.tile_cull import KEPT, WRITTEN
     kept = (flags & KEPT) != 0
@@ -558,7 +567,7 @@ def check_cull(label, flags, keep, live, masked):
            "written": int(written.sum()), "masked_pairs": masked,
            "live_pairs": live}
     log(f"[cull] {label}: tiles walked {rec['kept']} of {rec['tiles']} "
-        f"({rec['kept'] / rec['tiles']:.3f}), with a candidate pair "
+        f"({rec['kept'] / rec['tiles']:.3f}), column partials written "
         f"{rec['written']}; live pairs {live} of {masked} masked "
         f"({live / max(masked, 1):.4f}); equal to cull_tiles")
     return rec
@@ -611,10 +620,104 @@ def fused_operands(system, outs, gen, dev):
                                             device=dev))
 
 
+def check_residual(label, prep, x, packed, planes, vcov):
+    """K1 forward's compact residual against `pack_residuals` of the plain
+    forward's dense planes at the same sites: counts and codes equal,
+    values rel 1e-5.  Returns the max abs err of the values."""
+    import torch
+    from upside_md_torch.ops.fused_pair import pack_residuals, residual_slots
+    want = pack_residuals(prep, x[0], x[2], planes, vcov)
+    valid = residual_slots(want.counts)
+    if not torch.equal(packed.counts, want.counts):
+        raise AssertionError(f"{label}: residual counts differ from "
+                             "pack_residuals in "
+                             f"{int((packed.counts != want.counts).sum())} "
+                             "tiles")
+    if not torch.equal(packed.codes[valid], want.codes[valid]):
+        raise AssertionError(f"{label}: residual codes differ from "
+                             "pack_residuals")
+    err = compare([f"{label} residual values"], [packed.vals[valid]],
+                  [want.vals[valid]], 1e-5)
+    log(f"  {label}: residual counts and codes equal pack_residuals "
+        f"({int(want.counts.sum())} live pairs)")
+    return err
+
+
+def residual_bytes(prep, packed):
+    """(bytes of the live pairs' residual, of its allocation, of the dense
+    planes and vcov it stands for), per replica."""
+    B = packed.counts.shape[0]
+    live = int(packed.counts.sum())
+    used = nbytes(packed.counts) + live * (packed.codes.element_size()
+                                          + 4 * packed.vals.element_size())
+    dense = (3 * prep.n1 + prep.r_e) * prep.n2 * 4
+    return used / B, nbytes(*packed) / B, dense
+
+
+def compare_k1(label, prep, x, randn, first=None):
+    """K1's forward and backward kernels against their plain versions on
+    the replicas `first` (all: None): cov, E_pair, env rel 1e-5, the
+    compact residual (`check_residual`), the cull's decisions equal to
+    `cull_tiles` (a `[cull]` line), the backward from the kernel's
+    residual rel 1e-4 against the plain one from the dense planes, both
+    bitwise repeatable twice over, and the backward unmoved by NaN/Inf in
+    the dead slots of the grid cotangent and in the coverage cotangents of
+    columns no live coverage pair reads.  Returns (max abs err forward,
+    backward, the cull record, the kernel's forward, the cotangents)."""
+    import torch
+    from upside_md_torch.ops.fused_pair import (cull_tiles, fused_pair_bwd,
+                                                fused_pair_fwd)
+    n = x[0].shape[0]
+    sl = slice(None) if first is None else slice(0, first)
+    tag = f"K1 {label}, {n} replicas" + ("" if first is None else
+                                         f", the first {first}")
+    keep = cull_tiles(prep, x[0], x[2])
+    flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=keep.device)
+    fk = fused_pair_fwd(prep, *x, flags=flags)
+    for _ in range(2):
+        again = fused_pair_fwd(prep, *x)
+        repeatable(f"{tag} fwd", fk[:3] + (fk[3].counts,),
+                   again[:3] + (again[3].counts,))
+    spline, lv = fused_live(prep, x[0], x[2])
+    pairs = (int(spline.sum()) * n, int(lv.sum()), int(lv[:, prep.r_p:].sum()))
+    rec = check_cull(f"{tag} fwd", flags, keep, pairs[1], pairs[0])
+    rec["live_grid_pairs"] = pairs[2]
+    xf = [t[sl] for t in x]
+    fp_ = fused_pair_fwd(prep, *xf, plain=True)
+    torch.cuda.synchronize()
+    err_f = compare([f"{tag} fwd {nm}" for nm in ("cov", "E_pair", "env")],
+                    [t[sl] for t in fk[:3]], fp_[:3], 1e-5)
+    err_f = max(err_f, check_residual(f"{tag} fwd", prep, xf,
+                                      type(fk[3])(*(t[sl] for t in fk[3])),
+                                      *fp_[3]))
+    g = [randn(t) for t in fk[:3]]
+    bk = fused_pair_bwd(prep, *x, fk[3], *g)
+    for _ in range(2):
+        repeatable(f"{tag} bwd", bk, fused_pair_bwd(prep, *x, fk[3], *g))
+    bp = fused_pair_bwd(prep, *xf, fp_[3], *(t[sl] for t in g), plain=True)
+    torch.cuda.synchronize()
+    err_b = compare([f"{tag} bwd d1", f"{tag} bwd d2"],
+                    [t[sl] for t in bk], bp, 1e-4)
+    g_cov, g_grid = g[0].clone(), g[1].clone()
+    g_grid[:, prep.n2:] = float("nan")
+    g_grid[:, :, prep.n2:] = float("inf")
+    g_grid[:, :prep.n2, :prep.n2][~lv[:, prep.r_p:]] = float("nan")
+    for band, (lo, hi) in enumerate(((0, prep.r_b), (prep.r_b, prep.r_e))):
+        g_cov[:, band][~lv[:, lo:hi].any(1)] = float("nan")
+    dirty = fused_pair_bwd(prep, *x, fk[3], g_cov, g_grid, g[2])
+    if not all(torch.isfinite(a).all() and a.equal(b)
+               for a, b in zip(dirty, bk)):
+        raise AssertionError(f"{tag}: non-finite cotangents in dead slots "
+                             "moved K1's backward")
+    log(f"  {tag}: bitwise repeatable; NaN/Inf in dead grid and coverage "
+        "slots leave the backward unchanged")
+    return err_f, err_b, rec, fk, g
+
+
 def compare_fused(dev, gen, base, path):
     import torch
     from upside_md_torch.ops.bp_pairs import scatter_pairs
-    from upside_md_torch.ops.fused_pair import fused_pair_bwd, fused_pair_fwd
+    from upside_md_torch.ops.fused_pair import fused_pair_block, fused_pair_fwd
     sys_k, _ = load_system(path, dev, True, tol=1e-6)
     sys_p, _ = load_system(path, dev, False, tol=1e-6)
     pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
@@ -626,26 +729,31 @@ def compare_fused(dev, gen, base, path):
         f"{prep.r_e - prep.r_b}, env {prep.n_e}, beads {prep.n2}) x "
         f"{prep.n2} columns, {COMPARE_REPLICAS} replicas")
     errs = {}
-    fk = fused_pair_fwd(prep, *x)
-    fp = fused_pair_fwd(prep, *x, plain=True)
+    errs["fused_pair_fwd"], errs["fused_pair_bwd"], _, _, _ = compare_k1(
+        "ubiquitin", prep, x, o["randn"])
+    # the block's round trip: outputs and input gradients, kernels
+    # against the plain version
+    trip = []
+    for plain in (False, True):
+        xs = [t.detach().clone().requires_grad_(True) for t in x]
+        out = fused_pair_block(prep, *xs, plain=plain)
+        if not trip:
+            gb = [o["randn"](t) for t in out]
+        sum((a * b).sum() for a, b in zip(out, gb)).backward()
+        trip.append([t.detach() for t in out] + [t.grad for t in xs])
     torch.cuda.synchronize()
-    errs["fused_pair_fwd"] = compare(
-        [f"K1 fwd {n}" for n in ("cov", "E_pair", "env", "planes", "vcov")],
-        fk, fp, 1e-5)
-    g = [o["randn"](t) for t in fp[:3]]
-    bk = fused_pair_bwd(prep, *x, fk[3], fk[4], *g)
-    bp = fused_pair_bwd(prep, *x, fp[3], fp[4], *g, plain=True)
-    torch.cuda.synchronize()
-    errs["fused_pair_bwd"] = compare(["K1 bwd d1", "K1 bwd d2"], bk, bp,
-                                     1e-4)
-    errs["fused_pair_bwd_recompute"] = compare_k3("env band", prep, x, fp,
+    compare([f"K1 block round trip {nm}" for nm in (
+        "cov", "E_pair", "env", "d x1", "d w1", "d x2", "d wcol")],
+        trip[0], trip[1], 1e-4)
+    fp_ = fused_pair_fwd(prep, *x, plain=True)
+    errs["fused_pair_bwd_recompute"] = compare_k3("env band", prep, x, fp_,
                                                   o["randn"])
     errs["param_deriv"] = compare_param_deriv(
         path, dev, pos, "ubiquitin", ("rotamer", "hbond_coverage",
                                       "hbond_coverage_hydrophobe",
                                       "environment_coverage"))
 
-    st, E1, E_pair = o["st"], o["E1"], fp[1]
+    st, E1, E_pair = o["st"], o["E1"], fp_[1]
     eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
     adj = (scatter_pairs(st, E_pair) != 0).any(-1).any(-1) & ~eye
     errs["bp_bethe_pairs"], counts = check_k2("K2", st, E1, E_pair, adj)
@@ -654,12 +762,48 @@ def compare_fused(dev, gen, base, path):
     return errs, whole, layout
 
 
+def k1_bounds(prep, x, fk, g, d, live, live_grid, env_pairs):
+    """K1's bounds, forward and backward, from this run's data: the live
+    pairs' work and the env pairs', each input read once (the packed mask
+    words, the compact residual of the live pairs, the grid cotangent only
+    where a live pair reads it) and each output written once (the dense
+    E_pair grid once); and as they were counted before, kept to compare
+    with: the geometry and spline terms of every spline pair, the dense
+    uint8 mask and the dense residual planes."""
+    B = x[0].shape[0]
+    res = nbytes(fk[3].counts) + live * (
+        fk[3].codes.element_size() + 4 * fk[3].vals.element_size())
+    dense = B * (3 * prep.n1 + prep.r_e) * prep.n2 * 4
+    common = nbytes(*x, prep.row_type, prep.col_type, prep.env_tab)
+    fwd_out = nbytes(*fk[:3])
+    bwd_io = nbytes(g[0], g[2], *d)
+    spline_pairs_ = B * (prep.n1 - prep.n_e) * prep.n2
+    return {
+        "fused_pair_fwd": (
+            bound(common + nbytes(prep.mask_words, prep.coef,
+                                  prep.tile_thresholds) + fwd_out + res,
+                  live * OPS_PLANES + env_pairs * OPS_ENV_FWD),
+            bound(common + nbytes(prep.mask, prep.coef) + fwd_out + dense,
+                  spline_pairs_ * OPS_PLANES + env_pairs * OPS_ENV_FWD)),
+        "fused_pair_bwd": (
+            bound(common + nbytes(prep.mask_words) + res + bwd_io
+                  + live_grid * g[1].element_size(),
+                  live * OPS_PLANE_BWD + env_pairs * OPS_ENV_BWD),
+            bound(common + nbytes(prep.mask, g[1]) + dense + bwd_io,
+                  spline_pairs_ * OPS_PLANE_BWD + env_pairs * OPS_ENV_BWD)),
+    }
+
+
+def env_pair_count(prep, x):
+    """Masked env pairs over the replicas of x."""
+    return int(prep.mask[prep.r_e:prep.r_p].sum()) * x[0].shape[0]
+
+
 def time_fused(dev, gen, base, path):
     import torch
     from upside_md_torch.ops.bp_pairs import (bp_bethe_pairs_fwd,
                                               scatter_pairs)
-    from upside_md_torch.ops.fused_pair import (_env_fields, fused_pair_bwd,
-                                                fused_pair_fwd)
+    from upside_md_torch.ops.fused_pair import fused_pair_bwd, fused_pair_fwd
     system, _ = load_system(path, dev, True)
     sys_p, _ = load_system(path, dev, False)
     n_t = TIME_REPLICAS
@@ -669,6 +813,7 @@ def time_fused(dev, gen, base, path):
     o = fused_operands(system, outs, gen, dev)
     prep, x, st, E1 = o["prep"], o["x"], o["st"], o["E1"]
     fk = fused_pair_fwd(prep, *x)
+    fpl = fused_pair_fwd(prep, *x, plain=True)
     g = [o["randn"](t) for t in fk[:3]]
     cold = bp_bethe_pairs_fwd(st, E1, fk[1])
     warm = (cold[3], cold[4])
@@ -677,29 +822,20 @@ def time_fused(dev, gen, base, path):
         lambda: fused_pair_fwd(prep, *x),
         lambda: fused_pair_fwd(prep, *x, plain=True))
     res["fused_pair_bwd"] = timed(
-        lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g),
-        lambda: fused_pair_bwd(prep, *x, fk[3], fk[4], *g, plain=True))
+        lambda: fused_pair_bwd(prep, *x, fk[3], *g),
+        lambda: fused_pair_bwd(prep, *x, fpl[3], *g, plain=True))
+    del fpl
     out_bp = bp_bethe_pairs_fwd(st, E1, fk[1], warm)
     res["bp_bethe_pairs"] = timed(
         lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm),
         lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm, plain=True))
 
     # bounds from this run's inputs
-    statics = (prep.row_type, prep.col_type, prep.mask, prep.coef,
-               prep.env_tab)
-    with torch.no_grad():
-        me = _env_fields(prep, x[0][:, prep.r_e:prep.r_p], x[2])[1]
-    env_pairs = int(me.sum()) * n_t
-    spline_pairs_ = n_t * (prep.n1 - prep.n_e) * prep.n2
-    bounds = {
-        "fused_pair_fwd": bound(
-            nbytes(*x, *statics, *fk),
-            spline_pairs_ * OPS_PLANES + env_pairs * OPS_ENV_FWD),
-        "fused_pair_bwd": bound(
-            nbytes(*x, *statics, fk[3], fk[4], *g,
-                   *fused_pair_bwd(prep, *x, fk[3], fk[4], *g)),
-            spline_pairs_ * OPS_PLANE_BWD + env_pairs * OPS_ENV_BWD),
-    }
+    _, live, live_grid = fused_pairs(prep, x[0], x[2])
+    kb = k1_bounds(prep, x, fk, g, fused_pair_bwd(prep, *x, fk[3], *g), live,
+                   live_grid, env_pair_count(prep, x))
+    bounds = {nm: b[0] for nm, b in kb.items()}
+    before = {nm: b[1] for nm, b in kb.items()}
     eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
     adj = (scatter_pairs(st, fk[1]) != 0).any(-1).any(-1) & ~eye
     # K2 finds the adjacency in the bead grid, so it reads every pair of
@@ -718,9 +854,67 @@ def time_fused(dev, gen, base, path):
         passes[n] = time_bp_passes(
             "bp_bethe_pairs", lambda: bp_bethe_pairs_fwd(st, e1, ep, w), n)
         del e1, ep, w
-    del system, sys_p, outs, fk
+    del sys_p, outs, fk, o, x, g
     torch.cuda.empty_cache()
-    return res, bounds, lat, {"bp_bethe_pairs": passes}
+    rows = {}
+    for n in ROW_TILE_REPLICAS:
+        rows[n] = row_tile_k1(system, base, n, gen, dev)
+    del system
+    torch.cuda.empty_cache()
+    return res, bounds, before, lat, {"bp_bethe_pairs": passes}, \
+        {"fused_pair_fwd": {n: r["fwd"] for n, r in rows.items()},
+         "fused_pair_bwd": {n: r["bwd"] for n, r in rows.items()},
+         "fused_pair_bwd_recompute (env band)": {
+             n: r["k3_env"] for n, r in rows.items()}}
+
+
+def row_tile_k1(system, base, n, gen, dev):
+    """K1's forward and backward at n replicas of perturbed ubiquitin (the
+    operands from the kernels' own evaluation): `compare_k1` on the first
+    COMPARE_REPLICAS (the kernel's cull and residual of all n; at 512
+    replicas the kernels give a row tile one warp, at 64 four), each
+    call's time split by launch, the residual's bytes, the bounds; and K3
+    with the env band, the backward of `System(residuals=False)`, timed on
+    the same cotangents."""
+    import torch
+    from upside_md_torch.ops.fused_pair import (fused_pair_bwd,
+                                                fused_pair_bwd_recompute,
+                                                fused_pair_fwd)
+    pos = perturbed(base, n, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(pos)
+        o = fused_operands(system, outs, gen, dev)
+        prep, x = o["prep"], o["x"]
+        err_f, err_b, cull, fk, g = compare_k1("ubiquitin", prep, x,
+                                               o["randn"], COMPARE_REPLICAS)
+        used, alloc, dense = residual_bytes(prep, fk[3])
+        log(f"[resid] K1 ubiquitin at {n} replicas: the live pairs' residual "
+            f"{used / 1e6:.4f} MB a replica against the dense planes' "
+            f"{dense / 1e6:.4f} MB; allocated {alloc / 1e6:.4f} MB a replica, "
+            f"{alloc * n / 1e9:.3f} GB in all (the planes: "
+            f"{dense * n / 1e9:.3f} GB)")
+        rec = {"fwd": time_launches("fused_pair_fwd (K1 fwd)",
+                                    lambda: fused_pair_fwd(prep, *x), n),
+               "bwd": time_launches(
+                   "fused_pair_bwd (K1 bwd)",
+                   lambda: fused_pair_bwd(prep, *x, fk[3], *g), n),
+               "k3_env": time_launches(
+                   "fused_pair_bwd_recompute (K3, env band)",
+                   lambda: fused_pair_bwd_recompute(prep, *x, *g), n)}
+        kb = k1_bounds(prep, x, fk, g, fused_pair_bwd(prep, *x, fk[3], *g),
+                       cull["live_pairs"], cull["live_grid_pairs"],
+                       env_pair_count(prep, x))
+        for key, nm in (("fwd", "fused_pair_fwd"), ("bwd", "fused_pair_bwd")):
+            rec[key].update(bound_ms=kb[nm][0], bound_table_ms=kb[nm][1],
+                            max_abs_err=err_f if key == "fwd" else err_b,
+                            resid_bytes_per_replica=used,
+                            resid_alloc_bytes_per_replica=alloc,
+                            dense_bytes_per_replica=dense)
+            log_bounds(f"K1 {key}", n, rec[key])
+        rec["fwd"]["cull"] = cull
+    del outs, o, x, g, fk
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -749,7 +943,7 @@ def compare_noenv(dev, gen, base, path):
                fused_pair_fwd(prep, *x, want_planes=False)[:3])
     fpl = fused_pair_fwd(prep, *x, plain=True, want_planes=False)
     torch.cuda.synchronize()
-    if fk[3] is not None or fk[4] is not None or fk[2].numel():
+    if fk[3] is not None or fk[2].numel():
         raise AssertionError("K1 fwd without planes or env band wrote them")
     errs = {"fused_pair_fwd": compare(
         ["K1 fwd (no planes) cov", "K1 fwd (no planes) E_pair"], fk[:2],
@@ -1146,8 +1340,8 @@ def k4_bwd_bounds(calls, outs, pairs):
 
 def log_bounds(label, n, rec):
     log(f"[time] {label} at {n} replicas: bound of the live pairs "
-        f"{rec['bound_ms'][0]:.4f} ms ({rec['bound_ms'][1]}), as PRs 1-4 "
-        f"counted it {rec['bound_table_ms'][0]:.4f} ms "
+        f"{rec['bound_ms'][0]:.4f} ms ({rec['bound_ms'][1]}), as counted "
+        f"before {rec['bound_table_ms'][0]:.4f} ms "
         f"({rec['bound_table_ms'][1]})")
 
 
@@ -1412,10 +1606,13 @@ def main():
 
     # ---- 4. timing, kernel vs plain, at 64 replicas with the config's BP
     # tolerance and a warm start, as in MD
-    ms, bounds, lat, passes = time_fused(dev, gen, base_f, fused_path)
-    ms_u, bounds_u, before, lat_u, passes_u, rows = time_unfused(
+    ms, bounds, before, lat, passes, rows = time_fused(dev, gen, base_f,
+                                                       fused_path)
+    ms_u, bounds_u, before_u, lat_u, passes_u, rows_u = time_unfused(
         dev, gen, base_u, unfused_path)
     passes.update(passes_u)
+    before.update(before_u)
+    rows.update(rows_u)
     ms_n, bounds_n, before_n, rows_n = time_noenv(dev, gen, base_n,
                                                   noenv_path)
     before.update(before_n)

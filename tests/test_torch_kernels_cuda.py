@@ -10,18 +10,20 @@ runs on the GPU machine too, without the JAX conftest:
 Problems are seeded numpy, float32, several replicas that differ, and span
 several 32x32 tiles with ragged edges so the per-tile partial sums are
 exercised.  Tolerances: K1, K4 and K5 forward rel 1e-5 and backward (K3
-too) rel 1e-4 (f32, two summation orders); K2 and K6 at the BP tol of
+too) rel 1e-4 (f32, two summation orders); K1's compact residual: counts
+and codes equal to `pack_residuals` of the plain forward, values rel 1e-5; K2 and K6 at the BP tol of
 `bp_cases` (1e-4), rel 1e-4, sweep counts equal to the plain solve's, the
 compact edge list and its indices equal to `compact_edges`, each case in
 the layout of the solve its edge count calls for (messages and factors in
 shared memory, messages only, global scratch); and again at BP tol 1e-6,
 values rel 1e-4 (there float32 rounding of the deviation decides the stop,
 so sweep counts are not compared).  Kernels must be bitwise repeatable.
-K3 and K4's backward, the row-tile kernels with the per-replica cull, are
-also run on layouts that cull every tile, none, different tiles in
+K1, K3 and K4's backward, the row-tile kernels with the per-replica cull,
+are also run on layouts that cull every tile, none, different tiles in
 different replicas, and hold pairs at the cutoff +- 1e-5 A on tile
-corners: rel 1e-4 against the plain versions, their tile decisions equal
-to `cull_tiles`, NaN/Inf in dead and culled slots leaving them unmoved.
+corners: against the plain versions as above, their tile decisions equal
+to `cull_tiles`, NaN/Inf in dead and culled slots leaving the backwards
+unmoved.
 The layouts (chain-ordered sites, corner pairs) serve the CPU tests of the
 cull too (tests/test_torch_tile_cull.py).
 """
@@ -186,24 +188,74 @@ def corner_layout(n1, n2, i, j, p, q, device, seed=0):
 
 @pytest.mark.requires_cuda
 def test_fused_kernels_match_plain(cuda):
+    """The fused block through K1's kernels (forward, compact residual,
+    backward) against its plain version: the outputs, and the input
+    gradients of the forward-backward round trip under a random
+    cotangent."""
     tabs, t1, t2, masks, env, dyn = fused_problem(np.random.default_rng(0))
     prep = fp.make_prep(tabs, t1, t2, masks, env, cuda, torch.float32)
-    x1, w1, x2, wcol = (torch.tensor(a, dtype=torch.float32, device=cuda)
-                        for a in dyn)
-    k = fp.fused_pair_fwd(prep, x1, w1, x2, wcol)
-    p = fp.fused_pair_fwd(prep, x1, w1, x2, wcol, plain=True)
-    assert all(torch.equal(a, b) for a, b in
-               zip(k, fp.fused_pair_fwd(prep, x1, w1, x2, wcol)))
-    for a, b in zip(k, p):
-        assert _rel(a, b) < 1e-5
-    assert k[1].count_nonzero() > 10 and k[2].count_nonzero() > 3
     gen = torch.Generator(device=cuda).manual_seed(1)
-    g = [torch.randn(t.shape, generator=gen, device=cuda) for t in p[:3]]
-    bk = fp.fused_pair_bwd(prep, x1, w1, x2, wcol, k[3], k[4], *g)
-    bp_ = fp.fused_pair_bwd(prep, x1, w1, x2, wcol, p[3], p[4], *g,
-                            plain=True)
-    for a, b in zip(bk, bp_):
-        assert _rel(a, b) < 1e-4
+    grads, outs = [], []
+    for plain in (False, True):
+        x = [torch.tensor(a, dtype=torch.float32, device=cuda,
+                          requires_grad=True) for a in dyn]
+        out = fp.fused_pair_block(prep, *x, plain=plain)
+        if not grads:
+            g = [torch.randn(t.shape, generator=gen, device=cuda)
+                 for t in out]
+        sum((a * b).sum() for a, b in zip(out, g)).backward()
+        outs.append([t.detach() for t in out])
+        grads.append([t.grad for t in x])
+    for a, b in zip(*outs):
+        assert _rel(a, b) < 1e-5
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all() and _rel(a, b) < 1e-4
+    assert outs[0][1].count_nonzero() > 10 and outs[0][2].count_nonzero() > 3
+
+
+def _k1_against_plain(prep, x, seed, first=slice(None)):
+    """K1's forward and backward kernels on (prep, x) against their plain
+    versions on the replicas `first`: cov, E_pair and env rel 1e-5; the
+    residual's counts and codes equal to `pack_residuals` of the plain
+    forward and its values rel 1e-5; the cull's decisions equal to
+    `cull_tiles`; the backward from the kernel's residual rel 1e-4 against
+    the plain one from the dense planes; both bitwise repeatable twice
+    over.  Returns (the kernel forward, cotangents, backward, flags)."""
+    from upside_md_torch.ops import tile_cull as tc
+    B = x[0].shape[0]
+    flags = torch.full((B, tc.n_tiles(prep.n1), tc.n_tiles(prep.n2)), 7,
+                       dtype=torch.uint8, device=x[0].device)
+    k = fp.fused_pair_fwd(prep, *x, flags=flags)
+    valid = fp.residual_slots(k[3].counts)
+    for _ in range(2):
+        again = fp.fused_pair_fwd(prep, *x)
+        assert all(torch.equal(a, b) for a, b in zip(k[:3], again[:3]))
+        assert torch.equal(k[3].counts, again[3].counts)
+        assert torch.equal(k[3].codes[valid], again[3].codes[valid])
+        assert torch.equal(k[3].vals[valid], again[3].vals[valid])
+    xf = [t[first] for t in x]
+    p = fp.fused_pair_fwd(prep, *xf, plain=True)
+    for a, b in zip(k[:3], p[:3]):
+        if b.numel():
+            assert _rel(a[first], b) < 1e-5
+    keep = fp.cull_tiles(prep, x[0], x[2])
+    assert torch.equal((flags & tc.KEPT) != 0, keep)
+    want = fp.pack_residuals(prep, xf[0], xf[2], *p[3])
+    vf = valid[first]
+    assert torch.equal(k[3].counts[first], want.counts)
+    assert torch.equal(k[3].codes[first][vf], want.codes[vf])
+    if vf.any():
+        assert _rel(k[3].vals[first][vf], want.vals[vf]) < 1e-5
+    gen = torch.Generator(device=x[0].device).manual_seed(seed)
+    g = [torch.randn(t.shape, generator=gen, device=x[0].device)
+         for t in k[:3]]
+    bk = fp.fused_pair_bwd(prep, *x, k[3], *g)
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(
+            bk, fp.fused_pair_bwd(prep, *x, k[3], *g)))
+    _check_rows([t[first] for t in bk], fp.fused_pair_bwd(
+        prep, *xf, p[3], *(t[first] for t in g), plain=True))
+    return k, g, bk, flags
 
 
 @pytest.mark.requires_cuda
@@ -228,7 +280,7 @@ def test_recomputing_backward_matches_plain(cuda, env_band):
     k = fp.fused_pair_fwd(prep, x1, w1, x2, wcol, want_planes=False)
     p = fp.fused_pair_fwd(prep, x1, w1, x2, wcol, plain=True,
                           want_planes=False)
-    assert k[3] is None and k[4] is None
+    assert k[3] is None
     for a, b in zip(k[:3], p[:3]):
         if b.numel():
             assert _rel(a, b) < 1e-5
@@ -544,6 +596,41 @@ def test_k3_cull_layouts(cuda, layout, env_band):
                for a, b in zip(dirty, bk))
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["none_culled", "all_culled", "mixed",
+                                    "at_cutoff"])
+@pytest.mark.parametrize("env_band", [True, False])
+def test_k1_kernels_match_plain(cuda, layout, env_band):
+    """K1's forward and backward kernels on K3's cull layouts
+    (`_k1_against_plain`); the forward's column partials written exactly
+    where a coverage pair is live; NaN/Inf in the dead slots of the grid
+    cotangent and in coverage cotangents of columns without a live
+    coverage pair leave the backward unmoved."""
+    from upside_md_torch.ops import tile_cull as tc
+    prep, x = _k3_layout(layout, env_band, cuda)
+    k, g, bk, flags = _k1_against_plain(prep, x, 8)
+    live = fused_live(prep, x[0], x[2])
+    B, n_rt, n_ct = flags.shape
+    pad = torch.zeros((B, n_rt * 32, n_ct * 32), dtype=torch.bool,
+                      device=cuda)
+    pad[:, :prep.r_e, :prep.n2] = live[:, :prep.r_e]
+    cov_live = pad.reshape(B, n_rt, 32, n_ct, 32).any(4).any(2)
+    assert torch.equal((flags & tc.WRITTEN) != 0, cov_live)
+    if layout == "all_culled":
+        assert not k[3].counts[:, :prep.r_e // 32].any()
+    g_cov, g_grid = g[0].clone(), g[1].clone()
+    g_grid[:, prep.n2:] = float("nan")
+    g_grid[:, :, prep.n2:] = float("inf")
+    inner = g_grid[:, :prep.n2, :prep.n2]
+    inner[~live[:, prep.r_p:]] = float("nan")
+    for band, (lo, hi) in enumerate(((0, prep.r_b), (prep.r_b, prep.r_e))):
+        dead = ~live[:, lo:hi].any(1)
+        g_cov[:, band][dead] = float("nan")
+    dirty = fp.fused_pair_bwd(prep, *x, k[3], g_cov, g_grid, g[2])
+    assert all(torch.isfinite(a).all() and torch.equal(a, b)
+               for a, b in zip(dirty, bk))
+
+
 def _k4_layout(layout, device):
     if layout == "at_cutoff":
         ps, tab, x1, x2, w1 = spline_case(13, n_rep=4, device=device)
@@ -608,9 +695,10 @@ def test_k4_bwd_cull_layouts(cuda, layout):
 
 @pytest.mark.requires_cuda
 def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
-    """With enough replicas that the row tiles alone fill the card, K3 and
-    K4's backward give each row tile one warp (four below that): both
-    against their plain versions at rel 1e-4, bitwise repeatable."""
+    """With enough replicas that the row tiles alone fill the card, K1's
+    forward and backward, K3 and K4's backward give each row tile one warp
+    (four below that): against their plain versions (K1 on the first four
+    replicas), bitwise repeatable."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     prep, x = fused_case(15, True, 3.8, cuda, n_rep=1)
     n_rep = -(-sms * 32 // -(-prep.n1 // 32)) + 1
@@ -627,6 +715,8 @@ def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
     assert all(torch.equal(a, b) for a, b in zip(
         bk, fp.fused_pair_bwd_recompute(prep, *x, *g)))
     _check_rows(bk, fp.fused_pair_bwd_recompute(prep, *x, *g, plain=True))
+    # K1's forward and backward, checked on the first four replicas
+    _k1_against_plain(prep, x, 9, first=slice(0, 4))
 
     ps, tab, x1, x2, w1 = spline_case(16, n_rep=1, device=cuda)
     n_rep = -(-sms * 32 // -(-ps.n1 // 32)) + 1

@@ -11,7 +11,14 @@ one NVIDIA GPU, and prints one JSON object.  Which two:
   (`colsum_bwd`, both coverage calls of an RNase A evaluation): one
   wrapper call under a random cotangent, at SPLINE_REPLICAS replicas of
   perturbed positions (64 to 512, across the replica counts where the
-  kernels change from four warps a row tile to one).
+  kernels change from four warps a row tile to one);
+* with `--fused` the fused pair block of the main path, K1's forward
+  (`fused_pair_fwd` with its residual) and backward (`fused_pair_bwd`
+  from that residual, under a random cotangent), and K3 with the env band
+  beside them, on full ubiquitin at SPLINE_REPLICAS replicas of perturbed
+  positions.  It takes either
+  layout of the residual: the dense planes of the trees before the
+  compact one, or the compact one.
 
 What it measures is chosen by flags (`--calls` when none is given):
 
@@ -24,11 +31,13 @@ What it measures is chosen by flags (`--calls` when none is given):
               the kernel and of the plain version at BP tol 1e-6 on four
               replicas, and the deviation after 200 sweeps with the
               convergence test off: the floor float32 rounding leaves it
-    --share   (--spline-bwd, with --calls) each kernel's share of the
-              device time of an MD round on its bundle: its device ms per
-              call times its calls per evaluation, over the profiled
-              round's device time per evaluation, at 64 and 512 replicas
+    --share   (--spline-bwd or --fused, with --calls) each kernel's
+              share of the device time of an MD round on its bundle: its
+              device ms per call times its calls per evaluation, over the
+              profiled round's device time per evaluation (printed too),
+              at 64 and 512 replicas
     --md      MD steps/s at 64 and 512 replicas on both kernels' bundles
+              (--fused: ubiquitin only)
     --train   (--spline-bwd) seconds per `fit_packed` step on no-env
               ubiquitin, as chip_smoke.py's training phase runs it
 
@@ -58,7 +67,8 @@ TIGHT_TOL, TIGHT_REPLICAS, FLOOR_SWEEPS = 1e-6, 4, 200
 # (hydrophobe coverage, 12 row tiles) and 528 (hbond coverage, 8)
 SPLINE_REPLICAS = (64, 128, 256, 384, 512)
 ROUNDS = 5          # rounds of the profiled MD advance (--share)
-CALLS_PER_EVAL = {"fused_pair_bwd_recompute": 1, "colsum_bwd": 2}
+CALLS_PER_EVAL = {"fused_pair_bwd_recompute": 1, "colsum_bwd": 2,
+                  "fused_pair_fwd": 1, "fused_pair_bwd": 1}
 
 
 def own_smoke():
@@ -208,6 +218,41 @@ def time_k4(cs, timing, dev, gen, n):
     return rec
 
 
+def time_k1(cs, timing, dev, gen, n):
+    """K1's forward and backward at n replicas of perturbed ubiquitin, and
+    K3 with the env band (the backward of `System(residuals=False)`) on the
+    same cotangents.  The forward's residual is whatever the tree's forward returns after
+    (cov, E_pair, env): (planes, vcov) before the compact residual, one
+    `PackedResiduals` after, and the backward takes it as it comes."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops.fused_pair import (fused_pair_bwd,
+                                                fused_pair_bwd_recompute,
+                                                fused_pair_fwd)
+    path = os.path.join(DATA_DIR, cs.BUNDLE)
+    base = torch.as_tensor(bundle.load(path)[1], device=dev)
+    system, _ = cs.load_system(path, dev, True)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(cs.perturbed(base, n, gen, dev))
+        o = cs.fused_operands(system, outs, gen, dev)
+        prep, x = o["prep"], o["x"]
+        fk = fused_pair_fwd(prep, *x)
+        res = fk[3:]
+        g = [o["randn"](t) for t in fk[:3]]
+        recs = {"fused_pair_fwd": timing.time_launches(
+                    "fused_pair_fwd", lambda: fused_pair_fwd(prep, *x), n),
+                "fused_pair_bwd": timing.time_launches(
+                    "fused_pair_bwd",
+                    lambda: fused_pair_bwd(prep, *x, *res, *g), n),
+                "fused_pair_bwd_recompute (env band)": timing.time_launches(
+                    "fused_pair_bwd_recompute (K3, env band)",
+                    lambda: fused_pair_bwd_recompute(prep, *x, *g), n)}
+    del system, outs, o, x, fk, res, g
+    torch.cuda.empty_cache()
+    return recs
+
+
 def md_device_s_per_eval(cs, dev, bundle_name, n):
     """Device time of one evaluation of an MD round (`torch.profiler` over
     ROUNDS rounds after a 2-round warm-up), and the idle share."""
@@ -244,11 +289,31 @@ def time_spline_bwd(cs, timing, flags, dev, out):
         out["calls"][f"colsum_bwd@{n}"] = time_k4(cs, timing, dev, gen, n)
     if "--share" not in flags:
         return
-    out["share"] = {}
-    for name, bundle_name in (("fused_pair_bwd_recompute", cs.BUNDLE_NOENV),
-                              ("colsum_bwd", cs.BUNDLE_UNFUSED)):
-        for n in REPLICAS:
-            per_eval, idle = md_device_s_per_eval(cs, dev, bundle_name, n)
+    add_shares(cs, dev, out, ("fused_pair_bwd_recompute",), cs.BUNDLE_NOENV)
+    add_shares(cs, dev, out, ("colsum_bwd",), cs.BUNDLE_UNFUSED)
+
+
+def time_fused(cs, timing, flags, dev, out):
+    """K1's forward and backward at SPLINE_REPLICAS (`--calls`), and their
+    shares of a full-ubiquitin MD round's device time (`--share`), into
+    `out`."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n in SPLINE_REPLICAS:
+        for name, rec in time_k1(cs, timing, dev, gen, n).items():
+            out["calls"][f"{name}@{n}"] = rec
+    if "--share" in flags:
+        add_shares(cs, dev, out, ("fused_pair_fwd", "fused_pair_bwd"),
+                   cs.BUNDLE)
+
+
+def add_shares(cs, dev, out, names, bundle_name):
+    """The shares of `names` (timed in out["calls"]) of the device time of
+    an MD round on `bundle_name`, at REPLICAS, into out["share"]."""
+    out.setdefault("share", {})
+    for n in REPLICAS:
+        per_eval, idle = md_device_s_per_eval(cs, dev, bundle_name, n)
+        for name in names:
             call = out["calls"][f"{name}@{n}"]["device_ms"]
             share = None if call is None else \
                 call * 1e-3 * CALLS_PER_EVAL[name] / per_eval
@@ -268,19 +333,25 @@ def main():
         print("FAIL: no CUDA device")
         return 2
     spline = "--spline-bwd" in sys.argv[1:]
-    flags = [f for f in sys.argv[1:] if f != "--spline-bwd"] or ["--calls"]
+    fused = "--fused" in sys.argv[1:]
+    flags = [f for f in sys.argv[1:] if f not in ("--spline-bwd", "--fused")
+             ] or ["--calls"]
     dev = torch.device("cuda", 0)
     out = {"tree": os.getcwd(), "card": cs.card_line(), "calls": {}}
-    if spline and "--calls" in flags:
+    if fused and "--calls" in flags:
+        time_fused(cs, own_smoke(), flags, dev, out)
+    elif spline and "--calls" in flags:
         time_spline_bwd(cs, own_smoke(), flags, dev, out)
-    elif not spline and ("--calls" in flags or "--tight" in flags):
+    elif not spline and not fused and ("--calls" in flags
+                                       or "--tight" in flags):
         time_kernels(cs, own_smoke(), flags, dev, out)
     if "--md" in flags:
         out["md_steps_per_s"] = {}
-        for label, name, names in (
-                ("no-env ubiquitin", cs.BUNDLE_NOENV, cs.NOENV_KERNELS)
-                if spline else ("ubiquitin", cs.BUNDLE, cs.FUSED_KERNELS),
-                ("RNase A", cs.BUNDLE_UNFUSED, cs.UNFUSED_KERNELS)):
+        paths = [("no-env ubiquitin", cs.BUNDLE_NOENV, cs.NOENV_KERNELS)
+                 if spline else ("ubiquitin", cs.BUNDLE, cs.FUSED_KERNELS)]
+        if not fused:
+            paths.append(("RNase A", cs.BUNDLE_UNFUSED, cs.UNFUSED_KERNELS))
+        for label, name, names in paths:
             md, _ = cs.run_md(os.path.join(DATA_DIR, name), dev, label, names)
             out["md_steps_per_s"][label] = {
                 n: {"steps_per_s": r["steps_per_s"], "times_s": r["times_s"]}

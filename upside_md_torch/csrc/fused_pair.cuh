@@ -13,14 +13,22 @@ struct PairGeom {
   float cos1, cos2;   // row direction . u, -(column direction . u)
 };
 
-// as `_geometry` (upside_md_tpu/ops/pallas_quadspline.py:175)
+// as `_geometry` (upside_md_tpu/ops/pallas_quadspline.py:175).  The
+// squared distance is summed in the plain version's order with
+// round-to-nearest multiplies and adds that the compiler may not fuse, and
+// the inverse is the correctly rounded reciprocal of the correctly
+// rounded square root, as ops/fused_pair.py `_geometry` forms them, so the
+// live test s = dist / dx < kcut gives the plain version's pairs bit for
+// bit.
 __device__ __forceinline__ PairGeom pair_geometry(const float* x1,
                                                   const float* x2) {
   PairGeom g;
   float dx = x2[0] - x1[0], dy = x2[1] - x1[1], dz = x2[2] - x1[2];
-  float d2 = dx * dx + dy * dy + dz * dz + 1e-12f;
-  g.inv = 1.0f / sqrtf(d2);
-  g.dist = d2 * g.inv;
+  float d2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                           __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz)), 1e-12f);
+  g.inv = __frcp_rn(__fsqrt_rn(d2));
+  g.dist = __fmul_rn(d2, g.inv);
   g.ux = dx * g.inv; g.uy = dy * g.inv; g.uz = dz * g.inv;
   g.cos1 = x1[3] * g.ux + x1[4] * g.uy + x1[5] * g.uz;
   g.cos2 = -(x2[3] * g.ux + x2[4] * g.uy + x2[5] * g.uz);

@@ -43,7 +43,7 @@
 // with the cull's margin) and takes them 32 at a time, one a lane; each
 // takes the exact test s < kcut.  Only live pairs read the column
 // cotangent.  Row sums are written once; a walked tile's column sums go to
-// one partial when it held a candidate, added in row-tile order by a
+// one partial when it held a live pair, added in row-tile order by a
 // second pass.
 #include "fused_pair.cuh"
 #include "pair_cull.cuh"
@@ -213,20 +213,38 @@ struct K4RowThr {
 };
 
 // K4's backward, pair (i, j) of replica r: its row cotangent (d/dw1 in
-// rc[6]) and column cotangent; false where it is beyond the cutoff.
+// rc[6]) and column cotangent; false where it is beyond the cutoff.  K4
+// has one band, no env rows and nothing kept from a live pair; its row
+// sums go to d1.
 struct K4Pair {
   const float* w1;
   const float* g_col;
   const int* t1;
   const int* t2;
   const float* coef;
+  float* d1;
   int n1, n2, ka, k, n_t2, ncoef;
   float inv_dx, kcut;
+  static constexpr bool kEnvCols = false;
+
+  __device__ bool rows(int) const { return true; }
+  __device__ bool cols(int) const { return true; }
+  __device__ void keep(int, int, int, int, int, int, int,
+                       const float*) const {}
+  __device__ EnvRow env_row(int, int) const { return {0, 0.0f}; }
+  __device__ EnvCol env_col(int, int) const { return {0, 0.0f}; }
+  __device__ void env(const float*, const float*, EnvRow, EnvCol, float*,
+                      float*) const {}
+  __device__ void tile_done(int, int, int, int) const {}
+  __device__ void row_out(int r, int i, const float* s) const {
+    store8<NCOMP>(s, d1 + ((long)r * n1 + i) * 8);
+  }
 
   __device__ bool operator()(int r, int, int i, int j, const float* xr,
-                             const float* xc, float* rc, float* cc) const {
+                             const float* xc, float* rc, float* cc,
+                             float*) const {
     const PairGeom g = pair_geometry(xr, xc);
-    const float sd = g.dist * inv_dx;
+    const float sd = __fmul_rn(g.dist, inv_dx);
     if (!(sd < kcut)) return false;
     const float inv_dth = (ka - 3) * 0.5f;
     const SplineTerms t = spline_terms(
@@ -266,16 +284,18 @@ colsum_bwd_row_tile_kernel(const float* __restrict__ x1,
                            const int* __restrict__ t2,
                            const unsigned* __restrict__ mask_words,
                            const unsigned char* __restrict__ tile_alive,
-                           const float* __restrict__ coef, int n1, int n2,
+                           const float* __restrict__ coef, int n_rep,
+                           int n1, int n2,
                            int ka, int k, int n_t2, int ncoef, float inv_dx,
                            float kcut, float cut2, int group,
                            float* __restrict__ d1,
                            float* __restrict__ d2part,
                            unsigned char* __restrict__ flags) {
-  const K4Pair pair{w1, g_col, t1, t2, coef, n1, n2, ka, k, n_t2, ncoef,
-                    inv_dx, kcut};
-  walk_row_tiles(x1, x2, mask_words, tile_alive, nullptr, cut2, n1, n2,
-                 group, K4RowThr{cut2}, pair, d1, d2part, flags);
+  const K4Pair pair{w1, g_col, t1, t2, coef, d1, n1, n2, ka, k, n_t2,
+                    ncoef, inv_dx, kcut};
+  walk_row_tiles<NCOMP, NCOMP>(x1, x2, mask_words, tile_alive, nullptr, cut2,
+                               n_rep, n1, n2, 0, 0, group, K4RowThr{cut2},
+                               pair, d2part, flags, nullptr);
 }
 
 static inline dim3 tile_grid(int n_rep, int n1, int n2) {
@@ -341,7 +361,7 @@ extern "C" int quadspline_bwd(
 }
 
 // K4's backward.  d2part (n_rep, n_rt, n2, 8) holds the column partials of
-// the walked tiles with a candidate pair, flags (n_rep, n_rt, n_ct) the
+// the walked tiles with a live pair, flags (n_rep, n_rt, n_ct) the
 // cull's decisions (CULL_KEPT, CULL_WRITTEN); both are written here, never
 // read before.
 extern "C" int colsum_bwd(
@@ -355,14 +375,12 @@ extern "C" int colsum_bwd(
   const int n_rt = (n1 + TILE_ROWS - 1) / TILE_ROWS;
   const int n_ct = (n2 + TILE_COLS - 1) / TILE_COLS;
   if (n_rep > 0 && n_rt > 0) {
-    const int group = row_tile_group((long)n_rt * n_rep);
-    const int per_block = RT_WARPS / group;
-    colsum_bwd_row_tile_kernel<<<
-        dim3((n_rt + per_block - 1) / per_block, n_rep),
-        dim3(TILE_COLS, RT_WARPS),
-        n_ct * (6 * sizeof(float) + RT_WARPS * sizeof(int)), stream>>>(
-        x1, x2, w1, g, t1, t2, mask_words, tile_alive, coef, n1, n2, ka, k,
-        n_t2, ncoef, inv_dx, kcut, cut2, group, d1, d2part, flags);
+    int group;
+    const dim3 blocks = row_tile_blocks(n_rep, n_rt, &group);
+    colsum_bwd_row_tile_kernel<<<blocks, dim3(TILE_COLS, RT_WARPS),
+                                 walk_smem(n2), stream>>>(
+        x1, x2, w1, g, t1, t2, mask_words, tile_alive, coef, n_rep, n1, n2,
+        ka, k, n_t2, ncoef, inv_dx, kcut, cut2, group, d1, d2part, flags);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

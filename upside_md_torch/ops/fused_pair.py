@@ -27,18 +27,25 @@ elsewhere) at a padded (n2p, n2p) layout.
 
 Two backwards, as in the JAX package:
 
-* K1 backward (`fused_pair_bwd`) reads residual planes that the forward
-  saved with `want_planes=True`: three derivative planes (d/d dist,
-  d/d cos1, d/d cos2, pre-masked and pre-scaled) and the value plane of
-  the coverage bands;
+* K1 backward (`fused_pair_bwd`) reads residuals that the forward saved
+  with `want_planes=True`.  The plain version's are the JAX package's
+  dense planes: three derivative planes (d/d dist, d/d cos1, d/d cos2,
+  pre-masked and pre-scaled) and the value plane of the coverage bands.
+  The kernels' are compact (`PackedResiduals`): only the live pairs', per
+  32 x 32 tile the count and, in row-major order, each live pair's code
+  (row * 32 + column in the tile) and (d/d dist, d/d cos1, d/d cos2,
+  coverage value).  `pack_residuals` and `unpack_residuals` are the plain
+  twins that go between the two layouts;
 * K3 (`fused_pair_bwd_recompute`, the recomputing `_fused_bwd_kernel`
-  :1132) keeps no planes: it recomputes each pair's spline terms from the
-  coefficients.  It is the only backward of the block without its env
+  :1132) keeps no residuals: it recomputes each pair's spline terms from
+  the coefficients.  It is the only backward of the block without its env
   band, and the memory-saving one with it (`FusedPairBlock(residuals=
-  False)`, the JAX package's UPSIDE_FUSED_RESID=0).  Its kernel walks
-  each row tile's column tiles and skips those farther apart in a replica
-  than the row tile's cutoff (`ops/tile_cull.py`; `cull_tiles` gives its
-  decisions).
+  False)`, the JAX package's UPSIDE_FUSED_RESID=0).
+
+The kernels of K1's forward and K3 walk each row tile's column tiles and
+skip those farther apart in a replica than the row tile's cutoff
+(`ops/tile_cull.py`; `cull_tiles` gives their decisions); K1's backward
+walks only the tiles its forward found live pairs in.
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
@@ -50,6 +57,7 @@ as the JAX package computes them in XLA outside any kernel.
 from __future__ import annotations
 
 import functools
+from collections import namedtuple
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,7 +65,7 @@ import torch
 
 from . import kernels
 from .sigmoid import compact_sigmoid
-from .tile_cull import (cutoff_sq, flags_buffer, mask_words, n_tiles,
+from .tile_cull import (TILE, cutoff_sq, flags_buffer, mask_words, n_tiles,
                         no_flags, pair_keep, row_tile_thresholds,
                         tile_cull)
 
@@ -206,11 +214,21 @@ def make_prep(tabs, type1, type2, masks, env_tab, device,
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _dist2(dx, dy, dz):
+    """Squared pair distances from the coordinate differences, summed in
+    the kernels' order."""
+    return (dx * dx + dy * dy) + dz * dz + 1e-12
+
+
 def _geometry(x1, x2):
-    """Pair geometry (B, n1, n2): as `_geometry` (pallas_quadspline.py:175)."""
+    """Pair geometry (B, n1, n2): as `_geometry` (pallas_quadspline.py:175).
+    The squared distance is summed in a fixed order and the inverse is
+    1 / sqrt, each step one correctly rounded operation, so the kernels
+    (csrc/fused_pair.cuh `pair_geometry`) form the same distances and the
+    same live pairs, bit for bit."""
     d = x2[:, None, :, 0:3] - x1[:, :, None, 0:3]
-    dist2 = (d * d).sum(-1) + 1e-12
-    inv = torch.rsqrt(dist2)
+    dist2 = _dist2(*d.unbind(-1))
+    inv = 1.0 / torch.sqrt(dist2)
     u = d * inv[..., None]
     cos1 = (x1[:, :, None, 3:6] * u).sum(-1)
     cos2 = -(x2[:, None, :, 3:6] * u).sum(-1)
@@ -233,8 +251,27 @@ def _poly(coef, x, n, clamped):
     return val, dv
 
 
-def _spline_fields(prep, x1, x2):
-    """Values, live mask and derivative planes of the spline bands."""
+def _live(prep, dist):
+    """(B, n1, n2) live pairs: in the mask, on a spline band, and s =
+    dist / dx below the band's cutoff (the kernels' exact test)."""
+    band = prep.band_of_rows()
+    kcut = torch.where(band == 3, prep.kcut_pair, prep.kcut_cov)
+    return (prep.mask.bool() & (band != 2)[:, None]
+            & (dist * prep.inv_dx < kcut[:, None]))
+
+
+def live_pairs(prep, x1, x2):
+    """(B, n1, n2) bool: the pairs of the spline bands that have a value
+    and a cotangent (those `pack_residuals` keeps)."""
+    with torch.no_grad():
+        dist2 = _dist2(*(x2[:, None, :, a] - x1[:, :, None, a]
+                         for a in range(3)))
+        return _live(prep, dist2 * (1.0 / torch.sqrt(dist2)))
+
+
+def _spline_fields(prep, x1, x2, keep=None):
+    """Values, live mask and derivative planes of the spline bands; with
+    `keep` (B, n_rt, n_ct) only the pairs of those tiles are live."""
     u, dist, inv, cos1, cos2 = _geometry(x1, x2)
     band = prep.band_of_rows()
     spline_row = (band != 2)[:, None]      # env rows carry env types
@@ -252,8 +289,9 @@ def _spline_fields(prep, x1, x2):
                     False)
     wide, dwide = _poly(coef[..., 2 * na:2 * na + nd], s, k, True)
     narrow, dnarrow = _poly(coef[..., 2 * na + nd:], s, k, True)
-    kcut = torch.where(band == 3, prep.kcut_pair, prep.kcut_cov)
-    live = prep.mask.bool() & spline_row & (s < kcut[:, None])
+    live = _live(prep, dist)
+    if keep is not None:
+        live = live & pair_keep(keep, prep.n1, prep.n2)
     zero = torch.zeros_like(s)
     val = torch.where(live, wide + a1 * a2 * narrow, zero)
     planes = torch.stack([
@@ -275,13 +313,17 @@ def _env_fields(prep, x1e, x2):
     return (u, inv, cos1), me, radial, dradial, angular, dangular
 
 
-def fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes=True):
+def fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes=True,
+                         keep=None):
     """Plain forward.  x1 (B, n1, 6) row sites, w1 (B, n1) row weights
     (used on the two coverage bands), x2 (B, n2, 6) bead columns, wcol
     (B, n2) env column weights.  Returns (cov (B, 2, n2), E_pair (B, n2p,
     n2p), env (B, n_e), planes (B, 3, n1, n2), vcov (B, r_e, n2)); the
-    last two are None unless `want_planes`."""
-    _, _, val, planes = _spline_fields(prep, x1, x2)
+    last two are None unless `want_planes`.  `keep` (B, n_rt, n_ct), e.g.
+    `cull_tiles`, restricts it to those tiles' pairs; the kernel's cull
+    keeps every live pair and every env row tile, so restricted to its
+    tiles the result is the same, bit for bit."""
+    _, _, val, planes = _spline_fields(prep, x1, x2, keep)
     B = x1.shape[0]
     cov = torch.stack([
         (w1[:, :prep.r_b, None] * val[:, :prep.r_b]).sum(1),
@@ -291,6 +333,8 @@ def fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes=True):
     grid[:, :prep.n2, :prep.n2] = val[:, prep.r_p:]
     _, me, radial, _, angular, _ = _env_fields(
         prep, x1[:, prep.r_e:prep.r_p], x2)
+    if keep is not None:
+        me = me & pair_keep(keep, prep.n1, prep.n2)[:, prep.r_e:prep.r_p]
     env = torch.where(me, wcol[:, None, :] * radial * angular,
                       torch.zeros_like(radial)).sum(-1)
     if not want_planes:
@@ -386,9 +430,91 @@ def fused_pair_bwd_recompute_plain(prep, x1, w1, x2, wcol, g_cov, g_grid,
 
 
 def cull_tiles(prep, x1, x2):
-    """(B, n_rt, n_ct) bool: the tiles K3 walks for row sites x1 and bead
-    columns x2 (`tile_cull` at the row tiles' thresholds)."""
+    """(B, n_rt, n_ct) bool: the tiles K1's forward and K3 walk for row
+    sites x1 and bead columns x2 (`tile_cull` at the row tiles'
+    thresholds)."""
     return tile_cull(x1, x2, prep.tile_thresholds)
+
+
+# ---------------------------------------------------------------------------
+# the compact residual of K1 and its plain twins
+# ---------------------------------------------------------------------------
+
+SLOTS = TILE * TILE      # residual slots of a tile (csrc RESID_SLOTS)
+
+# K1 forward's residual for its backward, as the kernels keep it: counts
+# (B, n_rt, n_ct) int16, the live pairs of each tile; codes (B, n_rt,
+# n_ct, SLOTS) int16, slot k of a tile the code (row * 32 + column in the
+# tile) of its k-th live pair in row-major order; vals (B, n_rt, n_ct,
+# SLOTS, 4) float32, that pair's (d/d dist, d/d cos1, d/d cos2, value),
+# the value 0 on the bead band (as the plain vcov holds it).  Slots at or
+# past a tile's count are not read (the kernel leaves them unwritten).
+PackedResiduals = namedtuple("PackedResiduals", "counts codes vals")
+
+
+def _to_tiles(a, n_rt, n_ct):
+    """(B, n1, n2, ...) -> (B, n_rt, n_ct, SLOTS, ...), zero-padded, each
+    tile's pairs row-major."""
+    B, n1, n2 = a.shape[:3]
+    rest = a.shape[3:]
+    pad = a.new_zeros((B, n_rt * TILE, n_ct * TILE) + rest)
+    pad[:, :n1, :n2] = a
+    t = pad.reshape((B, n_rt, TILE, n_ct, TILE) + rest).transpose(2, 3)
+    return t.reshape((B, n_rt, n_ct, SLOTS) + rest)
+
+
+def _from_tiles(t, n1, n2):
+    """The inverse of `_to_tiles`, cut to (B, n1, n2, ...)."""
+    B, n_rt, n_ct = t.shape[:3]
+    rest = t.shape[4:]
+    a = t.reshape((B, n_rt, n_ct, TILE, TILE) + rest).transpose(2, 3)
+    return a.reshape((B, n_rt * TILE, n_ct * TILE) + rest)[:, :n1, :n2]
+
+
+def residual_slots(counts):
+    """(B, n_rt, n_ct, SLOTS) bool: the slots that hold a live pair."""
+    return torch.arange(SLOTS, device=counts.device) < \
+        counts.long()[..., None]
+
+
+def pack_residuals(prep, x1, x2, planes, vcov):
+    """The compact residual (`PackedResiduals`) of the plain dense planes
+    (B, 3, n1, n2) and coverage values vcov (B, r_e, n2) at row sites x1
+    and bead columns x2: each tile's live pairs (`live_pairs`) in
+    row-major order.  Unused slots hold 0."""
+    B, n1, n2 = x1.shape[0], prep.n1, prep.n2
+    n_rt, n_ct = n_tiles(n1), n_tiles(n2)
+    live = _to_tiles(live_pairs(prep, x1, x2), n_rt, n_ct)
+    value = torch.zeros_like(planes[:, 0])
+    value[:, :prep.r_e] = vcov
+    fields = _to_tiles(torch.cat([planes.movedim(1, -1), value[..., None]],
+                                 -1), n_rt, n_ct)
+    # a live pair's slot is its rank among the tile's live pairs; the
+    # others go to a spare slot past the end, dropped after the scatter
+    slot = torch.where(live, torch.cumsum(live, -1) - 1, SLOTS)
+    codes = torch.zeros(live.shape[:3] + (SLOTS + 1,), dtype=torch.int16,
+                        device=live.device)
+    codes.scatter_(-1, slot, torch.arange(SLOTS, dtype=torch.int16,
+                                          device=live.device).expand_as(slot))
+    vals = fields.new_zeros(live.shape[:3] + (SLOTS + 1, 4))
+    vals.scatter_(-2, slot[..., None].expand(fields.shape), fields)
+    return PackedResiduals(live.sum(-1).to(torch.int16),
+                           codes[..., :SLOTS].contiguous(),
+                           vals[..., :SLOTS, :].contiguous())
+
+
+def unpack_residuals(prep, packed):
+    """(planes (B, 3, n1, n2), vcov (B, r_e, n2)) of a compact residual:
+    each live pair's values at its place, 0 elsewhere."""
+    counts, codes, vals = packed
+    valid = residual_slots(counts)
+    where = torch.where(valid, codes.long(), SLOTS)
+    dense = vals.new_zeros(counts.shape + (SLOTS + 1, 4))
+    dense.scatter_(-2, where[..., None].expand(vals.shape),
+                   torch.where(valid[..., None], vals, 0.0))
+    dense = _from_tiles(dense[..., :SLOTS, :], prep.n1, prep.n2)
+    return (dense[..., :3].movedim(-1, 1).contiguous(),
+            dense[:, :prep.r_e, :, 3].contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -514,10 +640,6 @@ def _check(prep, x1, w1, x2, wcol, *rest):
                              "CUDA tensors")
 
 
-def _statics(prep):
-    return (prep.row_type, prep.col_type, prep.mask, prep.coef, prep.env_tab)
-
-
 def _shape(prep, B):
     return (B, prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
             prep.ka, prep.k, prep.coef.shape[1], prep.coef.shape[2],
@@ -525,64 +647,97 @@ def _shape(prep, B):
             prep.kcut_pair)
 
 
-def _bwd_parts(prep, B, device):
-    """Per-tile partials of K1's backward and their sums."""
-    f32 = dict(dtype=torch.float32, device=device)
-    n_rt = -(-prep.n1 // kernels.TILE_ROWS)
-    n_ct = -(-prep.n2 // kernels.TILE_COLS)
-    return (torch.empty((n_ct, B, prep.n1, 8), **f32),
-            torch.empty((n_rt, B, prep.n2, 8), **f32),
-            torch.empty((B, prep.n1, 8), **f32),
-            torch.empty((B, prep.n2, 8), **f32))
+def _check_cotangents(prep, B, g_cov, g_grid, g_env):
+    if tuple(g_cov.shape) != (B, 2, prep.n2) or \
+            tuple(g_grid.shape) != (B, prep.n2p, prep.n2p) or \
+            tuple(g_env.shape) != (B, prep.n_e):
+        raise ValueError("fused pair backward: cotangent shapes")
 
 
-def fused_pair_fwd(prep, x1, w1, x2, wcol, plain=False, want_planes=True):
+def _residual_layout(prep, B):
+    """((shape, dtype) of counts, codes, vals) of B replicas' residual."""
+    tiles = (B, n_tiles(prep.n1), n_tiles(prep.n2))
+    return ((tiles, torch.int16), (tiles + (SLOTS,), torch.int16),
+            (tiles + (SLOTS, 4), torch.float32))
+
+
+def residual_buffers(prep, B, device):
+    """Empty `PackedResiduals` for B replicas: what K1's forward writes."""
+    return PackedResiduals(*(torch.empty(shape, dtype=dt, device=device)
+                             for shape, dt in _residual_layout(prep, B)))
+
+
+def fused_pair_fwd(prep, x1, w1, x2, wcol, plain=False, want_planes=True,
+                   flags=None):
     """K1 forward: the plain version on CPU tensors (or when asked), the
-    CUDA kernel on CUDA tensors.  want_planes=False writes no residual
-    planes (the `_fused_fwd_kernel` variant without them, :1021); planes
-    and vcov then come back as None."""
+    CUDA kernel on CUDA tensors.  Returns (cov, E_pair, env, residual):
+    with `want_planes` the residual its backward reads, the plain dense
+    (planes, vcov) or the kernel's `PackedResiduals`; without it None (the
+    `_fused_fwd_kernel` variant without planes, :1021).  The kernel makes
+    its own cull and, given `flags` (B, n_rt, n_ct) uint8, writes its
+    decisions there (`tile_cull.KEPT`; `WRITTEN` where a coverage pair was
+    live); the plain version has none and refuses `flags`."""
     if plain or not x1.is_cuda:
-        return fused_pair_fwd_plain(prep, x1, w1, x2, wcol, want_planes)
+        no_flags(flags)
+        cov, grid, env, planes, vcov = fused_pair_fwd_plain(
+            prep, x1, w1, x2, wcol, want_planes)
+        return cov, grid, env, (planes, vcov) if want_planes else None
     x1, w1, x2, wcol = (t.contiguous() for t in (x1, w1, x2, wcol))
     _check(prep, x1, w1, x2, wcol)
     B = x1.shape[0]
+    n_rt, n_ct = n_tiles(prep.n1), n_tiles(prep.n2)
+    flags = flags_buffer(flags, (B, n_rt, n_ct), x1.device)
     f32 = dict(dtype=torch.float32, device=x1.device)
     cov = torch.empty((B, 2, prep.n2), **f32)
-    grid = torch.zeros((B, prep.n2p, prep.n2p), **f32)
+    grid = torch.empty((B, prep.n2p, prep.n2p), **f32)   # zeroed by the call
     env = torch.empty((B, prep.n_e), **f32)
-    planes = vcov = None
-    if want_planes:
-        planes = torch.empty((B, 3, prep.n1, prep.n2), **f32)
-        vcov = torch.empty((B, prep.r_e, prep.n2), **f32)
-    n_rt = -(-prep.r_e // kernels.TILE_ROWS)
-    n_ct = -(-prep.n2 // kernels.TILE_COLS)
-    colpart = torch.empty((n_rt, B, 2, prep.n2), **f32)
-    rowpart = torch.empty((n_ct, B, prep.n_e), **f32)
-    kernels.launch("fused_pair_fwd", x1, w1, x2, wcol, *_statics(prep),
-                   *_shape(prep, B), planes, vcov, grid, colpart, rowpart,
-                   cov, env)
-    return cov, grid, env, planes, vcov
+    colpart = torch.empty((B, n_rt, prep.n2, 2), **f32)
+    res = residual_buffers(prep, B, x1.device) if want_planes else None
+    kernels.launch("fused_pair_fwd", x1, w1, x2, wcol, prep.row_type,
+                   prep.col_type, prep.mask_words, prep.coef, prep.env_tab,
+                   prep.tile_thresholds, *_shape(prep, B), *prep.cut2, flags,
+                   *(res if want_planes else (None, None, None)), colpart,
+                   grid, cov, env)
+    return cov, grid, env, res
 
 
-def fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov, g_cov, g_grid,
-                   g_env, plain=False):
-    """K1 backward: plain on CPU tensors (or when asked), CUDA kernel on
-    CUDA tensors."""
+def fused_pair_bwd(prep, x1, w1, x2, wcol, residual, g_cov, g_grid, g_env,
+                   plain=False):
+    """K1 backward from the forward's residual: plain on CPU tensors (or
+    when asked; a `PackedResiduals` is unpacked first), the CUDA kernel on
+    CUDA tensors, which reads only the packed layout.  Returns (d1 (B, n1,
+    8), d2 (B, n2, 8)) as `fused_pair_bwd_plain`."""
     if plain or not x1.is_cuda:
-        return fused_pair_bwd_plain(prep, x1, w1, x2, wcol, planes, vcov,
-                                    g_cov, g_grid, g_env)
-    args = [t.contiguous() for t in (x1, w1, x2, wcol, planes, vcov, g_cov,
-                                     g_grid, g_env)]
+        if isinstance(residual, PackedResiduals):
+            residual = unpack_residuals(prep, residual)
+        return fused_pair_bwd_plain(prep, x1, w1, x2, wcol, *residual, g_cov,
+                                    g_grid, g_env)
+    if not isinstance(residual, PackedResiduals):
+        raise ValueError("the K1 backward kernel reads the packed residual "
+                         "of the K1 forward kernel")
+    args = [t.contiguous() for t in (x1, w1, x2, wcol, g_cov, g_grid, g_env)]
     _check(prep, *args)
-    x1, w1, x2, wcol, planes, vcov, g_cov, g_grid, g_env = args
+    x1, w1, x2, wcol, g_cov, g_grid, g_env = args
     B = x1.shape[0]
-    d1part, d2part, d1, d2 = _bwd_parts(prep, B, x1.device)
+    _check_cotangents(prep, B, g_cov, g_grid, g_env)
+    n_rt, n_ct = n_tiles(prep.n1), n_tiles(prep.n2)
+    for t, (shape, dt) in zip(residual, _residual_layout(prep, B)):
+        if tuple(t.shape) != shape or t.dtype != dt or not t.is_cuda or \
+                not t.is_contiguous():
+            raise ValueError(f"K1 backward: residual {tuple(t.shape)} "
+                             f"{t.dtype}, expected {shape} {dt}")
+    # the tiles whose column partials the kernel wrote
+    flags = torch.empty((B, n_rt, n_ct), dtype=torch.uint8,
+                        device=x1.device)
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    d2part = torch.empty((B, n_rt, prep.n2, 8), **f32)
+    d1 = torch.empty((B, prep.n1, 8), **f32)
+    d2 = torch.empty((B, prep.n2, 8), **f32)
     kernels.launch(
         "fused_pair_bwd", x1, w1, x2, wcol, prep.row_type, prep.col_type,
-        prep.mask, prep.env_tab, planes, vcov, g_cov, g_grid, g_env,
-        B, prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
-        prep.env_tab.shape[1], prep.inv_dx, prep.kcut_cov, prep.kcut_pair,
-        d1part, d2part, d1, d2)
+        prep.mask_words, prep.env_tab, *residual, g_cov, g_grid, g_env, B,
+        prep.n1, prep.n2, prep.n2p, prep.r_b, prep.r_e, prep.r_p,
+        prep.env_tab.shape[1], d2part, flags, d1, d2)
     return d1, d2
 
 
@@ -602,10 +757,7 @@ def fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov, g_grid, g_env,
     _check(prep, *args)
     x1, w1, x2, wcol, g_cov, g_grid, g_env = args
     B = x1.shape[0]
-    if tuple(g_cov.shape) != (B, 2, prep.n2) or \
-            tuple(g_grid.shape) != (B, prep.n2p, prep.n2p) or \
-            tuple(g_env.shape) != (B, prep.n_e):
-        raise ValueError("fused_pair_bwd_recompute: cotangent shapes")
+    _check_cotangents(prep, B, g_cov, g_grid, g_env)
     n_rt, n_ct = n_tiles(prep.n1), n_tiles(prep.n2)
     flags = flags_buffer(flags, (B, n_rt, n_ct), x1.device)
     f32 = dict(dtype=torch.float32, device=x1.device)
@@ -622,33 +774,39 @@ def fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov, g_grid, g_env,
 class FusedPairBlock(torch.autograd.Function):
     """cov, E_pair, env = block(x1, w1, x2, wcol; tab1, tab2, tab3, tab4).
 
-    With `residuals` and the env band (the MD path) the forward saves the
-    derivative planes and K1's backward reads them (the custom_vjp of
-    pallas_quadspline.py:2402-2453).  Otherwise the forward writes no
-    planes and K3 recomputes them: always without the env band
-    (`fused_pair_block`, :1899-1957), and with it when `residuals` is
-    False (`fused_pair_block_env` under UPSIDE_FUSED_RESID=0,
-    :2161-2230).  The tables are inputs so that their cotangents reach
-    them; each is computed only when autograd asks for it (training)."""
+    With `residuals` and the env band (the MD path) the forward saves its
+    residual and K1's backward reads it (the custom_vjp of
+    pallas_quadspline.py:2402-2453): the dense planes on the plain path,
+    the kernels' compact `PackedResiduals` on the card.  Otherwise the
+    forward saves none and K3 recomputes the planes: always without the
+    env band (`fused_pair_block`, :1899-1957), and with it when
+    `residuals` is False (`fused_pair_block_env` under
+    UPSIDE_FUSED_RESID=0, :2161-2230).  The tables are inputs so that
+    their cotangents reach them; each is computed only when autograd asks
+    for it (training)."""
 
     @staticmethod
     def forward(ctx, x1, w1, x2, wcol, tab1, tab2, tab3, tab4, prep, plain,
                 residuals):
         want = residuals and prep.n_e > 0
-        cov, grid, env, planes, vcov = fused_pair_fwd(prep, x1, w1, x2,
-                                                      wcol, plain, want)
+        cov, grid, env, res = fused_pair_fwd(prep, x1, w1, x2, wcol, plain,
+                                             want)
+        ctx.packed = isinstance(res, PackedResiduals)
+        ctx.n_res = 0 if res is None else len(res)
         ctx.save_for_backward(x1, w1, x2, wcol, tab1, tab2, tab3, tab4,
-                              planes, vcov)
+                              *(res or ()))
         ctx.prep, ctx.plain = prep, plain
         return cov, grid, env
 
     @staticmethod
     def backward(ctx, g_cov, g_grid, g_env):
-        x1, w1, x2, wcol, *tabs, planes, vcov = ctx.saved_tensors
+        x1, w1, x2, wcol, *rest = ctx.saved_tensors
+        tabs, res = rest[:4], rest[4:]
         prep = ctx.prep
-        if planes is not None:
-            d1, d2 = fused_pair_bwd(prep, x1, w1, x2, wcol, planes, vcov,
-                                    g_cov, g_grid, g_env, ctx.plain)
+        if ctx.n_res:
+            res = PackedResiduals(*res) if ctx.packed else tuple(res)
+            d1, d2 = fused_pair_bwd(prep, x1, w1, x2, wcol, res, g_cov,
+                                    g_grid, g_env, ctx.plain)
         else:
             d1, d2 = fused_pair_bwd_recompute(prep, x1, w1, x2, wcol, g_cov,
                                               g_grid, g_env, ctx.plain)

@@ -1,6 +1,6 @@
-"""The per-replica tile cull of the row-tile backward kernels (K3,
-`fused_pair_bwd_recompute`, and K4's backward, `colsum_bwd`), and its plain
-version.
+"""The per-replica tile cull of the row-tile kernels (K1's forward,
+`fused_pair_fwd`, K3, `fused_pair_bwd_recompute`, and K4's backward,
+`colsum_bwd`), and its plain version.
 
 A kernel block owns one 32-row tile of one replica and walks the 32-column
 tiles in order.  Before it touches a pair of a column tile it tests the
@@ -21,11 +21,11 @@ with the same float32 operations in the same order here and in the kernel
 rounded), and the thresholds are the same float32 numbers, so `tile_cull`
 gives the kernel's decisions bit for bit.  The kernels write their
 decisions as `flags` (B, n_rt, n_ct) uint8: KEPT where the tile was walked,
-and WRITTEN where a pair of it also passed the kernel's candidate test
-(masked in and, on a spline band, its squared distance below `cutoff_sq`:
-every tile with a live pair, and perhaps a few with a pair just beyond the
-cutoff), so that its column partial sums were written and the summing pass
-reads them.
+and WRITTEN where a pair of it also added to the column sums (K1's forward:
+a live pair of a coverage band; K3: a live pair or a masked-in env pair;
+K4's backward: a live pair), so that its column partial sums were written
+and the summing pass reads them.  K1's backward takes no cull: it walks
+the tiles its forward found live pairs in, and marks them the same way.
 """
 
 from __future__ import annotations
