@@ -46,9 +46,10 @@ the bundle's seed.  Phases:
    K3 at both band layouts (bitwise repeatable, and unmoved by NaN/Inf in
    dead slots of the grid cotangent), and `param_deriv` of the rotamer,
    both coverage and (env bundle) environment tables against
-   `kernels=False` (rel < 1e-3); the tile decisions of K1's forward, K3's
-   and K4's backward cull equal to their plain `cull_tiles`, bit for
-   bit;
+   `kernels=False` (rel < 1e-3); the tile decisions of K1's forward, K3's,
+   K4's forward and backward and K5's backward cull equal to their plain
+   `cull_tiles`, bit for bit, and K5's backward unmoved by NaN in dead
+   slots of its grid cotangent;
 4. times each kernel and its plain version with CUDA events around one
    wrapper call on an idle card (median; `ms`, host side included) at 64
    replicas, and sums the device time of the call's kernels and memsets
@@ -56,7 +57,8 @@ the bundle's seed.  Phases:
    larger of the bytes it must move over the card's memory rate and the
    operations this run's data needs over the card's float32 rate (H100
    SXM data sheet), both counted over the pairs and edges this run's data
-   needs (for K1, K3 and K4's backward only the pairs inside the cutoff,
+   needs (for the row-tile kernels, K1, K3, K4 and K5's backward, only
+   the pairs inside the cutoff,
    the packed mask the kernels read and, for K1, the dense E_pair grid
    written once and the compact residual of the live pairs; the bound as
    counted before, with the geometry of every masked pair and for K1 the
@@ -68,11 +70,12 @@ the bundle's seed.  Phases:
    64-replica inputs tiled), where the profiler's records of one call are
    split by pass: the launches before the solve (prologue), the solve
    with the Bethe edge pass, and the launches after (epilogue).  K1's
-   forward and backward, K3 and K4's backward (the row-tile kernels with
-   the per-replica cull, and K1's backward over the forward's residual)
-   are timed at 64 and 512 replicas too, their device time split by
-   launch, beside their bounds, with a `[cull]` line each: tiles walked
-   out of all tiles and live pairs out of masked pairs, the kernel's
+   forward and backward, K3, K4's forward and backward and K5's backward
+   (the row-tile kernels with the per-replica cull, and K1's backward over
+   the forward's residual) are timed at 64 and 512 replicas too, their
+   device time split by launch, beside their bounds, with a `[cull]` line
+   each: tiles walked out of all tiles and live pairs out of masked pairs
+   (K5: also by row tile, a `[balance]` line), the kernel's
    decisions held to `cull_tiles` again (K1: and its residual to
    `pack_residuals`, both kernels against the plain versions on the first
    replicas); a `[resid]` line gives the bytes of K1's residual a replica
@@ -161,7 +164,7 @@ OPS_SWEEP_EDGE, OPS_BETHE_EDGE = 110, 540
 COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
-ROW_TILE_REPLICAS = (64, 512)    # K3 and K4's backward, by launch, at both
+ROW_TILE_REPLICAS = (64, 512)    # the row-tile kernels, by launch, at both
 # The bundles' BP kernels are held against their plain versions at tol 1e-6
 # (values; the deviation's float32 rounding, a few 1e-6 at 76-124 residues,
 # decides there when either version stops, so sweep counts are printed) and
@@ -1177,26 +1180,42 @@ def compare_unfused(dev, gen, base, path):
     p5 = qs.quadspline_fwd(ps, tab, beads, beads, plain=True)
     errs["quadspline_fwd"] = compare(["K5 fwd grid"], (k5,), (p5,), 1e-5)
     g5 = randn(k5)
-    kb = qs.quadspline_bwd(ps, tab, beads, beads, g5)
+    keep = qs.cull_tiles(ps, tab, beads, beads)
+    flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+    kb = qs.quadspline_bwd(ps, tab, beads, beads, g5, flags=flags)
     repeatable("K5 bwd", kb, qs.quadspline_bwd(ps, tab, beads, beads, g5))
+    masked, live = spline_pairs(ps, tab, beads, beads)
+    check_cull(f"K5 bwd, {COMPARE_REPLICAS} replicas", flags, keep, live,
+               masked)
     errs["quadspline_bwd"] = compare(
         ["K5 bwd d1", "K5 bwd d2"], kb,
         qs.quadspline_bwd(ps, tab, beads, beads, g5, plain=True), 1e-4)
+    dirty = g5.clone()
+    dirty[~qs.live_pairs(ps, tab, beads, beads)] = float("nan")
+    if not all(torch.isfinite(a).all() and a.equal(b) for a, b in zip(
+            qs.quadspline_bwd(ps, tab, beads, beads, dirty), kb)):
+        raise AssertionError("K5 bwd: NaN in dead slots of the grid "
+                             "cotangent moved the result")
+    log("  K5 bwd: bitwise repeatable; NaN in dead grid slots leaves it "
+        "unchanged")
 
     errs["colsum_fwd"] = errs["colsum_bwd"] = 0.0
     for name, cps, table, x1, x2, w1 in covs:
         ctab = cps.table(table)
-        k4 = qs.colsum_fwd(cps, ctab, x1, x2, w1)
+        keep = qs.cull_tiles(cps, ctab, x1, x2)
+        masked, live = spline_pairs(cps, ctab, x1, x2)
+        flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+        k4 = qs.colsum_fwd(cps, ctab, x1, x2, w1, flags=flags)
         repeatable("K4 fwd", (k4,), (qs.colsum_fwd(cps, ctab, x1, x2, w1),))
+        check_cull(f"K4 fwd {name}, {COMPARE_REPLICAS} replicas", flags,
+                   keep, live, masked)
         errs["colsum_fwd"] = max(errs["colsum_fwd"], compare(
             [f"K4 fwd {name}"], (k4,),
             (qs.colsum_fwd(cps, ctab, x1, x2, w1, plain=True),), 1e-5))
         g4 = randn(k4)
-        keep = qs.cull_tiles(cps, ctab, x1, x2)
         flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
         kb = qs.colsum_bwd(cps, ctab, x1, x2, w1, g4, flags=flags)
         repeatable("K4 bwd", kb, qs.colsum_bwd(cps, ctab, x1, x2, w1, g4))
-        masked, live = spline_pairs(cps, ctab, x1, x2)
         check_cull(f"K4 bwd {name}, {COMPARE_REPLICAS} replicas", flags,
                    keep, live, masked)
         errs["colsum_bwd"] = max(errs["colsum_bwd"], compare(
@@ -1266,33 +1285,21 @@ def time_unfused(dev, gen, base, path):
             lambda: bp_bethe_planes_fwd(st, E1, P, adj, warm, plain=True)),
     }
 
-    def statics(sp, t):
-        return (sp.t1, sp.t2, sp.mask, sp.tile_alive, t.coef)
-
     with torch.no_grad():
-        d5 = qs.quadspline_bwd(ps, tab, beads, beads, g5)
-        # the K5 backward needs the cotangent only of pairs inside the
-        # cutoff; the rest of the grid is never read
-        live5 = spline_pairs(ps, tab, beads, beads)[1]
-        bounds = {
-            "quadspline_fwd": bound(
-                nbytes(beads, *statics(ps, tab), grid),
-                spline_ops(ps, tab, beads, beads, OPS_VALUE)),
-            "quadspline_bwd": bound(
-                nbytes(beads, *statics(ps, tab), *d5)
-                + live5 * g5.element_size(),
-                spline_ops(ps, tab, beads, beads, OPS_BWD)),
-        }
-        f_bytes = f_ops = 0
-        for cps, ctab, x1, x2, w1 in cov_ops:
-            out = qs.colsum_fwd(cps, ctab, x1, x2, w1)
-            f_bytes += nbytes(x1, x2, w1, *statics(cps, ctab), out)
-            f_ops += spline_ops(cps, ctab, x1, x2, OPS_VALUE + 2)
-        bounds["colsum_fwd"] = bound(f_bytes, f_ops)
+        bounds = {"quadspline_fwd": bound(
+            nbytes(beads, ps.t1, ps.t2, ps.mask, ps.tile_alive, tab.coef,
+                   grid),
+            spline_ops(ps, tab, beads, beads, OPS_VALUE))}
+        before = {}
+        bounds["quadspline_bwd"], before["quadspline_bwd"] = k5_bwd_bounds(
+            ps, tab, beads, g5, qs.quadspline_bwd(ps, tab, beads, beads, g5),
+            spline_pairs(ps, tab, beads, beads))
+        pairs = [spline_pairs(*o[:4]) for o in cov_ops]
+        bounds["colsum_fwd"], before["colsum_fwd"] = k4_fwd_bounds(
+            cov_ops, [qs.colsum_fwd(*o) for o in cov_ops], pairs)
         calls = [(*o, g) for o, g in zip(cov_ops, g4)]
-        bounds["colsum_bwd"], before = k4_bwd_bounds(
-            calls, [qs.colsum_bwd(*c) for c in calls],
-            [spline_pairs(*c[:4]) for c in calls])
+        bounds["colsum_bwd"], before["colsum_bwd"] = k4_bwd_bounds(
+            calls, [qs.colsum_bwd(*c) for c in calls], pairs)
         out6 = bp_bethe_planes_fwd(st, E1, P, adj, warm)
         # 36 factors of each adjacent directed edge
         bounds["bp_bethe_planes"] = bp_bound(
@@ -1301,9 +1308,18 @@ def time_unfused(dev, gen, base, path):
     lat = {"bp_bethe_planes": sweep_latency(
         lambda s: bp_bethe_planes_fwd(s, E1, P, adj, warm), st, out6[6])}
     del sys_p, outs, grid, out6, cold
-    rows = {}
+    rows = {"quadspline_bwd": {}, "colsum_fwd": {}, "colsum_bwd": {}}
     for n in ROW_TILE_REPLICAS:
-        rows[n] = row_tile_k4(system, base, n, gen, dev)
+        pos = perturbed(base, n, gen, dev)
+        with torch.no_grad():
+            _, outs, _, _ = system.evaluate(pos)
+            covs, rot_ops = unfused_operands(system, outs)
+        del outs
+        for nm, rec in row_tile_k4(covs, n, gen, dev).items():
+            rows[nm][n] = rec
+        rows["quadspline_bwd"][n] = row_tile_k5(rot_ops, n, gen, dev)
+        del covs, rot_ops
+        torch.cuda.empty_cache()
     del system
     passes = {}
     for n in BP_TIME_REPLICAS:
@@ -1315,27 +1331,57 @@ def time_unfused(dev, gen, base, path):
         del e1, pl, ad, w
     del P
     torch.cuda.empty_cache()
-    return res, bounds, {"colsum_bwd": before}, lat, \
-        {"bp_bethe_planes": passes}, {"colsum_bwd": rows}
+    return res, bounds, before, lat, {"bp_bethe_planes": passes}, rows
+
+
+def spline_bounds(parts):
+    """The bounds of a row-tile spline kernel over its calls, `parts`
+    [(bytes of its inputs but the mask and of its outputs, spline statics,
+    masked pairs, live pairs, operations a live pair)]: the live pairs'
+    work alone, with each input read once (the packed mask words the
+    kernel reads) and each output written once; and the bound as the dense
+    designs counted it, kept to compare with them: also the geometry of
+    every masked pair, and the dense uint8 mask."""
+    n_live = n_table = ops_live = ops_table = 0
+    for n_bytes, sp, masked, live, per_live in parts:
+        n_live += n_bytes + nbytes(sp.mask_words)
+        n_table += n_bytes + nbytes(sp.mask)
+        ops_live += live * per_live
+        ops_table += masked * OPS_GEOM + live * (per_live - OPS_GEOM)
+    return bound(n_live, ops_live), bound(n_table, ops_table)
 
 
 def k4_bwd_bounds(calls, outs, pairs):
-    """K4 backward's bounds over its calls [(spline statics, table, x1, x2,
-    w1, g)] with outputs `outs` and (masked, live) pairs `pairs`: the live
-    pairs' work alone, with each input read once (the packed mask the
-    kernel reads) and each output written once; and the bound as PRs 2-4
-    counted it, kept to compare with them: also the geometry of every
-    masked pair, and the dense uint8 mask."""
-    n_live = n_table = ops_live = ops_table = 0
-    for (cps, ctab, x1, x2, w1, g), d, (masked, live) in zip(calls, outs,
-                                                             pairs):
-        common = nbytes(x1, x2, w1, g, cps.t1, cps.t2, cps.tile_alive,
-                        ctab.coef, *d)
-        n_live += common + nbytes(cps.mask_words)
-        n_table += common + nbytes(cps.mask)
-        ops_live += live * (OPS_BWD + 5)
-        ops_table += masked * OPS_GEOM + live * (OPS_BWD + 5 - OPS_GEOM)
-    return bound(n_live, ops_live), bound(n_table, ops_table)
+    """K4 backward's bounds (`spline_bounds`) over its calls [(spline
+    statics, table, x1, x2, w1, g)] with outputs `outs` and (masked, live)
+    pairs `pairs`."""
+    return spline_bounds(
+        (nbytes(x1, x2, w1, g, cps.t1, cps.t2, cps.tile_alive, ctab.coef,
+                *d), cps, masked, live, OPS_BWD + 5)
+        for (cps, ctab, x1, x2, w1, g), d, (masked, live)
+        in zip(calls, outs, pairs))
+
+
+def k4_fwd_bounds(calls, outs, pairs):
+    """K4 forward's bounds (`spline_bounds`) over its calls [(spline
+    statics, table, x1, x2, w1)] with outputs `outs` and (masked, live)
+    pairs `pairs`: a live pair's value, its weight's multiply and add."""
+    return spline_bounds(
+        (nbytes(x1, x2, w1, cps.t1, cps.t2, cps.tile_alive, ctab.coef, out),
+         cps, masked, live, OPS_VALUE + 2)
+        for (cps, ctab, x1, x2, w1), out, (masked, live)
+        in zip(calls, outs, pairs))
+
+
+def k5_bwd_bounds(ps, tab, beads, g, d, pairs):
+    """K5 backward's bounds (`spline_bounds`) for the bead set `beads`
+    (read once: rows and columns are the same sites), the grid cotangent g
+    of which only the live pairs' entries are read, the outputs d and
+    (masked, live) pairs `pairs`."""
+    masked, live = pairs
+    return spline_bounds([(
+        nbytes(beads, ps.t1, ps.t2, ps.tile_alive, tab.coef, *d)
+        + live * g.element_size(), ps, masked, live, OPS_BWD)])
 
 
 def log_bounds(label, n, rec):
@@ -1345,45 +1391,111 @@ def log_bounds(label, n, rec):
         f"({rec['bound_table_ms'][1]})")
 
 
-def row_tile_k4(system, base, n, gen, dev):
-    """K4's backward, both coverage calls of one evaluation, at n replicas
-    of perturbed RNase A (operands from the kernels' own evaluation): each
-    call's cull held to `cull_tiles`, the pair's time split by launch, its
-    bounds (`k4_bwd_bounds`)."""
+def row_tile_k4(covs, n, gen, dev):
+    """K4's forward and backward, both coverage calls of one evaluation, at
+    n replicas of perturbed RNase A (`covs`: the operands from the
+    kernels' own evaluation): each call's cull held to `cull_tiles`, the
+    first COMPARE_REPLICAS against the plain versions, bitwise repeatable,
+    each kernel's time split by launch, its bounds (`k4_fwd_bounds`,
+    `k4_bwd_bounds`)."""
     import torch
     from upside_md_torch.ops import quadspline as qs
-    pos = perturbed(base, n, gen, dev)
+    first = slice(0, COMPARE_REPLICAS)
     with torch.no_grad():
-        _, outs, _, _ = system.evaluate(pos)
-        covs, _ = unfused_operands(system, outs)
-        calls, outs_, pairs, rec = [], [], [], {"cull": {}}
+        calls, outs_f, outs_b, pairs = [], [], [], []
+        fwd, bwd = {"cull": {}}, {"cull": {}}
         for name, cps, table, x1, x2, w1 in covs:
             ctab = cps.table(table)
             g = torch.randn(x2[..., 0].shape, generator=gen, device=dev)
             keep = qs.cull_tiles(cps, ctab, x1, x2)
-            flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
-            d = qs.colsum_bwd(cps, ctab, x1, x2, w1, g, flags=flags)
             masked, live = spline_pairs(cps, ctab, x1, x2)
-            rec["cull"][name] = check_cull(
-                f"K4 bwd {name}, RNase A, {n} replicas", flags, keep, live,
-                masked)
-            first = slice(0, COMPARE_REPLICAS)
-            compare([f"K4 bwd {name} at {n} replicas, the first "
-                     f"{COMPARE_REPLICAS}, d1", f"K4 bwd {name} at {n} "
-                     f"replicas, the first {COMPARE_REPLICAS}, d2"],
-                    [t[first] for t in d],
-                    qs.colsum_bwd(cps, ctab, x1[first], x2[first],
-                                  w1[first], g[first], plain=True), 1e-4)
+            for label, rec, run, plain, outs, tol in (
+                    ("K4 fwd", fwd,
+                     lambda **kw: (qs.colsum_fwd(cps, ctab, x1, x2, w1,
+                                                 **kw),),
+                     lambda: (qs.colsum_fwd(cps, ctab, x1[first], x2[first],
+                                            w1[first], plain=True),),
+                     outs_f, 1e-5),
+                    ("K4 bwd", bwd,
+                     lambda **kw: qs.colsum_bwd(cps, ctab, x1, x2, w1, g,
+                                                **kw),
+                     lambda: qs.colsum_bwd(cps, ctab, x1[first], x2[first],
+                                           w1[first], g[first], plain=True),
+                     outs_b, 1e-4)):
+                flags = torch.full(keep.shape, 7, dtype=torch.uint8,
+                                   device=dev)
+                d = run(flags=flags)
+                repeatable(f"{label} {name} at {n} replicas", d, run())
+                rec["cull"][name] = check_cull(
+                    f"{label} {name}, RNase A, {n} replicas", flags, keep,
+                    live, masked)
+                compare([f"{label} {name} at {n} replicas, the first "
+                         f"{COMPARE_REPLICAS}, output {k}"
+                         for k in range(len(d))],
+                        [t[first] for t in d], plain(), tol)
+                outs.append(d[0] if label == "K4 fwd" else d)
             calls.append((cps, ctab, x1, x2, w1, g))
-            outs_.append(d)
             pairs.append((masked, live))
-        rec.update(time_launches(
+        fwd.update(time_launches(
+            "colsum_fwd (K4 fwd, both calls)",
+            lambda: [qs.colsum_fwd(*c[:5]) for c in calls], n))
+        fwd["bound_ms"], fwd["bound_table_ms"] = k4_fwd_bounds(
+            [c[:5] for c in calls], outs_f, pairs)
+        bwd.update(time_launches(
             "colsum_bwd (K4 bwd, both calls)",
             lambda: [qs.colsum_bwd(*c) for c in calls], n))
-        rec["bound_ms"], rec["bound_table_ms"] = k4_bwd_bounds(calls, outs_,
+        bwd["bound_ms"], bwd["bound_table_ms"] = k4_bwd_bounds(calls, outs_b,
                                                                pairs)
-    log_bounds("K4 bwd", n, rec)
-    del outs, covs, calls, outs_
+    log_bounds("K4 fwd", n, fwd)
+    log_bounds("K4 bwd", n, bwd)
+    del calls, outs_f, outs_b
+    torch.cuda.empty_cache()
+    return {"colsum_fwd": fwd, "colsum_bwd": bwd}
+
+
+def row_tile_k5(rot_ops, n, gen, dev):
+    """K5's backward at n replicas of perturbed RNase A (`rot_ops`: the
+    rotamer beads of the kernels' own evaluation) under a random grid
+    cotangent: its cull held to `cull_tiles`, the first COMPARE_REPLICAS
+    against the plain version, bitwise repeatable, its time split by
+    launch, its bounds (`k5_bwd_bounds`)."""
+    import torch
+    from upside_md_torch.ops import quadspline as qs
+    c, p, beads, _ = rot_ops
+    ps = c["spline"]
+    tab = ps.table(p["interaction_param"])
+    first = slice(0, COMPARE_REPLICAS)
+    with torch.no_grad():
+        g = torch.randn((n, ps.n1, ps.n2), generator=gen, device=dev)
+        keep = qs.cull_tiles(ps, tab, beads, beads)
+        flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+        d = qs.quadspline_bwd(ps, tab, beads, beads, g, flags=flags)
+        repeatable(f"K5 bwd at {n} replicas", d,
+                   qs.quadspline_bwd(ps, tab, beads, beads, g))
+        masked, live = spline_pairs(ps, tab, beads, beads)
+        rec = {"cull": check_cull(f"K5 bwd, RNase A, {n} replicas", flags,
+                                  keep, live, masked)}
+        # the triangle's load by row tile: tiles walked and live pairs, a
+        # replica
+        live_rt = torch.nn.functional.pad(
+            qs.live_pairs(ps, tab, beads, beads).sum((0, 2)),
+            (0, -ps.n1 % 32)).reshape(-1, 32).sum(1)
+        rec["walked_by_row_tile"] = (keep.sum((0, 2)) / n).tolist()
+        rec["live_by_row_tile"] = (live_rt / n).tolist()
+        log(f"[balance] K5 bwd at {n} replicas, a replica by row tile: "
+            f"tiles walked {[round(v, 2) for v in rec['walked_by_row_tile']]}"
+            f", live pairs {[round(v, 1) for v in rec['live_by_row_tile']]}")
+        compare([f"K5 bwd at {n} replicas, the first {COMPARE_REPLICAS}, "
+                 f"d{k}" for k in (1, 2)], [t[first] for t in d],
+                qs.quadspline_bwd(ps, tab, beads[first], beads[first],
+                                  g[first], plain=True), 1e-4)
+        rec.update(time_launches(
+            "quadspline_bwd (K5 bwd)",
+            lambda: qs.quadspline_bwd(ps, tab, beads, beads, g), n))
+        rec["bound_ms"], rec["bound_table_ms"] = k5_bwd_bounds(
+            ps, tab, beads, g, d, (masked, live))
+    log_bounds("K5 bwd", n, rec)
+    del g, d
     torch.cuda.empty_cache()
     return rec
 

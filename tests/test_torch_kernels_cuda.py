@@ -18,12 +18,14 @@ the layout of the solve its edge count calls for (messages and factors in
 shared memory, messages only, global scratch); and again at BP tol 1e-6,
 values rel 1e-4 (there float32 rounding of the deviation decides the stop,
 so sweep counts are not compared).  Kernels must be bitwise repeatable.
-K1, K3 and K4's backward, the row-tile kernels with the per-replica cull,
-are also run on layouts that cull every tile, none, different tiles in
-different replicas, and hold pairs at the cutoff +- 1e-5 A on tile
-corners: against the plain versions as above, their tile decisions equal
-to `cull_tiles`, NaN/Inf in dead and culled slots leaving the backwards
-unmoved.
+K1, K3, K4's forward and backward and K5's backward, the row-tile kernels
+with the per-replica cull, are also run on layouts that cull every tile,
+none, different tiles in different replicas, and hold pairs at the cutoff
++- 1e-5 A on tile corners (K5 on the rotamer grid's shape: one bead set
+on both sides, the mask upper-triangular across residues): against the
+plain versions as above, their tile decisions equal to `cull_tiles`,
+NaN/Inf in dead and culled slots (cotangents, K4's row weights) leaving
+the results unmoved.
 The layouts (chain-ordered sites, corner pairs) serve the CPU tests of the
 cull too (tests/test_torch_tile_cull.py).
 """
@@ -167,6 +169,31 @@ def spline_case(seed, n1=100, n2=135, n_t=4, ka=8, k=9, n_rep=3, step=3.8,
             _f32(np.concatenate(x2), device), w1)
 
 
+def rotamer_mask(res):
+    """(n, n) bool: the rotamer grid's mask, upper-triangular across
+    residues (nodes/rotamer.py)."""
+    res = np.asarray(res)
+    idx = np.arange(len(res))
+    return (idx[:, None] < idx[None, :]) & (res[:, None] != res[None, :])
+
+
+def rotamer_case(seed, n=135, n_t=4, ka=8, k=9, n_rep=3, step=3.8,
+                 device=None, steps=None):
+    """K5's operands on the rotamer grid's shape (ps, tab, x): one bead
+    set x (B, n, 6) for rows and columns, two beads a residue, the mask
+    upper-triangular across residues, the beads spread along a random
+    walk of n / 2 steps of `step` A (or, per replica, of `steps`), about
+    two a step, so that neighbouring residues lie close at any step."""
+    rng = np.random.default_rng(seed)
+    table = _f32(0.5 * rng.normal(size=(n_t, n_t, 2 * ka + 2 * k)), device)
+    t = rng.integers(0, n_t, n)
+    steps = steps or [step] * n_rep
+    x = np.concatenate([chain_sites(rng, walk(rng, n // 2, st), n, 1)
+                        for st in steps])
+    ps = qs.PairSpline(t, t, rotamer_mask(np.arange(n) // 2), device)
+    return ps, ps.table(table), _f32(x, device)
+
+
 def corner_layout(n1, n2, i, j, p, q, device, seed=0):
     """(x1 (1, n1, 6), x2 (1, n2, 6)): row i sits at p and column j at q,
     at the facing corners of their tiles' boxes: the other sites of i's
@@ -184,6 +211,23 @@ def corner_layout(n1, n2, i, j, p, q, device, seed=0):
     x2[cj, :3] = q + np.abs(rng.normal(0.0, 2.0, (cj.sum(), 3)))
     x1[i, :3], x2[j, :3] = p, q
     return _f32(x1[None], device), _f32(x2[None], device)
+
+
+def corner_layout_one(n, i, j, p, q, device, seed=0):
+    """x (1, n, 6), one site set for rows and columns (K5's rotamer
+    grid): site i at p and site j at q, of different tiles, at the facing
+    corners of their tiles' boxes as in `corner_layout`; each other tile's
+    sites at one point, 1000 A from the others."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, 6))
+    x[:, 3] = 1.0
+    x[:, :3] = 1000.0 * (1 + np.arange(n) // 32)[:, None]
+    ri = np.arange(n) // 32 == i // 32
+    cj = np.arange(n) // 32 == j // 32
+    x[ri, :3] = p - np.abs(rng.normal(0.0, 2.0, (ri.sum(), 3)))
+    x[cj, :3] = q + np.abs(rng.normal(0.0, 2.0, (cj.sum(), 3)))
+    x[i, :3], x[j, :3] = p, q
+    return _f32(x[None], device)
 
 
 @pytest.mark.requires_cuda
@@ -504,7 +548,7 @@ def test_bp_planes_kernel_symmetrises_adjacency(cuda):
         assert _rel(k[i], p[i]) < 1e-4
 
 
-# the row-tile backwards with the per-replica cull (K3, K4's backward):
+# the row-tile kernels with the per-replica cull (K3, K4, K5's backward):
 # layouts that cull every tile, none, tiles that differ between replicas,
 # and pairs at the cutoff on tile corners
 CULL_STEPS = {"none_culled": [0.02] * 3, "all_culled": [40.0] * 3,
@@ -535,10 +579,10 @@ def _k3_layout(layout, env_band, device):
     return prep, (x1.contiguous(), w1, x2, wcol)
 
 
-def _check_rows(got, want):
+def _check_rows(got, want, tol=1e-4):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
-        assert _rel(a, b) < 1e-4
+        assert _rel(a, b) < tol
 
 
 @pytest.mark.requires_cuda
@@ -652,32 +696,77 @@ def _k4_layout(layout, device):
     return ps, tab, x1, x2, w1
 
 
+def _k5_layout(layout, device):
+    """K5's operands (ps, tab, x1, x2) on the rotamer grid's shape; x1 is
+    x2 (one bead set) but where every tile is to be culled."""
+    if layout == "at_cutoff":
+        ps, tab, x = rotamer_case(13, n_rep=4, device=device)
+        x = x.clone()
+        u = np.array([0.7, 0.2, 1.0]) / np.linalg.norm([0.7, 0.2, 1.0])
+        p = np.array([1.0, -2.0, 3.0])
+        cut = tab.kcut / tab.inv_dx
+        for r, (i, j, off) in enumerate(((31, 32, -1e-5), (0, 44, 1e-5),
+                                         (40, 134, -1e-5), (63, 64, 1e-5))):
+            assert ps.mask[i, j]
+            x[r, :, :3] = corner_layout_one(ps.n1, i, j, p,
+                                            p + (cut + off) * u, device,
+                                            seed=r)[0, :, :3]
+        return ps, tab, x, x
+    ps, tab, x = rotamer_case(14, device=device, steps=CULL_STEPS[layout])
+    if layout == "all_culled":              # rows far from the columns
+        x1 = x.clone()
+        x1[..., :3] += 1000.0
+        return ps, tab, x1, x
+    return ps, tab, x, x
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("layout", ["none_culled", "all_culled", "mixed",
                                     "at_cutoff"])
-def test_k4_bwd_cull_layouts(cuda, layout):
-    """K4's backward against its plain version (rel 1e-4), bitwise
-    repeatable, its cull decisions equal to `cull_tiles` (with the static
-    mask's empty tiles), and unmoved by NaN/Inf in the column cotangent and
-    row weights where no live pair reads them."""
+@pytest.mark.parametrize("kernel", ["k4_bwd", "k4_fwd", "k5_bwd"])
+def test_k4_bwd_cull_layouts(cuda, kernel, layout):
+    """K4's backward and forward and K5's backward against their plain
+    versions (rel 1e-4, the forward 1e-5), bitwise repeatable, their cull
+    decisions equal to `cull_tiles` (with the static mask's empty tiles),
+    and unmoved by NaN/Inf where no live pair reads them: K4's column
+    cotangent and row weights, K5's grid cotangent."""
     from upside_md_torch.ops import tile_cull as tc
-    ps, tab, x1, x2, w1 = _k4_layout(layout, cuda)
+    if kernel == "k5_bwd":
+        ps, tab, x1, x2 = _k5_layout(layout, cuda)
+        w1 = None
+    else:
+        ps, tab, x1, x2, w1 = _k4_layout(layout, cuda)
     ps.tile_alive[1, 2] = 0               # a tile the static mask empties
     ps.mask[32:64, 64:96] = 0
     ps.mask_words = tc.mask_words(ps.mask.cpu().numpy()).to(cuda)
     B = x1.shape[0]
     gen = torch.Generator(device=cuda).manual_seed(5)
-    g = torch.randn((B, ps.n2), generator=gen, device=cuda)
+    live = qs.live_pairs(ps, tab, x1, x2)
+    if kernel == "k4_bwd":
+        g = torch.randn((B, ps.n2), generator=gen, device=cuda)
+        tol = 1e-4
+
+        def run(g, w1, **kw):
+            return qs.colsum_bwd(ps, tab, x1, x2, w1, g, **kw)
+    elif kernel == "k4_fwd":
+        g, tol = None, 1e-5
+
+        def run(g, w1, **kw):
+            return (qs.colsum_fwd(ps, tab, x1, x2, w1, **kw),)
+    else:
+        g = torch.randn((B, ps.n1, ps.n2), generator=gen, device=cuda)
+        tol = 1e-4
+
+        def run(g, w1, **kw):
+            return qs.quadspline_bwd(ps, tab, x1, x2, g, **kw)
     flags = torch.full((B,) + tuple(ps.tile_alive.shape), 7,
                        dtype=torch.uint8, device=cuda)
-    bk = qs.colsum_bwd(ps, tab, x1, x2, w1, g, flags=flags)
-    assert all(torch.equal(a, b) for a, b in zip(
-        bk, qs.colsum_bwd(ps, tab, x1, x2, w1, g)))
-    _check_rows(bk, qs.colsum_bwd(ps, tab, x1, x2, w1, g, plain=True))
+    bk = run(g, w1, flags=flags)
+    assert all(torch.equal(a, b) for a, b in zip(bk, run(g, w1)))
+    _check_rows(bk, run(g, w1, plain=True), tol)
     keep = qs.cull_tiles(ps, tab, x1, x2)
     assert torch.equal((flags & tc.KEPT) != 0, keep)
     assert not keep[:, 1, 2].any()
-    live = qs.live_pairs(ps, tab, x1, x2)
     if layout == "none_culled":
         assert keep.sum() == B * ps.tile_alive.sum()
     elif layout == "all_culled":
@@ -685,10 +774,17 @@ def test_k4_bwd_cull_layouts(cuda, layout):
         assert all(not a.any() for a in bk)
     elif layout == "mixed":
         assert not torch.equal(keep[0], keep[2])
-    gd, wd = g.clone(), w1.clone()
-    gd[~live.any(1)] = float("nan")
-    wd[~live.any(2)] = float("inf")
-    dirty = qs.colsum_bwd(ps, tab, x1, x2, wd, gd)
+    if kernel == "k5_bwd":
+        gd = g.clone()
+        gd[~live] = float("nan")
+        wd = None
+    else:
+        wd = w1.clone()
+        wd[~live.any(2)] = float("inf")
+        gd = None if g is None else g.clone()
+        if gd is not None:
+            gd[~live.any(1)] = float("nan")
+    dirty = run(gd, wd)
     assert all(torch.isfinite(a).all() and torch.equal(a, b)
                for a, b in zip(dirty, bk))
 
@@ -696,9 +792,10 @@ def test_k4_bwd_cull_layouts(cuda, layout):
 @pytest.mark.requires_cuda
 def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
     """With enough replicas that the row tiles alone fill the card, K1's
-    forward and backward, K3 and K4's backward give each row tile one warp
-    (four below that): against their plain versions (K1 on the first four
-    replicas), bitwise repeatable."""
+    forward and backward, K3, K4's forward and backward and K5's backward
+    give each row tile one warp (four below that): against their plain
+    versions (K1 and K5 on the first four replicas), bitwise
+    repeatable."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     prep, x = fused_case(15, True, 3.8, cuda, n_rep=1)
     n_rep = -(-sms * 32 // -(-prep.n1 // 32)) + 1
@@ -729,3 +826,22 @@ def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
     assert all(torch.equal(a, b) for a, b in zip(
         kb, qs.colsum_bwd(ps, tab, x1, x2, w1, gc)))
     _check_rows(kb, qs.colsum_bwd(ps, tab, x1, x2, w1, gc, plain=True))
+    k4 = qs.colsum_fwd(ps, tab, x1, x2, w1)
+    assert torch.equal(k4, qs.colsum_fwd(ps, tab, x1, x2, w1))
+    _check_rows((k4,), (qs.colsum_fwd(ps, tab, x1, x2, w1, plain=True),),
+                1e-5)
+
+    # K5's backward on the rotamer grid's shape, the first four replicas
+    # against the plain version
+    ps, tab, x = rotamer_case(17, n_rep=1, device=cuda)
+    n_rep = -(-sms * 32 // -(-ps.n1 // 32)) + 1
+    x = x.repeat(n_rep, 1, 1)
+    x = x + 0.2 * torch.randn(x.shape, device=cuda, generator=gen) \
+        * torch.tensor([1.0, 1, 1, 0, 0, 0], device=cuda)
+    g = torch.randn((n_rep, ps.n1, ps.n2), generator=gen, device=cuda)
+    kb = qs.quadspline_bwd(ps, tab, x, x, g)
+    assert all(torch.equal(a, b) for a, b in zip(
+        kb, qs.quadspline_bwd(ps, tab, x, x, g)))
+    first = slice(0, 4)
+    _check_rows([t[first] for t in kb], qs.quadspline_bwd(
+        ps, tab, x[first], x[first], g[first], plain=True))

@@ -33,7 +33,7 @@ from upside_md_torch import DATA_DIR
 from upside_md_torch.config import bundle
 from upside_md_torch.md.integrator import integration_cycle
 from upside_md_torch.md.sim import Simulation
-from upside_md_torch.md.thermostat import OUThermostat
+from upside_md_torch.md.thermostat import OUThermostat, thermalize
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -141,6 +141,19 @@ def test_thermostat_matches_jax():
             np.stack(noise)))
     np.testing.assert_allclose(got_t.numpy(), np.stack(got_j), rtol=1e-12)
 
+
+
+def test_thermalize_on_the_cpu_scales_with_temperature():
+    """`thermalize` runs on the CPU when the caller asks (its default is the
+    card, as `System`'s): momenta of the requested shape whose variance per
+    replica is the replica's temperature."""
+    gen = torch.Generator().manual_seed(4)
+    temps = torch.tensor([0.5, 1.0, 2.0], dtype=torch.float64)
+    mom = thermalize((3, 4000, 3), temps, gen, torch.float64, device="cpu")
+    assert mom.shape == (3, 4000, 3) and mom.device.type == "cpu"
+    var = mom.reshape(3, -1).var(1)
+    np.testing.assert_allclose((var / temps).numpy(), 1.0, rtol=0.05)
+    assert var[2] > 3.0 * var[0]
 
 def test_regenerated_bundle_matches_committed(tmp_path):
     spec = importlib.util.spec_from_file_location(

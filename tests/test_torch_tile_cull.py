@@ -1,14 +1,15 @@
-"""The per-replica tile cull of K3 and K4's backward (`ops/tile_cull.py`),
-on the CPU.
+"""The per-replica tile cull of the row-tile kernels (`ops/tile_cull.py`):
+K3, K4's forward and backward and K5's backward, on the CPU.
 
 `tile_cull` is the plain version of the kernels' cull (csrc/pair_cull.cuh)
 and gives their decisions bit for bit, so what holds here for it holds for
 the kernels: it never drops a pair inside a cutoff (random layouts, pairs
 at the cutoff +- 1e-5 A on tile corners, row tiles that straddle bands, n
-not a multiple of 32), and the plain backwards restricted to the tiles it
-keeps equal the unrestricted ones exactly (culled pairs contribute
-selected zeros).  The kernels themselves are held to it on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py).
+not a multiple of 32, K5 on the rotamer grid's shape: one bead set on both
+sides, the mask upper-triangular across residues), and the plain versions
+restricted to the tiles it keeps equal the unrestricted ones exactly
+(culled pairs contribute selected zeros).  The kernels themselves are held
+to it on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
 
 import numpy as np
@@ -30,6 +31,15 @@ def fused_case(seed, env_band=True, step=3.8):
 
 def spline_case(seed, step=3.8):
     return kc.spline_case(seed, step=step, device=CPU)
+
+
+def spline_sites(shape, seed, step):
+    """(ps, tab, x1, x2): K4's operands, or ("k5") K5's on the rotamer
+    grid's shape, x1 and x2 one bead set."""
+    if shape == "k5":
+        ps, tab, x = kc.rotamer_case(seed, step=step, device=CPU)
+        return ps, tab, x, x
+    return spline_case(seed, step=step)[:4]
 
 
 def _min_tile_dist(x1, x2):
@@ -118,11 +128,16 @@ def test_fused_cull_keeps_every_live_pair(seed, step):
             assert not keep[:, ~env_tiles].all()    # the cull does cull
 
 
-@pytest.mark.parametrize("seed,step", [(0, 3.8), (1, 6.0), (2, 12.0)])
-def test_spline_cull_keeps_every_live_pair(seed, step):
-    """K4's cull: no live pair in a culled tile, the static mask's empty
-    tiles culled too, culled tile pairs farther apart than the cutoff."""
-    ps, tab, x1, x2, _ = spline_case(seed, step=step)
+@pytest.mark.parametrize("seed,step,shape", [
+    pytest.param(seed, step, shape,
+                 id=f"{seed}-{step}" if shape == "k4" else f"k5-{seed}-{step}")
+    for shape in ("k4", "k5") for seed, step in ((0, 3.8), (1, 6.0),
+                                                 (2, 12.0))])
+def test_spline_cull_keeps_every_live_pair(seed, step, shape):
+    """K4's cull, and K5's on the rotamer grid's shape: no live pair in a
+    culled tile, the static mask's empty tiles culled too, culled tile
+    pairs farther apart than the cutoff."""
+    ps, tab, x1, x2 = spline_sites(shape, seed, step)
     ps.tile_alive[1, 0] = 0             # as if the mask emptied that tile
     ps.mask[32:64, 0:32] = 0
     keep = qs.cull_tiles(ps, tab, x1, x2)
@@ -145,7 +160,9 @@ def test_pairs_at_the_cutoff_on_tile_corners(offset, direction):
     and last rows and columns of their tiles (ragged last tiles too): the
     tile pair is kept (a pair just inside is live; the margin keeps the
     one just outside too), and at twice the margin beyond the cutoff it
-    is culled.  For K4, and for K3's pair and coverage bands."""
+    is culled.  For K4, for K3's pair and coverage bands, and for K5 on
+    the rotamer grid's shape (one bead set, sites i < j of different
+    residues)."""
     u = np.array(direction) / np.linalg.norm(direction)
     p = np.array([3.0, -2.0, 7.5])
     n1, n2 = 70, 45
@@ -154,23 +171,40 @@ def test_pairs_at_the_cutoff_on_tile_corners(offset, direction):
     tab = ps.table(torch.zeros((1, 1, 34)))
     prep, _ = fused_case(0, env_band=False)
     assert prep.r_b == 40 and prep.r_p == 77 and prep.n1 == 147
+
+    def two_sets(m1, m2):
+        return lambda i, j, q: kc.corner_layout(m1, m2, i, j, p, q, CPU)
+
     cases = [(lambda x1, x2: qs.cull_tiles(ps, tab, x1, x2),
               lambda x1, x2: qs.live_pairs(ps, tab, x1, x2),
-              n1, n2, tab.kcut / tab.inv_dx, ij)
+              two_sets(n1, n2), tab.kcut / tab.inv_dx, ij)
              for ij in ((31, 32), (32, 31), (64, 0), (69, 44), (0, 44))]
     # K3: inside the row's own band cutoff, whatever its mask says
     cases += [(lambda x1, x2: fp.cull_tiles(prep, x1, x2),
                lambda x1, x2, k=kcut: fp._geometry(x1, x2)[1]
-               * prep.inv_dx < k, prep.n1, prep.n2, kcut / prep.inv_dx, ij)
+               * prep.inv_dx < k, two_sets(prep.n1, prep.n2),
+               kcut / prep.inv_dx, ij)
               for kcut, ijs in (
                   (prep.kcut_pair, ((95, 31), (96, 32), (146, 69),
                                     (127, 0))),
                   (prep.kcut_cov, ((0, 31), (31, 32), (32, 69))))
               for ij in ijs]
-    for cull, live, m1, m2, cut, (i, j) in cases:
+    # K5: one bead set on both sides, two beads a residue
+    ps5 = qs.PairSpline(np.zeros(n1, int), np.zeros(n1, int),
+                        kc.rotamer_mask(np.arange(n1) // 2), CPU)
+    tab5 = ps5.table(torch.zeros((1, 1, 34)))
+
+    def one_set(i, j, q):
+        x = kc.corner_layout_one(n1, i, j, p, q, CPU)
+        return x, x
+
+    cases += [(lambda x1, x2: qs.cull_tiles(ps5, tab5, x1, x2),
+               lambda x1, x2: qs.live_pairs(ps5, tab5, x1, x2),
+               one_set, tab5.kcut / tab5.inv_dx, ij)
+              for ij in ((31, 32), (0, 44), (32, 69), (63, 64))]
+    for cull, live, layout, cut, (i, j) in cases:
         for beyond in (0.0, 2 * tc.CULL_MARGIN):
-            x1, x2 = kc.corner_layout(m1, m2, i, j, p,
-                                      p + (cut + offset + beyond) * u, CPU)
+            x1, x2 = layout(i, j, p + (cut + offset + beyond) * u)
             keep = cull(x1, x2)
             assert bool(keep[0, i // 32, j // 32]) == (beyond == 0.0), \
                 (i, j, beyond)
@@ -215,18 +249,38 @@ def test_restricted_k3_plain_is_exact(env_band, step):
     assert not torch.equal(less[0], full[0])
 
 
-@pytest.mark.parametrize("step", [3.8, 12.0])
-def test_restricted_k4_plain_is_exact(step):
-    ps, tab, x1, x2, w1 = spline_case(6, step=step)
+@pytest.mark.parametrize("kernel,step", [
+    pytest.param(kernel, step,
+                 id=str(step) if kernel == "k4_bwd" else f"{kernel}-{step}")
+    for kernel in ("k4_bwd", "k4_fwd", "k5_bwd") for step in (3.8, 12.0)])
+def test_restricted_k4_plain_is_exact(kernel, step):
+    """The plain K4 backward and forward and K5 backward (on the rotamer
+    grid's shape) restricted to the tiles `cull_tiles` keeps equal the
+    unrestricted ones bit for bit; at the wide step the cull drops tiles
+    the static mask holds pairs in."""
+    gen = torch.Generator().manual_seed(1)
+    if kernel == "k5_bwd":
+        ps, tab, x1, x2 = spline_sites("k5", 6, step)
+        g = torch.randn((x1.shape[0], ps.n1, ps.n2), generator=gen)
+        full = qs.quadspline_bwd(ps, tab, x1, x2, g)
+        cut = qs.quadspline_bwd_plain(ps, tab, x1, x2, g,
+                                      keep=qs.cull_tiles(ps, tab, x1, x2))
+    else:
+        ps, tab, x1, x2, w1 = spline_case(6, step=step)
+        keep = qs.cull_tiles(ps, tab, x1, x2)
+        if kernel == "k4_fwd":
+            full = (qs.colsum_fwd(ps, tab, x1, x2, w1),)
+            cut = (qs.colsum_fwd_plain(ps, tab, x1, x2, w1, keep=keep),)
+        else:
+            g = torch.randn((x1.shape[0], ps.n2), generator=gen)
+            full = qs.colsum_bwd(ps, tab, x1, x2, w1, g)
+            cut = qs.colsum_bwd_plain(ps, tab, x1, x2, w1, g, keep=keep)
+            assert full[0][..., 6].abs().max() > 0
     keep = qs.cull_tiles(ps, tab, x1, x2)
-    g = torch.randn((x1.shape[0], ps.n2),
-                    generator=torch.Generator().manual_seed(1))
-    full = qs.colsum_bwd(ps, tab, x1, x2, w1, g)
-    cut = qs.colsum_bwd_plain(ps, tab, x1, x2, w1, g, keep=keep)
     assert all(torch.equal(a, b) for a, b in zip(full, cut))
-    assert full[0][..., 6].abs().max() > 0
+    assert all(a.abs().max() > 0 for a in full)
     if step > 10.0:
-        assert not keep.all()
+        assert not keep[:, ps.tile_alive.bool()].all()
 
 
 def test_flags_buffer_checks_the_callers_buffer():

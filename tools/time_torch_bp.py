@@ -6,12 +6,14 @@ one NVIDIA GPU, and prints one JSON object.  Which two:
   and K6 (`bp_bethe_planes_fwd`, RNase A): one wrapper call, warm-started
   from its own solution at the bundle's BP tolerance, at 64 and at 512
   replicas (the 64-replica inputs tiled);
-* with `--spline-bwd` the row-tile pair-spline backwards, K3
-  (`fused_pair_bwd_recompute`, no-env ubiquitin) and K4's backward
-  (`colsum_bwd`, both coverage calls of an RNase A evaluation): one
-  wrapper call under a random cotangent, at SPLINE_REPLICAS replicas of
-  perturbed positions (64 to 512, across the replica counts where the
-  kernels change from four warps a row tile to one);
+* with `--spline-bwd` the unfused pair-spline kernels and K3: K3
+  (`fused_pair_bwd_recompute`, no-env ubiquitin), K4's forward and
+  backward (`colsum_fwd`, `colsum_bwd`, both coverage calls of an RNase A
+  evaluation in one timed call) and K5's backward (`quadspline_bwd`, the
+  rotamer grid of RNase A): one wrapper call (the backwards under a
+  random cotangent), at SPLINE_REPLICAS replicas of perturbed positions
+  (64 to 512, across the replica counts where the row-tile kernels change
+  from four warps a row tile to one);
 * with `--fused` the fused pair block of the main path, K1's forward
   (`fused_pair_fwd` with its residual) and backward (`fused_pair_bwd`
   from that residual, under a random cotangent), and K3 with the env band
@@ -33,7 +35,9 @@ What it measures is chosen by flags (`--calls` when none is given):
               convergence test off: the floor float32 rounding leaves it
     --share   (--spline-bwd or --fused, with --calls) each kernel's
               share of the device time of an MD round on its bundle: its
-              device ms per call times its calls per evaluation, over the
+              device ms per timed call times the timed calls an
+              evaluation makes (K4's timed call is both coverage calls,
+              one an evaluation), over the
               profiled round's device time per evaluation (printed too),
               at 64 and 512 replicas
     --md      MD steps/s at 64 and 512 replicas on both kernels' bundles
@@ -63,11 +67,15 @@ sys.path.insert(0, os.getcwd())
 REPLICAS = (64, 512)
 TIGHT_TOL, TIGHT_REPLICAS, FLOOR_SWEEPS = 1e-6, 4, 200
 # K3 gives a row tile one warp from 176 replicas of no-env ubiquitin on
-# (24 row tiles a replica, 132 SMs x 32 warps), K4's backward from 352
-# (hydrophobe coverage, 12 row tiles) and 528 (hbond coverage, 8)
+# (24 row tiles a replica, 132 SMs x 32 warps), K4 from 352 (hydrophobe
+# coverage, 12 row tiles) and 528 (hbond coverage, 8), K5's backward from
+# 249 (17 row tiles)
 SPLINE_REPLICAS = (64, 128, 256, 384, 512)
 ROUNDS = 5          # rounds of the profiled MD advance (--share)
-CALLS_PER_EVAL = {"fused_pair_bwd_recompute": 1, "colsum_bwd": 2,
+# timed calls an evaluation makes (K4's timed call runs both coverage
+# calls of an evaluation)
+CALLS_PER_EVAL = {"fused_pair_bwd_recompute": 1, "colsum_bwd": 1,
+                  "colsum_fwd": 1, "quadspline_bwd": 1,
                   "fused_pair_fwd": 1, "fused_pair_bwd": 1}
 
 
@@ -197,9 +205,9 @@ def time_k3(cs, timing, dev, gen, n):
     return rec
 
 
-def time_k4(cs, timing, dev, gen, n):
-    """K4's backward, both coverage calls, at n replicas of perturbed
-    RNase A."""
+def time_unfused(cs, timing, dev, gen, n):
+    """K4's forward and backward (both coverage calls each) and K5's
+    backward at n replicas of perturbed RNase A."""
     import torch
     from upside_md_torch import DATA_DIR
     from upside_md_torch.config import bundle
@@ -209,13 +217,26 @@ def time_k4(cs, timing, dev, gen, n):
     system, _ = cs.load_system(path, dev, True)
     with torch.no_grad():
         _, outs, _, _ = system.evaluate(cs.perturbed(base, n, gen, dev))
-        covs, _ = cs.unfused_operands(system, outs)
+        covs, (c, p, beads, _) = cs.unfused_operands(system, outs)
+        del outs
         calls = [(cps, cps.table(table), x1, x2, w1,
                   torch.randn(x2[..., 0].shape, generator=gen, device=dev))
                  for _, cps, table, x1, x2, w1 in covs]
-        rec = timing.time_launches(
-            "colsum_bwd", lambda: [qs.colsum_bwd(*c) for c in calls], n)
-    return rec
+        ps = c["spline"]
+        tab = ps.table(p["interaction_param"])
+        g = torch.randn((n, ps.n1, ps.n2), generator=gen, device=dev)
+        recs = {"colsum_bwd": timing.time_launches(
+                    "colsum_bwd", lambda: [qs.colsum_bwd(*a) for a in calls],
+                    n),
+                "colsum_fwd": timing.time_launches(
+                    "colsum_fwd",
+                    lambda: [qs.colsum_fwd(*a[:5]) for a in calls], n),
+                "quadspline_bwd": timing.time_launches(
+                    "quadspline_bwd",
+                    lambda: qs.quadspline_bwd(ps, tab, beads, beads, g), n)}
+    del system, calls, g
+    torch.cuda.empty_cache()
+    return recs
 
 
 def time_k1(cs, timing, dev, gen, n):
@@ -279,18 +300,21 @@ def md_device_s_per_eval(cs, dev, bundle_name, n):
 
 
 def time_spline_bwd(cs, timing, flags, dev, out):
-    """K3 and K4's backward at SPLINE_REPLICAS (`--calls`), and their
-    shares of an MD round's device time (`--share`), into `out`."""
+    """K3, K4's forward and backward and K5's backward at SPLINE_REPLICAS
+    (`--calls`), and their shares of an MD round's device time
+    (`--share`), into `out`."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(7)
     for n in SPLINE_REPLICAS:
         out["calls"][f"fused_pair_bwd_recompute@{n}"] = time_k3(
             cs, timing, dev, gen, n)
-        out["calls"][f"colsum_bwd@{n}"] = time_k4(cs, timing, dev, gen, n)
+        for name, rec in time_unfused(cs, timing, dev, gen, n).items():
+            out["calls"][f"{name}@{n}"] = rec
     if "--share" not in flags:
         return
     add_shares(cs, dev, out, ("fused_pair_bwd_recompute",), cs.BUNDLE_NOENV)
-    add_shares(cs, dev, out, ("colsum_bwd",), cs.BUNDLE_UNFUSED)
+    add_shares(cs, dev, out, ("colsum_bwd", "colsum_fwd", "quadspline_bwd"),
+               cs.BUNDLE_UNFUSED)
 
 
 def time_fused(cs, timing, flags, dev, out):

@@ -68,22 +68,3 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
-
-// out[k] = sum over p (in order) of parts[p * n + k]
-static __global__ void sum_parts_kernel(const float* __restrict__ parts, int n_parts,
-                                 long n, float* __restrict__ out) {
-  long k = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  float s = 0.0f;
-  for (int p = 0; p < n_parts; ++p) s += parts[(long)p * n + k];
-  out[k] = s;
-}
-
-static inline void sum_parts(const float* parts, int n_parts, long n,
-                             float* out, cudaStream_t stream) {
-  if (n <= 0) return;
-  int threads = 256;
-  long blocks = (n + threads - 1) / threads;
-  sum_parts_kernel<<<(unsigned)blocks, threads, 0, stream>>>(parts, n_parts,
-                                                             n, out);
-}

@@ -279,7 +279,7 @@ extern "C" int fused_pair_bwd(
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  sum_col_partials(d2part, flags, n_rep, n_rt, n_ct, n2, d2, stream);
+  sum_col_partials<8>(d2part, flags, n_rep, n_rt, n_ct, n2, d2, stream);
   return (int)cudaGetLastError();
 }
 
@@ -321,6 +321,6 @@ extern "C" int fused_pair_bwd_recompute(
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  sum_col_partials(d2part, flags, n_rep, n_rt, n_ct, n2, d2, stream);
+  sum_col_partials<8>(d2part, flags, n_rep, n_rt, n_ct, n2, d2, stream);
   return (int)cudaGetLastError();
 }

@@ -199,6 +199,7 @@ extern "C" int fused_pair_fwd(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  sum_col_partials(colpart, flags, n_rep, n_rt, n_ct, n2, cov, stream, true);
+  sum_col_partials<2, true>(colpart, flags, n_rep, n_rt, n_ct, n2, cov,
+                            stream);
   return (int)cudaGetLastError();
 }

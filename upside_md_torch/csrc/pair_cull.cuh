@@ -1,9 +1,10 @@
 // The row-tile walks of the pair kernels: the per-replica tile cull with
 // its candidate lists (K1's forward and K3 in fused_pair_{fwd,bwd}.cu,
-// K4's backward in quadspline.cu), the walk over a forward's compact
-// residual (K1's backward), and the column-partial pass they share.  The
-// plain version of the cull, and the rule in words, is ops/tile_cull.py;
-// the two must give the same decisions bit for bit.
+// K4's forward and backward and K5's backward in quadspline.cu), the walk
+// over a forward's compact residual (K1's backward), and the
+// column-partial pass they share.  The plain version of the cull, and the
+// rule in words, is ops/tile_cull.py; the two must give the same decisions
+// bit for bit.
 //
 // A block holds RT_WARPS warps and one row tile of 32 rows: its copies in
 // RT_WARPS replicas, one a warp, or, while the row tiles alone would not
@@ -348,18 +349,20 @@ __device__ __forceinline__ void store8(const float* v,
   reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
 }
 
-// floats of a column partial of NC components: 2, or 8 (16-byte stores)
+// floats of a column partial of NC components: 1, 2, or 8 (16-byte
+// stores)
 template <int NC>
 struct PartWidth {
-  static constexpr int value = NC <= 2 ? 2 : 8;
+  static constexpr int value = NC == 1 ? 1 : NC == 2 ? 2 : 8;
 };
 
 template <int NC>
 __device__ __forceinline__ void store_part(const float* v,
                                            float* __restrict__ dst) {
-  if constexpr (NC <= 2)
-    reinterpret_cast<float2*>(dst)[0] =
-        make_float2(v[0], NC > 1 ? v[1] : 0.0f);
+  if constexpr (NC == 1)
+    dst[0] = v[0];
+  else if constexpr (NC == 2)
+    reinterpret_cast<float2*>(dst)[0] = make_float2(v[0], v[1]);
   else
     store8<NC>(v, dst);
 }
@@ -391,27 +394,28 @@ __device__ __forceinline__ void finish_rows(const RowTiles<NR>& rt_s,
 }
 
 // The body of a row-tile kernel with the cull (K1's forward, K3, K4's
-// backward).  Block (blockIdx.x, blockIdx.y) of 32 x RT_WARPS threads
-// holds row tile blockIdx.x of RT_WARPS / group replicas, `group` warps
-// each (row_tile_blocks): warp w takes replica (RT_WARPS / group)
-// blockIdx.y + w / group and, of its listed column tiles, those at
-// positions w % group, w % group + group, ... of the list.  For each it lists the candidate pairs of its spline
-// rows and takes them 32 at a time, one a lane: pair(r, ii, i, j, xr, xc,
-// rc, cc, res) computes pair (i, j) (row ii of the tile), its NR row and
-// NC column cotangents (or sums) and returns whether it is live; a live
-// pair adds rc to row ii where pair.rows(i) and cc to its column where
-// pair.cols(i), and pair.keep(r, rt, ct, slot, code, i, j, res) takes it
-// with its rank among the tile's live pairs in list order.  Then the rows
-// [env_lo, env_hi) of the tile (env_rows, with pair.env_row(r, i) and
-// pair.env_col(r, j)), then pair.tile_done(r, rt, ct, live pairs).  row_thr(i): row i's candidate threshold; the row tile's
-// cull threshold is tile_thr[rt] (tile_thr null: thr_all); alive (n_rt,
-// n_ct, or null): the tiles whose static mask holds a pair.  A walked
-// tile's column sums go to part (n_rep, n_rt, n2, PartWidth<NC>) when a
-// pair added to them, and its flag says so; a culled tile gets flag 0 and
-// count 0 in counts (null: none).  Each warp's row sums accumulate in
-// shared memory, tile after tile in its order; the group's are added in
-// warp order at the end (finish_rows).  Dynamic shared memory:
-// walk_smem(n2).
+// forward and backward, K5's backward).  Block (blockIdx.x, blockIdx.y) of
+// 32 x RT_WARPS threads holds row tile blockIdx.x of RT_WARPS / group
+// replicas, `group` warps each (row_tile_blocks): warp w takes replica
+// (RT_WARPS / group) blockIdx.y + w / group and, of its listed column
+// tiles, those at positions w % group, w % group + group, ... of the list.
+// For each it lists the candidate pairs of its spline rows and takes them
+// 32 at a time, one a lane: pair(r, ii, i, j, xr, xc, rc, cc, res) computes
+// pair (i, j) (row ii of the tile), its NR row and NC column cotangents (or
+// sums) and returns whether it is live; a live pair adds rc to row ii where
+// pair.rows(i) and cc to its column where pair.cols(i), and pair.keep(r,
+// rt, ct, slot, code, i, j, res) takes it with its rank among the tile's
+// live pairs in list order.  Then the rows [env_lo, env_hi) of the tile
+// (env_rows, with pair.env_row(r, i) and pair.env_col(r, j)), then
+// pair.tile_done(r, rt, ct, live pairs).  row_thr(i): row i's candidate
+// threshold; the row tile's cull threshold is tile_thr[rt] (tile_thr null:
+// thr_all); alive (n_rt, n_ct, or null): the tiles whose static mask holds
+// a pair.  A walked tile's column sums go to part (n_rep, n_rt, n2,
+// PartWidth<NC>) when a pair added to them, and its flag says so; a culled
+// tile gets flag 0 and count 0 in counts (null: none).  Each warp's row
+// sums accumulate in shared memory, tile after tile in its order; the
+// group's are added in warp order at the end (finish_rows).  Dynamic shared
+// memory: walk_smem(n2).
 template <int NR, int NC, class RowThr, class Pair>
 __device__ __forceinline__ void walk_row_tiles(
     const float* __restrict__ x1, const float* __restrict__ x2,
@@ -694,21 +698,17 @@ static __global__ void sum_col_partials_kernel(
 }
 
 // sum_col_partials_kernel over n_rep replicas: 8-float partials into (n_rep,
-// n2, 8) (the backwards), or with `coverage` 2-float ones into (n_rep, 2,
-// n2) (K1's forward).
+// n2, 8) (the backwards), 2-float ones TRANSPOSED into (n_rep, 2, n2) (K1's
+// forward), or 1-float ones into (n_rep, n2) (K4's forward).
+template <int W, bool TRANSPOSED = false>
 static inline void sum_col_partials(const float* part,
                                     const unsigned char* flags, int n_rep,
                                     int n_rt, int n_ct, int n2, float* out,
-                                    cudaStream_t stream,
-                                    bool coverage = false) {
+                                    cudaStream_t stream) {
   const long n_cols = (long)n_rep * n2;
   if (n_cols <= 0) return;
   const int threads = 128;
   const unsigned blocks = (unsigned)((n_cols + threads - 1) / threads);
-  if (coverage)
-    sum_col_partials_kernel<2, true><<<blocks, threads, 0, stream>>>(
-        part, flags, n_rt, n_ct, n2, n_cols, out);
-  else
-    sum_col_partials_kernel<8, false><<<blocks, threads, 0, stream>>>(
-        part, flags, n_rt, n_ct, n2, n_cols, out);
+  sum_col_partials_kernel<W, TRANSPOSED><<<blocks, threads, 0, stream>>>(
+      part, flags, n_rt, n_ct, n2, n_cols, out);
 }

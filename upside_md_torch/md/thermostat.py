@@ -35,8 +35,10 @@ class OUThermostat:
 
 
 def thermalize(shape, temperature, generator=None, dtype=torch.float32,
-               device="cpu"):
-    """Maxwell-Boltzmann momenta: sqrt(T) N(0, 1)."""
+               device="cuda"):
+    """Maxwell-Boltzmann momenta: sqrt(T) N(0, 1), on the card unless
+    `device` says otherwise (as `System`); `generator` must live on that
+    device."""
     noise = torch.randn(shape, generator=generator, dtype=dtype,
                         device=device)
     temp = torch.as_tensor(temperature, dtype=dtype, device=device)

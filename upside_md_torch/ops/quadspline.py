@@ -26,10 +26,10 @@ w1[i] g[j] for K4 (:900-916).
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
-(csrc/quadspline.cu) for CUDA tensors.  K4's backward kernel walks each
-row tile's column tiles and skips those whose static mask is empty or that
-lie farther apart in a replica than the cutoff (`ops/tile_cull.py`;
-`cull_tiles` gives its decisions).
+(csrc/quadspline.cu) for CUDA tensors.  K4's forward and backward and
+K5's backward kernels walk each row tile's column tiles and skip those
+whose static mask is empty or that lie farther apart in a replica than the
+cutoff (`ops/tile_cull.py`; `cull_tiles` gives their decisions).
 """
 
 from __future__ import annotations
@@ -67,8 +67,8 @@ class SplineTable:
 
 class PairSpline:
     """Static operands of one call site (row types, column types, the
-    (n1, n2) interaction mask, packed as K4's backward reads it, and its
-    per-tile liveness), and the memo of
+    (n1, n2) interaction mask, packed as the row-tile kernels read it, and
+    its per-tile liveness), and the memo of
     its table's coefficients, rebuilt only when the table tensor changes
     (as System.fused_prepared is)."""
 
@@ -165,9 +165,23 @@ def quadspline_fwd_plain(ps, tab, x1, x2):
     return _value(live, a1, a2, wide, nar)
 
 
-def colsum_fwd_plain(ps, tab, x1, x2, w1):
-    """Plain K4 forward: (B, n2) column sums of w1[i] value(i, j)."""
-    return (w1[:, :, None] * quadspline_fwd_plain(ps, tab, x1, x2)).sum(1)
+def _restrict(ps, live, keep):
+    """`live` restricted to the tiles of `keep` (B, n_rt, n_ct; None:
+    all)."""
+    return live if keep is None else live & pair_keep(keep, ps.n1, ps.n2)
+
+
+def colsum_fwd_plain(ps, tab, x1, x2, w1, keep=None):
+    """Plain K4 forward: (B, n2) column sums of w1[i] value(i, j), each
+    term selected by the live test (a row weight no live pair reads does
+    not reach the sums).  `keep` (B, n_rt, n_ct), e.g. `cull_tiles`,
+    restricts it to those tiles' pairs; the kernel's cull keeps every live
+    pair, so restricted to its tiles the result is the same, bit for
+    bit."""
+    _, live, a1, a2, wide, nar = _terms(ps, tab, x1, x2)
+    live = _restrict(ps, live, keep)
+    v = w1[:, :, None] * (wide[0] + a1[0] * a2[0] * nar[0])
+    return torch.where(live, v, torch.zeros_like(v)).sum(1)
 
 
 def _backward(ps, tab, x1, x2, g_pair, g_col=None, keep=None):
@@ -176,8 +190,7 @@ def _backward(ps, tab, x1, x2, g_pair, g_col=None, keep=None):
     With `keep` (B, n_rt, n_ct) only the pairs of those tiles take part."""
     (u, dist, inv, cos1, cos2), live, a1, a2, wide, nar = _terms(
         ps, tab, x1, x2)
-    if keep is not None:
-        live = live & pair_keep(keep, ps.n1, ps.n2)
+    live = _restrict(ps, live, keep)
     inv_dth = (tab.ka - 3) / 2.0
     zero = torch.zeros_like(dist)
     g = torch.where(live, g_pair, zero)
@@ -203,9 +216,12 @@ def _backward(ps, tab, x1, x2, g_pair, g_col=None, keep=None):
     return d1, d2
 
 
-def quadspline_bwd_plain(ps, tab, x1, x2, g):
-    """Plain K5 backward from the (B, n1, n2) cotangent."""
-    return _backward(ps, tab, x1, x2, g)
+def quadspline_bwd_plain(ps, tab, x1, x2, g, keep=None):
+    """Plain K5 backward from the (B, n1, n2) cotangent.  `keep` (B, n_rt,
+    n_ct), e.g. `cull_tiles`, restricts it to those tiles' pairs; the
+    kernel's cull keeps every live pair, so restricted to its tiles the
+    result is the same, bit for bit."""
+    return _backward(ps, tab, x1, x2, g, keep=keep)
 
 
 def colsum_bwd_plain(ps, tab, x1, x2, w1, g, keep=None):
@@ -218,9 +234,10 @@ def colsum_bwd_plain(ps, tab, x1, x2, w1, g, keep=None):
 
 
 def cull_tiles(ps, tab, x1, x2):
-    """(B, n_rt, n_ct) bool: the tiles K4's backward walks for row sites
-    x1 and columns x2: static mask alive and the boxes within the cutoff
-    (`tile_cull` at `cutoff_sq` of the table's family)."""
+    """(B, n_rt, n_ct) bool: the tiles K4's forward and backward and K5's
+    backward walk for row sites x1 and columns x2: static mask alive and
+    the boxes within the cutoff (`tile_cull` at `cutoff_sq` of the table's
+    family)."""
     n_rt = ps.tile_alive.shape[0]
     thr = torch.full((n_rt,), cutoff_sq(tab.kcut, tab.inv_dx),
                      dtype=torch.float32)
@@ -250,24 +267,24 @@ def _operands(ps, tab, *tensors):
     return B, [t.contiguous() for t in tensors]
 
 
-def _static(ps, tab):
-    return (ps.t1, ps.t2, ps.mask, ps.tile_alive, tab.coef)
-
-
 def _family(ps, tab, B):
     return (B, ps.n1, ps.n2, tab.ka, tab.k, tab.n_t2, tab.ncoef, tab.inv_dx,
             tab.kcut)
 
 
-def _parts(ps, B, x):
-    """K5 backward's per-tile partial buffers (n_ct, B, n1, 8) and (n_rt,
-    B, n2, 8), and its outputs."""
-    f32 = dict(dtype=torch.float32, device=x.device)
+def _walk(name, ps, tab, x1, x2, operands, flags, part_width, outs):
+    """Launches row-tile kernel `name` (K4's forward and backward, K5's
+    backward) on `operands` (between the sites and the statics) with its
+    column-partial buffer (B, n_rt, n2, part_width) and `flags` (the
+    caller's, checked, or a new one), writing `outs`."""
+    B = x1.shape[0]
     n_rt, n_ct = ps.tile_alive.shape
-    return (torch.empty((n_ct, B, ps.n1, 8), **f32),
-            torch.empty((n_rt, B, ps.n2, 8), **f32),
-            torch.empty((B, ps.n1, 8), **f32),
-            torch.empty((B, ps.n2, 8), **f32))
+    flags = flags_buffer(flags, (B, n_rt, n_ct), x1.device)
+    part = torch.empty((B, n_rt, ps.n2, part_width), dtype=torch.float32,
+                       device=x1.device)
+    kernels.launch(name, x1, x2, *operands, ps.t1, ps.t2, ps.mask_words,
+                   ps.tile_alive, tab.coef, *_family(ps, tab, B),
+                   cutoff_sq(tab.kcut, tab.inv_dx), part, flags, *outs)
 
 
 def quadspline_fwd(ps, tab, x1, x2, plain=False):
@@ -277,37 +294,41 @@ def quadspline_fwd(ps, tab, x1, x2, plain=False):
     B, (x1, x2) = _operands(ps, tab, x1, x2)
     out = torch.empty((B, ps.n1, ps.n2), dtype=torch.float32,
                       device=x1.device)
-    kernels.launch("quadspline_fwd", x1, x2, *_static(ps, tab),
-                   *_family(ps, tab, B), out)
+    kernels.launch("quadspline_fwd", x1, x2, ps.t1, ps.t2, ps.mask,
+                   ps.tile_alive, tab.coef, *_family(ps, tab, B), out)
     return out
 
 
-def quadspline_bwd(ps, tab, x1, x2, g, plain=False):
-    """K5 backward: (d1 (B, n1, 8), d2 (B, n2, 8))."""
+def quadspline_bwd(ps, tab, x1, x2, g, plain=False, flags=None):
+    """K5 backward: (d1 (B, n1, 8), d2 (B, n2, 8)).  x1 and x2 may be
+    one tensor (the rotamer grid).  The kernel makes its own cull and,
+    given `flags` (B, n_rt, n_ct) uint8, writes its decisions there
+    (`tile_cull.KEPT`, `WRITTEN`); the plain version has none and refuses
+    `flags`."""
     if plain or not x1.is_cuda:
+        no_flags(flags)
         return quadspline_bwd_plain(ps, tab, x1, x2, g)
     B, (x1, x2, g) = _operands(ps, tab, x1, x2, g)
     if tuple(g.shape) != (B, ps.n1, ps.n2):
         raise ValueError(f"quadspline_bwd: cotangent shape {tuple(g.shape)}")
-    d1part, d2part, d1, d2 = _parts(ps, B, x1)
-    kernels.launch("quadspline_bwd", x1, x2, g, *_static(ps, tab),
-                   *_family(ps, tab, B), d1part, d2part, d1, d2)
+    f32 = dict(dtype=torch.float32, device=x1.device)
+    d1 = torch.empty((B, ps.n1, 8), **f32)
+    d2 = torch.empty((B, ps.n2, 8), **f32)
+    _walk("quadspline_bwd", ps, tab, x1, x2, (g,), flags, 8, (d1, d2))
     return d1, d2
 
 
-def colsum_fwd(ps, tab, x1, x2, w1, plain=False):
-    """K4 forward: (B, n2) weighted column sums."""
+def colsum_fwd(ps, tab, x1, x2, w1, plain=False, flags=None):
+    """K4 forward: (B, n2) weighted column sums.  `flags` as for
+    `colsum_bwd`."""
     if plain or not x1.is_cuda:
+        no_flags(flags)
         return colsum_fwd_plain(ps, tab, x1, x2, w1)
     B, (x1, x2, w1) = _operands(ps, tab, x1, x2, w1)
     if tuple(w1.shape) != (B, ps.n1):
         raise ValueError(f"colsum_fwd: weight shape {tuple(w1.shape)}")
-    n_rt = ps.tile_alive.shape[0]
-    colpart = torch.empty((n_rt, B, ps.n2), dtype=torch.float32,
-                          device=x1.device)
     out = torch.empty((B, ps.n2), dtype=torch.float32, device=x1.device)
-    kernels.launch("colsum_fwd", x1, x2, w1, *_static(ps, tab),
-                   *_family(ps, tab, B), colpart, out)
+    _walk("colsum_fwd", ps, tab, x1, x2, (w1,), flags, 1, (out,))
     return out
 
 
@@ -322,15 +343,10 @@ def colsum_bwd(ps, tab, x1, x2, w1, g, plain=False, flags=None):
     B, (x1, x2, w1, g) = _operands(ps, tab, x1, x2, w1, g)
     if tuple(w1.shape) != (B, ps.n1) or tuple(g.shape) != (B, ps.n2):
         raise ValueError("colsum_bwd: weight or cotangent shape")
-    n_rt, n_ct = ps.tile_alive.shape
-    flags = flags_buffer(flags, (B, n_rt, n_ct), x1.device)
     f32 = dict(dtype=torch.float32, device=x1.device)
-    d2part = torch.empty((B, n_rt, ps.n2, 8), **f32)
     d1 = torch.empty((B, ps.n1, 8), **f32)
     d2 = torch.empty((B, ps.n2, 8), **f32)
-    kernels.launch("colsum_bwd", x1, x2, w1, g, ps.t1, ps.t2, ps.mask_words,
-                   ps.tile_alive, tab.coef, *_family(ps, tab, B),
-                   cutoff_sq(tab.kcut, tab.inv_dx), d2part, flags, d1, d2)
+    _walk("colsum_bwd", ps, tab, x1, x2, (w1, g), flags, 8, (d1, d2))
     return d1, d2
 
 
