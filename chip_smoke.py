@@ -47,9 +47,10 @@ the bundle's seed.  Phases:
    dead slots of the grid cotangent), and `param_deriv` of the rotamer,
    both coverage and (env bundle) environment tables against
    `kernels=False` (rel < 1e-3); the tile decisions of K1's forward, K3's,
-   K4's forward and backward and K5's backward cull equal to their plain
-   `cull_tiles`, bit for bit, and K5's backward unmoved by NaN in dead
-   slots of its grid cotangent;
+   K4's and K5's forward and backward cull equal to their plain
+   `cull_tiles`, bit for bit, K5's forward grid exactly 0 wherever the
+   plain version has no live pair, and K5's backward unmoved by NaN in
+   dead slots of its grid cotangent;
 4. times each kernel and its plain version with CUDA events around one
    wrapper call on an idle card (median; `ms`, host side included) at 64
    replicas, and sums the device time of the call's kernels and memsets
@@ -57,10 +58,10 @@ the bundle's seed.  Phases:
    larger of the bytes it must move over the card's memory rate and the
    operations this run's data needs over the card's float32 rate (H100
    SXM data sheet), both counted over the pairs and edges this run's data
-   needs (for the row-tile kernels, K1, K3, K4 and K5's backward, only
-   the pairs inside the cutoff,
-   the packed mask the kernels read and, for K1, the dense E_pair grid
-   written once and the compact residual of the live pairs; the bound as
+   needs (for the row-tile kernels, K1, K3, K4 and K5, only the pairs
+   inside the cutoff, the packed mask the kernels read and, for K1 and
+   K5's forward, the dense pair grid written once, for K1 the compact
+   residual of the live pairs; the bound as
    counted before, with the geometry of every masked pair and for K1 the
    dense residual planes, is printed beside it and kept as
    `bound_table_ms` in the kernel table).  The BP kernels (K2, K6) are also timed at two fixed sweep
@@ -70,10 +71,11 @@ the bundle's seed.  Phases:
    64-replica inputs tiled), where the profiler's records of one call are
    split by pass: the launches before the solve (prologue), the solve
    with the Bethe edge pass, and the launches after (epilogue).  K1's
-   forward and backward, K3, K4's forward and backward and K5's backward
-   (the row-tile kernels with the per-replica cull, and K1's backward over
+   forward and backward, K3, K4's and K5's forward and backward (the
+   row-tile kernels with the per-replica cull, and K1's backward over
    the forward's residual) are timed at 64 and 512 replicas too, their
-   device time split by launch, beside their bounds, with a `[cull]` line
+   device time split by launch, beside their bounds (K5's forward also
+   beside a `zero_` of its grid: its bytes alone), with a `[cull]` line
    each: tiles walked out of all tiles and live pairs out of masked pairs
    (K5: also by row tile, a `[balance]` line), the kernel's
    decisions held to `cull_tiles` again (K1: and its residual to
@@ -269,6 +271,24 @@ def repeatable(name, a, b):
                              "inputs")
 
 
+def compare_grid(name, got, want, live):
+    """K5's forward grid against the plain one: rel 1e-5, and exact zeros
+    wherever the plain version has no live pair (`live`: its
+    `live_pairs`); logs the live pairs whose value is 0 in one grid and
+    not in the other (a spline that vanishes there, rounded apart).
+    Returns the max abs err."""
+    import torch
+    if (got[~live] != 0).any():
+        raise AssertionError(f"{name}: {int((got[~live] != 0).sum())} "
+                             "elements without a live pair are not 0")
+    odd = live & ((got == 0) != (want == 0))
+    if odd.any():
+        log(f"  {name}: {int(odd.sum())} live pairs 0 in one grid only, "
+            f"the other's largest there {float(want[odd].abs().max()):.3e} "
+            f"/ {float(got[odd].abs().max()):.3e}")
+    return compare([name], (got,), (want,), 1e-5)
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -285,13 +305,6 @@ def spline_pairs(ps, tab, x1, x2):
     from upside_md_torch.ops.quadspline import live_pairs
     return (int(ps.mask.sum()) * x1.shape[0],
             int(live_pairs(ps, tab, x1, x2).sum()))
-
-
-def spline_ops(ps, tab, x1, x2, per_live):
-    """Geometry for every pair in the mask, the spline for those inside
-    the cutoff."""
-    masked, live = spline_pairs(ps, tab, x1, x2)
-    return masked * OPS_GEOM + live * (per_live - OPS_GEOM)
 
 
 def as_before(b):
@@ -1175,16 +1188,20 @@ def compare_unfused(dev, gen, base, path):
     errs = {}
 
     ps, tab = c["spline"], c["spline"].table(p["interaction_param"])
-    k5 = qs.quadspline_fwd(ps, tab, beads, beads)
-    repeatable("K5 fwd", (k5,), (qs.quadspline_fwd(ps, tab, beads, beads),))
-    p5 = qs.quadspline_fwd(ps, tab, beads, beads, plain=True)
-    errs["quadspline_fwd"] = compare(["K5 fwd grid"], (k5,), (p5,), 1e-5)
-    g5 = randn(k5)
     keep = qs.cull_tiles(ps, tab, beads, beads)
+    masked, live = spline_pairs(ps, tab, beads, beads)
+    flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+    k5 = qs.quadspline_fwd(ps, tab, beads, beads, flags=flags)
+    repeatable("K5 fwd", (k5,), (qs.quadspline_fwd(ps, tab, beads, beads),))
+    check_cull(f"K5 fwd, {COMPARE_REPLICAS} replicas", flags, keep, live,
+               masked)
+    p5 = qs.quadspline_fwd(ps, tab, beads, beads, plain=True)
+    errs["quadspline_fwd"] = compare_grid(
+        "K5 fwd grid", k5, p5, qs.live_pairs(ps, tab, beads, beads))
+    g5 = randn(k5)
     flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
     kb = qs.quadspline_bwd(ps, tab, beads, beads, g5, flags=flags)
     repeatable("K5 bwd", kb, qs.quadspline_bwd(ps, tab, beads, beads, g5))
-    masked, live = spline_pairs(ps, tab, beads, beads)
     check_cull(f"K5 bwd, {COMPARE_REPLICAS} replicas", flags, keep, live,
                masked)
     errs["quadspline_bwd"] = compare(
@@ -1286,14 +1303,13 @@ def time_unfused(dev, gen, base, path):
     }
 
     with torch.no_grad():
-        bounds = {"quadspline_fwd": bound(
-            nbytes(beads, ps.t1, ps.t2, ps.mask, ps.tile_alive, tab.coef,
-                   grid),
-            spline_ops(ps, tab, beads, beads, OPS_VALUE))}
-        before = {}
+        bounds, before = {}, {}
+        pairs5 = spline_pairs(ps, tab, beads, beads)
+        bounds["quadspline_fwd"], before["quadspline_fwd"] = k5_fwd_bounds(
+            ps, tab, beads, grid, pairs5)
         bounds["quadspline_bwd"], before["quadspline_bwd"] = k5_bwd_bounds(
             ps, tab, beads, g5, qs.quadspline_bwd(ps, tab, beads, beads, g5),
-            spline_pairs(ps, tab, beads, beads))
+            pairs5)
         pairs = [spline_pairs(*o[:4]) for o in cov_ops]
         bounds["colsum_fwd"], before["colsum_fwd"] = k4_fwd_bounds(
             cov_ops, [qs.colsum_fwd(*o) for o in cov_ops], pairs)
@@ -1308,7 +1324,8 @@ def time_unfused(dev, gen, base, path):
     lat = {"bp_bethe_planes": sweep_latency(
         lambda s: bp_bethe_planes_fwd(s, E1, P, adj, warm), st, out6[6])}
     del sys_p, outs, grid, out6, cold
-    rows = {"quadspline_bwd": {}, "colsum_fwd": {}, "colsum_bwd": {}}
+    rows = {"quadspline_fwd": {}, "quadspline_bwd": {}, "colsum_fwd": {},
+            "colsum_bwd": {}}
     for n in ROW_TILE_REPLICAS:
         pos = perturbed(base, n, gen, dev)
         with torch.no_grad():
@@ -1317,7 +1334,8 @@ def time_unfused(dev, gen, base, path):
         del outs
         for nm, rec in row_tile_k4(covs, n, gen, dev).items():
             rows[nm][n] = rec
-        rows["quadspline_bwd"][n] = row_tile_k5(rot_ops, n, gen, dev)
+        for nm, rec in row_tile_k5(rot_ops, n, gen, dev).items():
+            rows[nm][n] = rec
         del covs, rot_ops
         torch.cuda.empty_cache()
     del system
@@ -1371,6 +1389,16 @@ def k4_fwd_bounds(calls, outs, pairs):
          cps, masked, live, OPS_VALUE + 2)
         for (cps, ctab, x1, x2, w1), out, (masked, live)
         in zip(calls, outs, pairs))
+
+
+def k5_fwd_bounds(ps, tab, beads, out, pairs):
+    """K5 forward's bounds (`spline_bounds`) for the bead set `beads`
+    (read once: rows and columns are the same sites), the grid `out`
+    written once and (masked, live) pairs `pairs`: a live pair's value."""
+    masked, live = pairs
+    return spline_bounds([(
+        nbytes(beads, ps.t1, ps.t2, ps.tile_alive, tab.coef, out), ps,
+        masked, live, OPS_VALUE)])
 
 
 def k5_bwd_bounds(ps, tab, beads, g, d, pairs):
@@ -1454,11 +1482,14 @@ def row_tile_k4(covs, n, gen, dev):
 
 
 def row_tile_k5(rot_ops, n, gen, dev):
-    """K5's backward at n replicas of perturbed RNase A (`rot_ops`: the
-    rotamer beads of the kernels' own evaluation) under a random grid
-    cotangent: its cull held to `cull_tiles`, the first COMPARE_REPLICAS
-    against the plain version, bitwise repeatable, its time split by
-    launch, its bounds (`k5_bwd_bounds`)."""
+    """K5's forward, and its backward under a random grid cotangent, at n
+    replicas of perturbed RNase A (`rot_ops`: the rotamer beads of the
+    kernels' own evaluation): each one's cull held to `cull_tiles`, the
+    first COMPARE_REPLICAS against the plain version (the forward exactly
+    0 where the plain one has no live pair), bitwise repeatable, its time
+    split by launch, its bounds (`k5_fwd_bounds`, `k5_bwd_bounds`); beside
+    the forward the device time of a `zero_` of its grid, the time its
+    bytes alone take."""
     import torch
     from upside_md_torch.ops import quadspline as qs
     c, p, beads, _ = rot_ops
@@ -1475,6 +1506,24 @@ def row_tile_k5(rot_ops, n, gen, dev):
         masked, live = spline_pairs(ps, tab, beads, beads)
         rec = {"cull": check_cull(f"K5 bwd, RNase A, {n} replicas", flags,
                                   keep, live, masked)}
+        flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
+        out = qs.quadspline_fwd(ps, tab, beads, beads, flags=flags)
+        repeatable(f"K5 fwd at {n} replicas", (out,),
+                   (qs.quadspline_fwd(ps, tab, beads, beads),))
+        fwd = {"cull": check_cull(f"K5 fwd, RNase A, {n} replicas", flags,
+                                  keep, live, masked)}
+        compare_grid(f"K5 fwd at {n} replicas, the first "
+                     f"{COMPARE_REPLICAS}", out[first], qs.quadspline_fwd(
+                         ps, tab, beads[first], beads[first], plain=True),
+                     qs.live_pairs(ps, tab, beads[first], beads[first]))
+        fwd.update(time_launches(
+            "quadspline_fwd (K5 fwd)",
+            lambda: qs.quadspline_fwd(ps, tab, beads, beads), n))
+        fwd["grid_zero_device_ms"] = time_launches(
+            "zero_ of K5 fwd's grid (its bytes alone)", out.zero_,
+            n)["device_ms"]
+        fwd["bound_ms"], fwd["bound_table_ms"] = k5_fwd_bounds(
+            ps, tab, beads, out, (masked, live))
         # the triangle's load by row tile: tiles walked and live pairs, a
         # replica
         live_rt = torch.nn.functional.pad(
@@ -1494,10 +1543,11 @@ def row_tile_k5(rot_ops, n, gen, dev):
             lambda: qs.quadspline_bwd(ps, tab, beads, beads, g), n))
         rec["bound_ms"], rec["bound_table_ms"] = k5_bwd_bounds(
             ps, tab, beads, g, d, (masked, live))
+    log_bounds("K5 fwd", n, fwd)
     log_bounds("K5 bwd", n, rec)
-    del g, d
+    del g, d, out
     torch.cuda.empty_cache()
-    return rec
+    return {"quadspline_fwd": fwd, "quadspline_bwd": rec}
 
 
 # ---------------------------------------------------------------------------

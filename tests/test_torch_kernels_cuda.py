@@ -18,14 +18,15 @@ the layout of the solve its edge count calls for (messages and factors in
 shared memory, messages only, global scratch); and again at BP tol 1e-6,
 values rel 1e-4 (there float32 rounding of the deviation decides the stop,
 so sweep counts are not compared).  Kernels must be bitwise repeatable.
-K1, K3, K4's forward and backward and K5's backward, the row-tile kernels
+K1, K3 and K4's and K5's forward and backward, the row-tile kernels
 with the per-replica cull, are also run on layouts that cull every tile,
 none, different tiles in different replicas, and hold pairs at the cutoff
 +- 1e-5 A on tile corners (K5 on the rotamer grid's shape: one bead set
 on both sides, the mask upper-triangular across residues): against the
 plain versions as above, their tile decisions equal to `cull_tiles`,
 NaN/Inf in dead and culled slots (cotangents, K4's row weights) leaving
-the results unmoved.
+the results unmoved; K5's forward, launched into a grid filled with NaN,
+must overwrite every element.
 The layouts (chain-ordered sites, corner pairs) serve the CPU tests of the
 cull too (tests/test_torch_tile_cull.py).
 """
@@ -675,6 +676,14 @@ def test_k1_kernels_match_plain(cuda, layout, env_band):
                for a, b in zip(dirty, bk))
 
 
+# the at_cutoff layouts: replica r holds pair (i, j) at the cutoff + off
+# on the facing corners of its tiles
+K4_CORNERS = ((31, 32, -1e-5), (32, 31, 1e-5), (99, 134, -1e-5),
+              (0, 128, 1e-5))
+K5_CORNERS = ((31, 32, -1e-5), (0, 44, 1e-5), (40, 134, -1e-5),
+              (63, 64, 1e-5))
+
+
 def _k4_layout(layout, device):
     if layout == "at_cutoff":
         ps, tab, x1, x2, w1 = spline_case(13, n_rep=4, device=device)
@@ -682,8 +691,7 @@ def _k4_layout(layout, device):
         u = np.array([0.2, 1.0, 0.5]) / np.linalg.norm([0.2, 1.0, 0.5])
         p = np.array([-3.0, 1.0, 2.0])
         cut = tab.kcut / tab.inv_dx
-        for r, (i, j, off) in enumerate(((31, 32, -1e-5), (32, 31, 1e-5),
-                                         (99, 134, -1e-5), (0, 128, 1e-5))):
+        for r, (i, j, off) in enumerate(K4_CORNERS):
             a, b = corner_layout(ps.n1, ps.n2, i, j, p, p + (cut + off) * u,
                                  device, seed=r)
             x1[r, :, :3], x2[r, :, :3] = a[0, :, :3], b[0, :, :3]
@@ -705,8 +713,7 @@ def _k5_layout(layout, device):
         u = np.array([0.7, 0.2, 1.0]) / np.linalg.norm([0.7, 0.2, 1.0])
         p = np.array([1.0, -2.0, 3.0])
         cut = tab.kcut / tab.inv_dx
-        for r, (i, j, off) in enumerate(((31, 32, -1e-5), (0, 44, 1e-5),
-                                         (40, 134, -1e-5), (63, 64, 1e-5))):
+        for r, (i, j, off) in enumerate(K5_CORNERS):
             assert ps.mask[i, j]
             x[r, :, :3] = corner_layout_one(ps.n1, i, j, p,
                                             p + (cut + off) * u, device,
@@ -723,15 +730,17 @@ def _k5_layout(layout, device):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("layout", ["none_culled", "all_culled", "mixed",
                                     "at_cutoff"])
-@pytest.mark.parametrize("kernel", ["k4_bwd", "k4_fwd", "k5_bwd"])
+@pytest.mark.parametrize("kernel", ["k4_bwd", "k4_fwd", "k5_bwd",
+                                    "k5_fwd"])
 def test_k4_bwd_cull_layouts(cuda, kernel, layout):
-    """K4's backward and forward and K5's backward against their plain
-    versions (rel 1e-4, the forward 1e-5), bitwise repeatable, their cull
+    """K4's and K5's backward and forward against their plain versions
+    (rel 1e-4, the forwards 1e-5), bitwise repeatable, their cull
     decisions equal to `cull_tiles` (with the static mask's empty tiles),
     and unmoved by NaN/Inf where no live pair reads them: K4's column
-    cotangent and row weights, K5's grid cotangent."""
+    cotangent and row weights, K5's grid cotangent.  K5's forward marks
+    written exactly the kept tiles that hold a live pair."""
     from upside_md_torch.ops import tile_cull as tc
-    if kernel == "k5_bwd":
+    if kernel in ("k5_bwd", "k5_fwd"):
         ps, tab, x1, x2 = _k5_layout(layout, cuda)
         w1 = None
     else:
@@ -753,6 +762,11 @@ def test_k4_bwd_cull_layouts(cuda, kernel, layout):
 
         def run(g, w1, **kw):
             return (qs.colsum_fwd(ps, tab, x1, x2, w1, **kw),)
+    elif kernel == "k5_fwd":
+        g, tol = None, 1e-5
+
+        def run(g, w1, **kw):
+            return (qs.quadspline_fwd(ps, tab, x1, x2, **kw),)
     else:
         g = torch.randn((B, ps.n1, ps.n2), generator=gen, device=cuda)
         tol = 1e-4
@@ -774,6 +788,15 @@ def test_k4_bwd_cull_layouts(cuda, kernel, layout):
         assert all(not a.any() for a in bk)
     elif layout == "mixed":
         assert not torch.equal(keep[0], keep[2])
+    if kernel == "k5_fwd":
+        n_rt, n_ct = keep.shape[1:]
+        held = torch.zeros((B, n_rt * 32, n_ct * 32), dtype=torch.bool,
+                           device=cuda)
+        held[:, :ps.n1, :ps.n2] = live
+        held = held.reshape(B, n_rt, 32, n_ct, 32).any(4).any(2)
+        assert torch.equal((flags & tc.WRITTEN) != 0, held)
+        assert torch.equal(bk[0] != 0, live)
+        return
     if kernel == "k5_bwd":
         gd = g.clone()
         gd[~live] = float("nan")
@@ -792,10 +815,9 @@ def test_k4_bwd_cull_layouts(cuda, kernel, layout):
 @pytest.mark.requires_cuda
 def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
     """With enough replicas that the row tiles alone fill the card, K1's
-    forward and backward, K3, K4's forward and backward and K5's backward
-    give each row tile one warp (four below that): against their plain
-    versions (K1 and K5 on the first four replicas), bitwise
-    repeatable."""
+    forward and backward, K3, K4's and K5's forward and backward give each
+    row tile one warp (four below that): against their plain versions (K1
+    and K5 on the first four replicas), bitwise repeatable."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     prep, x = fused_case(15, True, 3.8, cuda, n_rep=1)
     n_rep = -(-sms * 32 // -(-prep.n1 // 32)) + 1
@@ -845,3 +867,45 @@ def test_row_tile_kernels_with_a_warp_per_row_tile(cuda):
     first = slice(0, 4)
     _check_rows([t[first] for t in kb], qs.quadspline_bwd(
         ps, tab, x[first], x[first], g[first], plain=True))
+    # and K5's forward
+    k5 = qs.quadspline_fwd(ps, tab, x, x)
+    assert torch.equal(k5, qs.quadspline_fwd(ps, tab, x, x))
+    _check_rows((k5[first],), (qs.quadspline_fwd(ps, tab, x[first], x[first],
+                                                 plain=True),), 1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", ["rotamer", "two_sets"])
+def test_k5_fwd_writes_every_element(cuda, shape):
+    """K5's forward launched into a grid filled with NaN overwrites every
+    element: exact zeros where the plain grid is 0 (no live pair), values
+    rel 1e-5 elsewhere; on the rotamer call (one bead set on both sides,
+    the triangular mask across residues) and on two site sets with a
+    random mask, in two layouts each, one that the cull thins."""
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.ops import tile_cull as tc
+    for step in (3.8, 12.0):
+        if shape == "rotamer":
+            ps, tab, x = rotamer_case(18, device=cuda, step=step)
+            x1 = x2 = x
+        else:
+            ps, tab, x1, x2, _ = spline_case(19, device=cuda, step=step)
+        B = x1.shape[0]
+        out = torch.full((B, ps.n1, ps.n2), float("nan"), device=cuda)
+        flags = torch.full((B,) + tuple(ps.tile_alive.shape), 7,
+                           dtype=torch.uint8, device=cuda)
+        kernels.launch("quadspline_fwd", x1, x2, ps.t1, ps.t2,
+                       ps.mask_words, ps.tile_alive, tab.coef, B, ps.n1,
+                       ps.n2, tab.ka, tab.k, tab.n_t2, tab.ncoef, tab.inv_dx,
+                       tab.kcut, tc.cutoff_sq(tab.kcut, tab.inv_dx), flags,
+                       out)
+        torch.cuda.synchronize()
+        want = qs.quadspline_fwd(ps, tab, x1, x2, plain=True)
+        assert torch.isfinite(out).all()
+        assert torch.equal(out == 0, want == 0)
+        assert (want != 0).sum() > 50
+        assert _rel(out, want) < 1e-5
+        keep = qs.cull_tiles(ps, tab, x1, x2)
+        assert torch.equal((flags & tc.KEPT) != 0, keep)
+        if step > 10.0:
+            assert not keep[:, ps.tile_alive.bool()].all()

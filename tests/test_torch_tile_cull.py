@@ -1,5 +1,5 @@
 """The per-replica tile cull of the row-tile kernels (`ops/tile_cull.py`):
-K3, K4's forward and backward and K5's backward, on the CPU.
+K3 and K4's and K5's forward and backward, on the CPU.
 
 `tile_cull` is the plain version of the kernels' cull (csrc/pair_cull.cuh)
 and gives their decisions bit for bit, so what holds here for it holds for
@@ -281,6 +281,57 @@ def test_restricted_k4_plain_is_exact(kernel, step):
     assert all(a.abs().max() > 0 for a in full)
     if step > 10.0:
         assert not keep[:, ps.tile_alive.bool()].all()
+
+
+@pytest.mark.parametrize("shape,seed,step", [
+    (shape, seed, step) for shape in ("k5", "k4")
+    for seed, step in ((6, 3.8), (7, 6.0), (8, 12.0))])
+def test_restricted_k5_fwd_plain_is_exact(shape, seed, step):
+    """The plain K5 forward restricted to the tiles `cull_tiles` keeps
+    equals the unrestricted grid bit for bit, on the rotamer grid's shape
+    (one bead set, "k5") and on two site sets with a random mask ("k4"
+    operands); at the wide step the cull drops tiles the static mask
+    holds pairs in, and dropping a tile with a live pair does change the
+    grid."""
+    ps, tab, x1, x2 = spline_sites(shape, seed, step)
+    keep = qs.cull_tiles(ps, tab, x1, x2)
+    full = qs.quadspline_fwd(ps, tab, x1, x2)
+    assert torch.equal(full, qs.quadspline_fwd_plain(ps, tab, x1, x2,
+                                                     keep=keep))
+    live = qs.live_pairs(ps, tab, x1, x2)
+    assert torch.equal(full != 0, live)
+    if step > 10.0:
+        assert not keep[:, ps.tile_alive.bool()].all()
+    b, i, j = (int(v[0]) for v in torch.nonzero(live, as_tuple=True))
+    fewer = keep.clone()
+    fewer[b, i // 32, j // 32] = False
+    assert not torch.equal(full, qs.quadspline_fwd_plain(ps, tab, x1, x2,
+                                                         keep=fewer))
+
+
+@pytest.mark.parametrize("shape", ["k5", "k4"])
+def test_restricted_k5_fwd_plain_at_the_cutoff(shape):
+    """Pairs at the cutoff +- 1e-5 A on the facing corners of their tiles
+    (the card tests' at_cutoff layouts, one replica each): the plain K5
+    forward restricted to `cull_tiles` equals the unrestricted grid bit
+    for bit, the pair just inside is live and has its value, the one just
+    outside is 0; on the rotamer grid's shape and on two site sets."""
+    if shape == "k5":
+        ps, tab, x1, x2 = kc._k5_layout("at_cutoff", CPU)
+        corners = kc.K5_CORNERS
+    else:
+        ps, tab, x1, x2, _ = kc._k4_layout("at_cutoff", CPU)
+        corners = kc.K4_CORNERS
+    keep = qs.cull_tiles(ps, tab, x1, x2)
+    full = qs.quadspline_fwd(ps, tab, x1, x2)
+    assert torch.equal(full, qs.quadspline_fwd_plain(ps, tab, x1, x2,
+                                                     keep=keep))
+    live = qs.live_pairs(ps, tab, x1, x2)
+    for r, (i, j, off) in enumerate(corners):
+        assert bool(keep[r, i // 32, j // 32])
+        assert bool(live[r, i, j]) == (off < 0)
+        assert (full[r, i, j] != 0) == (off < 0)
+    assert torch.equal(full != 0, live)
 
 
 def test_flags_buffer_checks_the_callers_buffer():

@@ -9,11 +9,14 @@ one NVIDIA GPU, and prints one JSON object.  Which two:
 * with `--spline-bwd` the unfused pair-spline kernels and K3: K3
   (`fused_pair_bwd_recompute`, no-env ubiquitin), K4's forward and
   backward (`colsum_fwd`, `colsum_bwd`, both coverage calls of an RNase A
-  evaluation in one timed call) and K5's backward (`quadspline_bwd`, the
-  rotamer grid of RNase A): one wrapper call (the backwards under a
-  random cotangent), at SPLINE_REPLICAS replicas of perturbed positions
-  (64 to 512, across the replica counts where the row-tile kernels change
-  from four warps a row tile to one);
+  evaluation in one timed call) and K5's forward and backward
+  (`quadspline_fwd`, `quadspline_bwd`, the rotamer grid of RNase A): one
+  wrapper call (the backwards under a random cotangent), at
+  SPLINE_REPLICAS replicas of perturbed positions (64 to 512, across the
+  replica counts where the row-tile kernels change from four warps a row
+  tile to one); beside K5's forward `grid_zero`, one `zero_` of a grid of
+  its output's shape: the time the card takes to write those bytes
+  alone;
 * with `--fused` the fused pair block of the main path, K1's forward
   (`fused_pair_fwd` with its residual) and backward (`fused_pair_bwd`
   from that residual, under a random cotangent), and K3 with the env band
@@ -75,7 +78,7 @@ ROUNDS = 5          # rounds of the profiled MD advance (--share)
 # timed calls an evaluation makes (K4's timed call runs both coverage
 # calls of an evaluation)
 CALLS_PER_EVAL = {"fused_pair_bwd_recompute": 1, "colsum_bwd": 1,
-                  "colsum_fwd": 1, "quadspline_bwd": 1,
+                  "colsum_fwd": 1, "quadspline_fwd": 1, "quadspline_bwd": 1,
                   "fused_pair_fwd": 1, "fused_pair_bwd": 1}
 
 
@@ -206,8 +209,9 @@ def time_k3(cs, timing, dev, gen, n):
 
 
 def time_unfused(cs, timing, dev, gen, n):
-    """K4's forward and backward (both coverage calls each) and K5's
-    backward at n replicas of perturbed RNase A."""
+    """K4's forward and backward (both coverage calls each), K5's forward
+    and backward, and the zeroing of a grid of K5's output shape, at n
+    replicas of perturbed RNase A."""
     import torch
     from upside_md_torch import DATA_DIR
     from upside_md_torch.config import bundle
@@ -225,6 +229,7 @@ def time_unfused(cs, timing, dev, gen, n):
         ps = c["spline"]
         tab = ps.table(p["interaction_param"])
         g = torch.randn((n, ps.n1, ps.n2), generator=gen, device=dev)
+        grid = torch.empty_like(g)
         recs = {"colsum_bwd": timing.time_launches(
                     "colsum_bwd", lambda: [qs.colsum_bwd(*a) for a in calls],
                     n),
@@ -233,8 +238,14 @@ def time_unfused(cs, timing, dev, gen, n):
                     lambda: [qs.colsum_fwd(*a[:5]) for a in calls], n),
                 "quadspline_bwd": timing.time_launches(
                     "quadspline_bwd",
-                    lambda: qs.quadspline_bwd(ps, tab, beads, beads, g), n)}
-    del system, calls, g
+                    lambda: qs.quadspline_bwd(ps, tab, beads, beads, g), n),
+                "quadspline_fwd": timing.time_launches(
+                    "quadspline_fwd",
+                    lambda: qs.quadspline_fwd(ps, tab, beads, beads), n),
+                "grid_zero": timing.time_launches(
+                    "grid_zero (K5 fwd's output bytes alone)", grid.zero_,
+                    n)}
+    del system, calls, g, grid
     torch.cuda.empty_cache()
     return recs
 
@@ -300,7 +311,7 @@ def md_device_s_per_eval(cs, dev, bundle_name, n):
 
 
 def time_spline_bwd(cs, timing, flags, dev, out):
-    """K3, K4's forward and backward and K5's backward at SPLINE_REPLICAS
+    """K3 and K4's and K5's forward and backward at SPLINE_REPLICAS
     (`--calls`), and their shares of an MD round's device time
     (`--share`), into `out`."""
     import torch
@@ -313,8 +324,8 @@ def time_spline_bwd(cs, timing, flags, dev, out):
     if "--share" not in flags:
         return
     add_shares(cs, dev, out, ("fused_pair_bwd_recompute",), cs.BUNDLE_NOENV)
-    add_shares(cs, dev, out, ("colsum_bwd", "colsum_fwd", "quadspline_bwd"),
-               cs.BUNDLE_UNFUSED)
+    add_shares(cs, dev, out, ("colsum_bwd", "colsum_fwd", "quadspline_fwd",
+                              "quadspline_bwd"), cs.BUNDLE_UNFUSED)
 
 
 def time_fused(cs, timing, flags, dev, out):

@@ -5,7 +5,6 @@
 
 #define TILE_ROWS 32    // rows per block tile
 #define TILE_COLS 32    // bead columns per block tile (one warp wide)
-#define ROW_THREADS 8   // threadIdx.y; each thread walks TILE_ROWS/8 rows
 
 struct PairGeom {
   float ux, uy, uz;   // unit vector from row site to column bead

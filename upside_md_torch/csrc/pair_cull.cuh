@@ -1,10 +1,11 @@
 // The row-tile walks of the pair kernels: the per-replica tile cull with
 // its candidate lists (K1's forward and K3 in fused_pair_{fwd,bwd}.cu,
-// K4's forward and backward and K5's backward in quadspline.cu), the walk
-// over a forward's compact residual (K1's backward), and the
-// column-partial pass they share.  The plain version of the cull, and the
-// rule in words, is ops/tile_cull.py; the two must give the same decisions
-// bit for bit.
+// K4's forward and backward and K5's backward in quadspline.cu), its
+// variant that writes a dense pair grid whole (K5's forward, in
+// quadspline.cu: walk_grid_band), the walk over a forward's compact
+// residual (K1's backward), and the column-partial pass they share.  The
+// plain version of the cull, and the rule in words, is ops/tile_cull.py;
+// the two must give the same decisions bit for bit.
 //
 // A block holds RT_WARPS warps and one row tile of 32 rows: its copies in
 // RT_WARPS replicas, one a warp, or, while the row tiles alone would not
@@ -532,6 +533,122 @@ __device__ __forceinline__ void walk_row_tiles(
   }
   __syncthreads();
   if (active) finish_rows<NR>(rows_s, r, i0, n1, group, pair);
+}
+
+// Zeros into len floats at p, by thread t of nt: 16-byte stores between
+// a head and a tail of single floats.
+__device__ __forceinline__ void zero_fill(float* __restrict__ p, int len,
+                                          int t, int nt) {
+  const int mis = (int)((reinterpret_cast<size_t>(p) >> 2) & 3);
+  const int head = min((4 - mis) & 3, len);
+  const int n4 = (len - head) >> 2;
+  if (t < head) p[t] = 0.0f;
+  float4* b = reinterpret_cast<float4*>(p + head);
+  for (int q = t; q < n4; q += nt) b[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int tail = head + 4 * n4;
+  if (t < len - tail) p[tail + t] = 0.0f;
+}
+
+// The body of a kernel that writes a dense pair grid out (n_rep, n1, n2)
+// with the per-replica cull (K5's forward).  Block (rt, r) of 32 x
+// RT_WARPS threads owns the band of row tile rt of replica r: rows 32 rt
+// ... of all n2 columns, contiguous in memory.  Its warps put the row
+// tile's box and, a tile a warp at a time (tile_box), the column tiles'
+// boxes into shared memory; each warp lists the column tiles whose static
+// mask holds a pair and whose box lies within cut2 of the row tile's (the
+// cull of walk_row_tiles, bit for bit; warp 0 writes the flags of the
+// others).  Then the block stores zeros over the whole band (zero_fill,
+// 16-byte stores in memory order) and, after a barrier that orders those
+// zeros before every value, warp w takes the listed tiles at positions w,
+// w + RT_WARPS, ...: it lists the tile's candidate pairs (masked in,
+// squared distance below cut2) and takes them 32 at a time, one a lane;
+// pair(i, j, xr, xc, v) returns whether pair (i, j) is live and its value
+// v, which the lane stores over its zero.  A band's zeros and values come
+// from one block within microseconds, so its lines reach memory once.
+// flags (n_rep, n_rt, n_ct): 0 for a tile not walked, CULL_KEPT for a
+// walked one, and CULL_WRITTEN too where it held a live pair.  One value
+// an element and no float atomics: the grid is bitwise repeatable.
+// Dynamic shared memory: grid_walk_smem(n2).
+template <class Pair>
+__device__ __forceinline__ void walk_grid_band(
+    const float* __restrict__ x1, const float* __restrict__ x2,
+    const unsigned* __restrict__ mask_words,
+    const unsigned char* __restrict__ alive, float cut2, int n1, int n2,
+    const Pair& pair, float* __restrict__ out,
+    unsigned char* __restrict__ flags) {
+  extern __shared__ float cbox[];        // the column tiles' boxes
+  __shared__ float rbox[6];
+  __shared__ float xr_s[TILE_ROWS][6];
+  __shared__ float thr_s[TILE_ROWS];
+  __shared__ unsigned short list_s[RT_WARPS][TILE_ROWS * TILE_COLS];
+  __shared__ float xc_s[RT_WARPS][TILE_COLS][6];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int rt = blockIdx.x, r = blockIdx.y;
+  const int n_rt = (n1 + TILE_ROWS - 1) / TILE_ROWS;
+  const int n_ct = (n2 + TILE_COLS - 1) / TILE_COLS;
+  const int i0 = rt * TILE_ROWS;
+  const int rows = min(TILE_ROWS, n1 - i0);
+  const float* x1r = x1 + (long)r * n1 * 6;
+  const float* x2r = x2 + (long)r * n2 * 6;
+  float* band = out + ((long)r * n1 + i0) * n2;
+  unsigned char* fl = flags + ((long)r * n_rt + rt) * n_ct;
+
+  if (warp == 0) {               // lane l: row i0 + l of the row tile
+    const int i = i0 + lane;
+    for (int c = 0; c < 6; ++c)
+      xr_s[lane][c] = i < n1 ? x1r[(long)i * 6 + c] : 0.0f;
+    thr_s[lane] = cut2;
+    tile_box(x1r, n1, rt, lane, rbox);
+  }
+  for (int t = warp; t < n_ct; t += RT_WARPS)
+    tile_box(x2r, n2, t, lane, cbox + t * 6);
+  __syncthreads();
+
+  const unsigned char* al = alive + (long)rt * n_ct;
+  int* kept = reinterpret_cast<int*>(cbox + n_ct * 6) + warp * n_ct;
+  const int n_kept = list_tiles(
+      n_ct,
+      [=](int t) {
+        return al[t] != 0 && !(box_gap_sq(rbox, cbox + t * 6) > cut2);
+      },
+      warp == 0 ? fl : nullptr, nullptr, kept);
+  zero_fill(band, rows * n2, warp * TILE_COLS + lane, RT_WARPS * TILE_COLS);
+  __syncthreads();
+  for (int q = warp; q < n_kept; q += RT_WARPS) {
+    const int ct = kept[q];
+    const int j0 = ct * TILE_COLS;
+    float xc[6] = {0, 0, 0, 0, 0, 0};
+    if (j0 + lane < n2)
+      for (int c = 0; c < 6; ++c) xc[c] = x2r[(long)(j0 + lane) * 6 + c];
+    for (int c = 0; c < 6; ++c) xc_s[warp][lane][c] = xc[c];
+    __syncwarp();
+    // lane l holds the mask word of row i0 + l (0 past the last row)
+    const unsigned word =
+        i0 + lane < n1 ? mask_words[(long)(i0 + lane) * n_ct + ct] : 0u;
+    const int n_cand = list_candidates(word, cbox + ct * 6, xr_s, thr_s, xc,
+                                       list_s[warp]);
+    bool held = false;
+    for (int k0 = 0; k0 < n_cand; k0 += TILE_COLS) {
+      bool live = false;
+      if (k0 + lane < n_cand) {
+        const int code = list_s[warp][k0 + lane];
+        const int ii = code / TILE_COLS, col = code % TILE_COLS;
+        float v;
+        live = pair(i0 + ii, j0 + col, xr_s[ii], xc_s[warp][col], v);
+        if (live) band[(long)ii * n2 + j0 + col] = v;
+      }
+      held |= __any_sync(0xffffffffu, live);
+    }
+    if (lane == 0) fl[ct] = held ? CULL_KEPT | CULL_WRITTEN : CULL_KEPT;
+    __syncwarp();                // the next tile reuses the scratch
+  }
+}
+
+// Dynamic shared memory of walk_grid_band: the column boxes and each
+// warp's list of walked tiles.
+static inline size_t grid_walk_smem(int n2) {
+  const int n_ct = (n2 + TILE_COLS - 1) / TILE_COLS;
+  return (size_t)n_ct * (6 * sizeof(float) + RT_WARPS * sizeof(int));
 }
 
 // The body of a row-tile kernel that walks a forward's compact residual

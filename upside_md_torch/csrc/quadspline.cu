@@ -11,40 +11,39 @@
 //
 // What bounds it on an H100: K5 forward writes, and its backward reads, the
 // (n1, n2) float grid per replica (543 x 543 at the RNase A shapes, 1.2 MB
-// per replica), against ~100 flops per live pair; the backward needs the
+// per replica), against ~80 flops per live pair; the backward needs the
 // grid cotangent only where a pair is live.  K4 moves only the site rows
 // and one (n2,) row per replica.  Both masks hold far more pairs than the
 // cutoff leaves live (K4's coverage mask is a sequence exclusion, so nearly
-// every pair is masked in; under 1% are live): what bounds the dense
-// designs is the work spent on pairs beyond the cutoff.
+// every pair is masked in; under 1% are live; the rotamer grid's 4%):
+// what bounds the dense designs is the work spent on pairs beyond the
+// cutoff, and K5's forward, once that is culled, the bytes of its grid.
 //
-// Design of K5's forward: one thread per (row, column) pair, a block is a
-// 32-column by 32-row tile (32 x 8 threads, each thread walks 4 rows), the
-// replica is grid z; the tiling of the fused kernels (fused_pair.cuh).
-// Each pair reads the 4 cubic coefficients of its interval per segment
-// from the per-(row type, column type) table built once per table
-// (ops/quadspline.py) and runs Horner; the TPU kernel's one-hot MXU
-// lookups and bf16 hi/lo split do not exist here.  Tiles whose static mask
-// is all zero skip all spline work (the rotamer mask is upper-triangular).
-// Masked pairs skip the spline too; live = mask AND s < k - 2 - 1e-6
-// (:273).
+// All four are row-tile walks with the per-replica cull of K3's design
+// (fused_pair_bwd.cu) with one band: a warp owns (or shares) a row tile of
+// one replica, walks the column tiles whose static mask holds a pair and
+// whose box in this replica lies within the cutoff of the row tile's, lists
+// each tile's candidate pairs (masked in, squared distance below the squared
+// cutoff with the cull's margin) and takes them 32 at a time, one a lane;
+// each takes the exact test s < kcut (:273).  Only a live pair reads its
+// coefficients (4 a segment, from the per-(row type, column type) table
+// built once per table in ops/quadspline.py) and runs Horner; the TPU
+// kernel's one-hot MXU lookups and bf16 hi/lo split do not exist here.  Only
+// live pairs read the cotangent (K4: the column cotangent and the row
+// weight; K5: its entry of the grid cotangent) and the K4 forward's row
+// weight; cotangents are selected by that test, never multiplied.
 //
-// K4's forward and backward and K5's backward are row-tile walks
-// (walk_row_tiles in pair_cull.cuh, with K4FwdPair, K4Pair and K5Pair
-// below), K3's design (fused_pair_bwd.cu) with one band: a warp owns (or
-// shares) a row tile of one replica, walks the column tiles whose static
-// mask holds a pair and whose box in this replica lies within the cutoff
-// of the row tile's, lists each tile's candidate pairs (masked in, squared
-// distance below the squared cutoff with the cull's margin) and takes them
-// 32 at a time, one a lane; each takes the exact test s < kcut.  Only live
-// pairs read the cotangent (K4: the column cotangent and the row weight;
-// K5: its entry of the grid cotangent) and the K4 forward's row weight;
-// cotangents are selected by that test, never multiplied.  Row sums are
-// written once (the backwards); a walked tile's column sums go to one
-// partial when it held a live pair, added in row-tile order by a second
-// pass (K4's forward: one float a column).  No float atomics: the results
-// are bitwise repeatable.  K5's rotamer call passes one bead set as both
-// x1 and x2; the walk only reads them, so the aliased pointers are sound.
+// K5's forward (walk_grid_band, with K5FwdPair) is one kernel without a
+// memset: a block owns a row tile's band of one replica (contiguous in
+// memory), culls and lists its column tiles, stores zeros over the band with
+// 16-byte stores, and then walks the listed tiles, each live pair's lane
+// storing its value over its zero.  The others (K4's forward and backward
+// and K5's backward: walk_row_tiles with K4FwdPair, K4Pair and K5Pair below)
+// write row sums once (the backwards); a walked tile's column sums go to one
+// partial when it held a live pair, added in row-tile order by a second pass
+// (K4's forward: one float a column).  No float atomics: the results are
+// bitwise repeatable.  K5's rotamer call passes one bead set as both x1 and
+// x2; the walks only read them, so the aliased pointers are sound.
 #include "fused_pair.cuh"
 #include "pair_cull.cuh"
 
@@ -65,47 +64,6 @@ __device__ __forceinline__ SplineTerms spline_terms(const float* cf,
   poly_eval(cf + 2 * na, sd, k, true, t.wide, t.dwide);
   poly_eval(cf + 2 * na + nd, sd, k, true, t.nar, t.dnar);
   return t;
-}
-
-static __global__ void __launch_bounds__(TILE_COLS * ROW_THREADS)
-qs_fwd_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-              const int* __restrict__ t1, const int* __restrict__ t2,
-              const unsigned char* __restrict__ mask,
-              const unsigned char* __restrict__ tile_alive,
-              const float* __restrict__ coef, int n1, int n2, int ka, int k,
-              int n_t2, int ncoef, float inv_dx, float kcut,
-              float* __restrict__ out) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * TILE_COLS + tx;
-  const int rt = blockIdx.y;
-  const int r = blockIdx.z;
-  const bool jv = j < n2;
-  const bool alive = tile_alive[rt * gridDim.x + blockIdx.x] != 0;
-
-  float xc[6] = {0, 0, 0, 0, 0, 0};
-  int ct = 0;
-  if (jv) {
-    for (int c = 0; c < 6; ++c) xc[c] = x2[((long)r * n2 + j) * 6 + c];
-    ct = t2[j];
-  }
-
-  for (int s = 0; s < TILE_ROWS / ROW_THREADS; ++s) {
-    const int i = rt * TILE_ROWS + s * ROW_THREADS + ty;   // warp-uniform
-    if (i >= n1) break;
-    float val = 0.0f;
-    if (alive && jv && mask[(long)i * n2 + j]) {
-      float xr[6];
-      for (int c = 0; c < 6; ++c) xr[c] = x1[((long)r * n1 + i) * 6 + c];
-      const PairGeom g = pair_geometry(xr, xc);
-      const float sd = g.dist * inv_dx;
-      if (sd < kcut) {
-        const SplineTerms t = spline_terms(
-            coef + ((long)t1[i] * n_t2 + ct) * ncoef, g, ka, k, sd);
-        val = t.wide + t.a1 * t.a2 * t.nar;
-      }
-    }
-    if (jv) out[((long)r * n1 + i) * n2 + j] = val;
-  }
 }
 
 // The row-tile walks of K4 and K5: every row's candidate test is the one
@@ -240,17 +198,46 @@ struct K5Pair : SplinePair {
   }
 };
 
-// The walks (walk_row_tiles, pair_cull.cuh), one kernel a pair, each with
-// the call site's statics as separate read-only parameters from which it
-// builds its pair: so built, K4's backward compiles to the registers and
-// speed it had before K4's forward and K5's backward joined it (a pair
-// passed whole, or its shape as one struct, took 4-6% more time on an
-// H100; tools/time_torch_bp.py --spline-bwd, PERF.md section 6).  The
-// rotamer call's x1 and x2 are one tensor: both are only read.
-// mask_words (n1, n_ct): the static mask, bit l of word (i, ct) for pair
-// (i, 32 ct + l); tile_alive (n_rt, n_ct): the tiles it holds a pair in;
-// cut2: the squared cull and candidate threshold (ops/tile_cull.py
-// `cutoff_sq`).
+// K5's forward, pair (i, j): whether it is live, and then its value v.
+struct K5FwdPair : SplinePair {
+  __device__ bool operator()(int i, int j, const float* xr, const float* xc,
+                             float& v) const {
+    PairGeom g;
+    SplineTerms t;
+    if (!live(i, j, xr, xc, g, t)) return false;
+    v = t.wide + t.a1 * t.a2 * t.nar;
+    return true;
+  }
+};
+
+// The walks (walk_row_tiles and walk_grid_band, pair_cull.cuh), one kernel a
+// pair, each with the call site's statics as separate read-only parameters
+// from which it builds its pair: so built, K4's backward compiles to the
+// registers and speed it had before K4's forward and K5's backward joined it
+// (a pair passed whole, or its shape as one struct, took 4-6% more time on
+// an H100; tools/time_torch_bp.py --spline-bwd, PERF.md section 6).  The
+// rotamer call's x1 and x2 are one tensor: both are only read.  mask_words
+// (n1, n_ct): the static mask, bit l of word (i, ct) for pair (i, 32 ct +
+// l); tile_alive (n_rt, n_ct): the tiles it holds a pair in; cut2: the
+// squared cull and candidate threshold (ops/tile_cull.py `cutoff_sq`).
+//
+// K5's forward, a block a band, capped at 56 registers: 9 blocks an SM,
+// so the 1,088 bands of 64 RNase A replicas fit an H100 at once.
+static __global__ void __launch_bounds__(TILE_COLS * RT_WARPS, 9)
+quadspline_fwd_band_kernel(
+    const float* __restrict__ x1, const float* __restrict__ x2,
+    const int* __restrict__ t1, const int* __restrict__ t2,
+    const unsigned* __restrict__ mask_words,
+    const unsigned char* __restrict__ tile_alive,
+    const float* __restrict__ coef, int n1, int n2, int ka, int k, int n_t2,
+    int ncoef, float inv_dx, float kcut, float cut2, float* __restrict__ out,
+    unsigned char* __restrict__ flags) {
+  const K5FwdPair pair{{t1, t2, coef, n1, n2, ka, k, n_t2, ncoef, inv_dx,
+                        kcut}};
+  walk_grid_band(x1, x2, mask_words, tile_alive, cut2, n1, n2, pair, out,
+                 flags);
+}
+
 static __global__ void __launch_bounds__(TILE_COLS * RT_WARPS)
 colsum_fwd_row_tile_kernel(
     const float* __restrict__ x1, const float* __restrict__ x2,
@@ -329,17 +316,22 @@ static int walk_and_sum(int n_rep, int n1, int n2, const float* part,
   return (int)cudaGetLastError();
 }
 
+// K5's forward: out (n_rep, n1, n2), every element written here;
+// flags (n_rep, n_rt, n_ct) the cull's decisions (0, CULL_KEPT, and
+// CULL_WRITTEN where the tile held a live pair), also never read before.
 extern "C" int quadspline_fwd(
     const float* x1, const float* x2, const int* t1, const int* t2,
-    const unsigned char* mask, const unsigned char* tile_alive,
+    const unsigned* mask_words, const unsigned char* tile_alive,
     const float* coef, int n_rep, int n1, int n2, int ka, int k, int n_t2,
-    int ncoef, float inv_dx, float kcut, float* out, void* stream_ptr) {
+    int ncoef, float inv_dx, float kcut, float cut2, unsigned char* flags,
+    float* out, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const dim3 grid((n2 + TILE_COLS - 1) / TILE_COLS,
-                  (n1 + TILE_ROWS - 1) / TILE_ROWS, n_rep);
-  qs_fwd_kernel<<<grid, dim3(TILE_COLS, ROW_THREADS), 0, stream>>>(
-      x1, x2, t1, t2, mask, tile_alive, coef, n1, n2, ka, k, n_t2, ncoef,
-      inv_dx, kcut, out);
+  const int n_rt = (n1 + TILE_ROWS - 1) / TILE_ROWS;
+  if (n_rep <= 0 || n_rt <= 0 || n2 <= 0) return 0;
+  quadspline_fwd_band_kernel<<<dim3(n_rt, n_rep), dim3(TILE_COLS, RT_WARPS),
+                               grid_walk_smem(n2), stream>>>(
+      x1, x2, t1, t2, mask_words, tile_alive, coef, n1, n2, ka, k, n_t2,
+      ncoef, inv_dx, kcut, cut2, out, flags);
   return (int)cudaGetLastError();
 }
 

@@ -26,10 +26,12 @@ w1[i] g[j] for K4 (:900-916).
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
-(csrc/quadspline.cu) for CUDA tensors.  K4's forward and backward and
-K5's backward kernels walk each row tile's column tiles and skip those
-whose static mask is empty or that lie farther apart in a replica than the
-cutoff (`ops/tile_cull.py`; `cull_tiles` gives their decisions).
+(csrc/quadspline.cu) for CUDA tensors.  All four kernels walk each row
+tile's column tiles and skip those whose static mask is empty or that lie
+farther apart in a replica than the cutoff (`ops/tile_cull.py`;
+`cull_tiles` gives their decisions); K5's forward zeroes each 32-row band
+of its grid before it stores the band's live values, so the one kernel
+writes every element of the grid.
 """
 
 from __future__ import annotations
@@ -159,16 +161,19 @@ def _value(live, a1, a2, wide, nar):
     return torch.where(live, v, torch.zeros_like(v))
 
 
-def quadspline_fwd_plain(ps, tab, x1, x2):
-    """Plain K5 forward: the (B, n1, n2) masked pair values."""
-    _, live, a1, a2, wide, nar = _terms(ps, tab, x1, x2)
-    return _value(live, a1, a2, wide, nar)
-
-
 def _restrict(ps, live, keep):
     """`live` restricted to the tiles of `keep` (B, n_rt, n_ct; None:
     all)."""
     return live if keep is None else live & pair_keep(keep, ps.n1, ps.n2)
+
+
+def quadspline_fwd_plain(ps, tab, x1, x2, keep=None):
+    """Plain K5 forward: the (B, n1, n2) masked pair values, 0 where no
+    pair is live.  `keep` (B, n_rt, n_ct), e.g. `cull_tiles`, restricts
+    it to those tiles' pairs; the kernel's cull keeps every live pair, so
+    restricted to its tiles the grid is the same, bit for bit."""
+    _, live, a1, a2, wide, nar = _terms(ps, tab, x1, x2)
+    return _value(_restrict(ps, live, keep), a1, a2, wide, nar)
 
 
 def colsum_fwd_plain(ps, tab, x1, x2, w1, keep=None):
@@ -234,8 +239,8 @@ def colsum_bwd_plain(ps, tab, x1, x2, w1, g, keep=None):
 
 
 def cull_tiles(ps, tab, x1, x2):
-    """(B, n_rt, n_ct) bool: the tiles K4's forward and backward and K5's
-    backward walk for row sites x1 and columns x2: static mask alive and
+    """(B, n_rt, n_ct) bool: the tiles K4's and K5's forward and backward
+    walk for row sites x1 and columns x2: static mask alive and
     the boxes within the cutoff (`tile_cull` at `cutoff_sq` of the table's
     family)."""
     n_rt = ps.tile_alive.shape[0]
@@ -287,15 +292,23 @@ def _walk(name, ps, tab, x1, x2, operands, flags, part_width, outs):
                    cutoff_sq(tab.kcut, tab.inv_dx), part, flags, *outs)
 
 
-def quadspline_fwd(ps, tab, x1, x2, plain=False):
-    """K5 forward: (B, n1, n2) pair values."""
+def quadspline_fwd(ps, tab, x1, x2, plain=False, flags=None):
+    """K5 forward: (B, n1, n2) pair values.  x1 and x2 may be one tensor
+    (the rotamer grid).  The kernel writes every element of the grid and
+    makes its own cull; given `flags` (B, n_rt, n_ct) uint8, it writes its
+    decisions there (`tile_cull.KEPT`, and `WRITTEN` where the tile held a
+    live pair); the plain version has none and refuses `flags`."""
     if plain or not x1.is_cuda:
+        no_flags(flags)
         return quadspline_fwd_plain(ps, tab, x1, x2)
     B, (x1, x2) = _operands(ps, tab, x1, x2)
+    flags = flags_buffer(flags, (B,) + tuple(ps.tile_alive.shape),
+                         x1.device)
     out = torch.empty((B, ps.n1, ps.n2), dtype=torch.float32,
                       device=x1.device)
-    kernels.launch("quadspline_fwd", x1, x2, ps.t1, ps.t2, ps.mask,
-                   ps.tile_alive, tab.coef, *_family(ps, tab, B), out)
+    kernels.launch("quadspline_fwd", x1, x2, ps.t1, ps.t2, ps.mask_words,
+                   ps.tile_alive, tab.coef, *_family(ps, tab, B),
+                   cutoff_sq(tab.kcut, tab.inv_dx), flags, out)
     return out
 
 

@@ -1,6 +1,7 @@
 """The per-replica tile cull of the row-tile kernels (K1's forward,
-`fused_pair_fwd`, K3, `fused_pair_bwd_recompute`, and K4's backward,
-`colsum_bwd`), and its plain version.
+`fused_pair_fwd`, K3, `fused_pair_bwd_recompute`, and K4's and K5's
+forward and backward, `colsum_fwd`, `colsum_bwd`, `quadspline_fwd`,
+`quadspline_bwd`), and its plain version.
 
 A kernel block owns one 32-row tile of one replica and walks the 32-column
 tiles in order.  Before it touches a pair of a column tile it tests the
@@ -24,8 +25,10 @@ decisions as `flags` (B, n_rt, n_ct) uint8: KEPT where the tile was walked,
 and WRITTEN where a pair of it also added to the column sums (K1's forward:
 a live pair of a coverage band; K3: a live pair or a masked-in env pair;
 K4's backward: a live pair), so that its column partial sums were written
-and the summing pass reads them.  K1's backward takes no cull: it walks
-the tiles its forward found live pairs in, and marks them the same way.
+and the summing pass reads them; K5's forward, which has no column sums,
+marks WRITTEN the walked tiles that held a live pair, whose values it
+stored.  K1's backward takes no cull: it walks the tiles its forward found
+live pairs in, and marks them the same way.
 """
 
 from __future__ import annotations
