@@ -14,7 +14,13 @@ checks them:
   environment library; K1 fwd without planes, K3 the recomputing
   backward, K2), driven as MD and as parameter training (`fit_packed` of
   the rotamer table under the energy-gap loss, through K3 and the table
-  cotangents).
+  cotangents);
+* the replica-exchange path: BASELINE config 4 (tools/bench_all.py:
+  103-160) on 104-residue horse cytochrome c (489 beads; K1 fwd, K1 bwd,
+  K2), a Hamiltonian ensemble of 64 replicas under a +-1% ladder of the
+  first spring node's spring_const at temperatures 0.80 1.02^i, even/odd
+  swap sets every 10 rounds, through `cli.run_ensemble`; once more with
+  pivot MC every 10 rounds and recentering at every frame.
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -92,7 +98,23 @@ the bundle's seed.  Phases:
    ubiquitin configurations, counts set to 0 just before and read just
    after; every loss finite, the last below the first, K3 launched;
    prints seconds per step and the table cotangents' share of it;
-7. prints the kernel table as one JSON line (launches summed over the
+7. replica exchange on cytochrome c: at 4 replicas under the stacked
+   spring ladder the whole evaluation with kernels against
+   `kernels=False` at BP tol 1e-6 (energy and force RMS rel < 1e-3) and
+   each slot's energy against `System.energy` under that slot's own
+   parameters (rel < 1e-5), with the ladder alone (one K1 launch for all
+   slots) and with the rotamer pair table stacked too (one K1 launch a
+   slot); then config 4 at 64 replicas, two warm-up exchange blocks and 60
+   timed rounds (counts set to 0 just before, read just after): prints
+   steps/s with the swaps (3 rounds replicas / wall time), swap
+   acceptance, mean BP sweeps a force evaluation and K1 fwd, K1 bwd and
+   K2 launches per evaluation; checks replica_index a permutation, the
+   last exchange's energies equal to a fresh `potential_energy` (rel <
+   1e-6), finite positions and momenta; the same run with pivot MC and
+   recentering prints pivot acceptance and checks that a rejected pivot
+   leaves its replica bitwise unchanged and the centres of mass below
+   1e-4 A after recentering;
+8. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -118,6 +140,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BUNDLE = "ubiquitin_full_synth.npz"        # fused path (<= 512 beads)
 BUNDLE_UNFUSED = "rnase_a_full_synth.npz"  # unfused path (543 beads)
 BUNDLE_NOENV = "ubiquitin_noenv_synth.npz"  # fused block, no env band
+BUNDLE_REX = "cytochrome_c_full_synth.npz"  # replica exchange (489 beads)
 KERNEL_INFO = {
     "fused_pair_fwd": ("upside_md_torch/csrc/fused_pair_fwd.cu",
                        "upside_md_tpu/ops/pallas_quadspline.py:1021"),
@@ -164,6 +187,9 @@ OPS_GEOM, OPS_VALUE, OPS_PLANES, OPS_BWD = 27, 80, 110, 150
 OPS_ENV_FWD, OPS_ENV_BWD, OPS_PLANE_BWD = 46, 70, 45
 OPS_SWEEP_EDGE, OPS_BETHE_EDGE = 110, 540
 COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
+# BASELINE config 4 (tools/bench_all.py:103-160): replicas, timed rounds,
+# rounds between exchanges (and frames, and pivot moves), warm-up blocks
+REX_REPLICAS, REX_ROUNDS, REX_EVERY, REX_WARMUP_BLOCKS = 64, 60, 10, 2
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
 ROW_TILE_REPLICAS = (64, 512)    # the row-tile kernels, by launch, at both
@@ -1632,10 +1658,12 @@ def compare_bp_cases(dev):
 # shared phases
 # ---------------------------------------------------------------------------
 
-def compare_whole(sys_k, sys_p, pos, label):
+def compare_whole(sys_k, sys_p, pos, label, params_k=None, params_p=None):
     import torch
-    gk, ek, _ = sys_k.deriv(pos, sys_k.init_cache(pos.shape[0]))
-    gp, ep, _ = sys_p.deriv(pos, sys_p.init_cache(pos.shape[0]))
+    gk, ek, _ = sys_k.deriv(pos, sys_k.init_cache(pos.shape[0]), None,
+                            params_k)
+    gp, ep, _ = sys_p.deriv(pos, sys_p.init_cache(pos.shape[0]), None,
+                            params_p)
     err_e = ((ek - ep).abs() / ep.abs().clamp(min=1.0)).max().item()
     err_g = ((gk - gp).pow(2).mean().sqrt()
              / gp.pow(2).mean().sqrt().clamp(min=1e-12)).item()
@@ -1704,6 +1732,182 @@ def run_md(path, dev, label, names, rounds=5, absent=(), max_sweeps=None):
     log(f"[md {label}] launches per evaluation: "
         f"{ {nm: launches[nm] / evals for nm in names} }")
     return md, {nm: launches[nm] for nm in names}
+
+
+# ---------------------------------------------------------------------------
+# the replica-exchange path: BASELINE config 4 on cytochrome c
+# ---------------------------------------------------------------------------
+
+def ladder(system, n, nodes=None):
+    """(params, spec) of n slots: the first spring node's spring_const
+    (and each of `nodes`' interaction_param) scaled by 1 + 0.02 (i / (n -
+    1) - 0.5) in slot i, the +-1% ladder of tools/bench_all.py:121-131,
+    combined by `stack_param_ensembles`."""
+    from upside_md_torch.md.sim import stack_param_ensembles
+    vary = [(k, "spring_const") for k in system.params
+            if "spring" in k and "spring_const" in system.params[k]][:1]
+    vary += [(k, "interaction_param") for k in nodes or ()]
+    slots = []
+    for i in range(n):
+        f = 1.0 + 0.02 * (i / max(n - 1, 1) - 0.5)
+        p = {k: dict(v) for k, v in system.params.items()}
+        for node, leaf in vary:
+            p[node][leaf] = system.params[node][leaf] * f
+        slots.append(p)
+    return stack_param_ensembles(slots)
+
+
+def compare_rex(dev, gen, base, path):
+    """The gate at 4 replicas under the stacked spring ladder: the whole
+    evaluation with kernels against `kernels=False` at BP tol 1e-6 (energy
+    and force RMS rel < 1e-3); each slot's energy under the stacked
+    parameters against `System.energy` under that slot's own (rel 1e-5),
+    with the ladder alone (one K1 launch for all slots) and with the
+    rotamer pair table stacked too (one K1 launch a slot)."""
+    import torch
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.system import slot_params
+    n = COMPARE_REPLICAS
+    sys_k, _ = load_system(path, dev, True, tol=1e-6)
+    sys_p, _ = load_system(path, dev, False, tol=1e-6)
+    pos = perturbed(base, n, gen, dev)
+    mixed, spec = ladder(sys_k, n)
+    log(f"[compare rex cytochrome_c] {n} replicas, stacked leaves "
+        f"{sorted(spec)}")
+    out = compare_whole(sys_k, sys_p, pos, "cytochrome c spring ladder",
+                        mixed, ladder(sys_p, n)[0])
+    for label, nodes, k1 in (("spring ladder", (), 1),
+                             ("spring ladder + rotamer table",
+                              ("rotamer",), n)):
+        mixed, spec = ladder(sys_k, n, nodes)
+        with torch.no_grad():
+            kernels.reset_counts()
+            e = sys_k.energy(pos, mixed)
+            launched = kernels.LAUNCHES["fused_pair_fwd"]
+            alone = torch.cat([sys_k.energy(pos[i:i + 1],
+                                            slot_params(mixed, spec, i))
+                               for i in range(n)])
+        if launched != k1:
+            raise AssertionError(f"{label}: {launched} K1 launches, "
+                                 f"expected {k1}")
+        err = ((e - alone).abs() / alone.abs()).max().item()
+        check(f"cytochrome c {label}: per-slot energies against each "
+              f"slot alone ({launched} K1 launches)", err, 1e-5)
+        out[label] = err
+    return out
+
+
+def rex_run(path, dev, mc):
+    """BASELINE config 4 through `run_ensemble`: 64 replicas under the
+    spring ladder at temperatures 0.80 1.02^i, even/odd swap sets every 10
+    rounds, frames every 10 rounds, dt 0.009, thermostat interval 0.135;
+    two warm-up exchange blocks, then 60 timed rounds with the launch
+    counts set to 0 just before and read just after.  With `mc`, pivot
+    moves every 10 rounds (the bundle's tables) and recentering at every
+    frame.  Checks: replica_index a permutation, the last exchange's
+    energies equal to a fresh `potential_energy` (rel 1e-6), positions
+    and momenta finite, K1 fwd, K1 bwd and K2 launched; with `mc` a
+    rejected pivot leaves its replica bitwise unchanged and the centres of
+    mass are below 1e-4 A after the run's last recentering."""
+    import numpy as np
+    import torch
+    from upside_md_torch.cli import run_ensemble
+    from upside_md_torch.config import bundle
+    from upside_md_torch.md.mc import PivotSampler, metropolis_step
+    from upside_md_torch.md.replica import (ReplicaExchange,
+                                            even_odd_swap_sets)
+    from upside_md_torch.md.sim import Simulation
+    from upside_md_torch.ops import kernels
+    label = "rex cytochrome_c" + (" + pivot MC" if mc else "")
+    n = REX_REPLICAS
+    system, pos0 = load_system(path, dev)
+    mixed, spec = ladder(system, n)
+    interval = REX_EVERY * 3 * 0.009
+    pm = bundle.load_aux(path)["pivot_moves"]
+    pivot = PivotSampler.from_tables(
+        pm["pivot_atom"], pm["pivot_range"], pm["pivot_restype"],
+        pm["proposal_pot"], device=dev) if mc else None
+    sim = Simulation(system, dt=0.009, thermostat_interval=0.135,
+                     frame_interval=interval,
+                     mc_interval=interval if mc else None,
+                     pivot_sampler=pivot, do_recenter=mc, seed=4)
+    rex = ReplicaExchange(even_odd_swap_sets(n), n)
+    state = sim.initial_state(pos0, n, 0.80 * 1.02 ** np.arange(n))
+    warm = REX_WARMUP_BLOCKS * REX_EVERY
+    state, _ = run_ensemble(sim, state, mixed, spec, warm, rex, REX_EVERY)
+    s0, e0 = state.bp_sweeps.sum().item(), state.n_evals
+    p0 = state.pivot_stats.sum(0).cpu()
+    kernels.reset_counts()
+    state, out = run_ensemble(sim, state, mixed, spec, warm + REX_ROUNDS,
+                              rex, REX_EVERY)
+    launches = dict(kernels.LAUNCHES)
+    force_evals = state.n_evals - e0
+    pivots = state.pivot_stats.sum(0).cpu() - p0
+    # energy-only evaluations: frames, exchanges and two a Metropolis step
+    energy_evals = out["n_energy_evals"] + 2 * pivots[1].item() // n
+    evals = force_evals + energy_evals
+    rate = 3 * REX_ROUNDS * n / out["seconds"]
+    stats = torch.cat(out["rex_stats"]).sum(0).cpu()
+    swap_acc = stats[0].item() / stats[1].item()
+    sweeps = (state.bp_sweeps.sum().item() - s0) / (force_evals * n)
+    ridx = out["replica_index"]
+    if sorted(ridx.tolist()) != list(range(n)):
+        raise AssertionError(f"{label}: replica_index {ridx.tolist()} is "
+                             "not a permutation")
+    fresh = sim.potential_energy(state, mixed)
+    err = ((out["energies"] - fresh).abs() / fresh.abs()).max().item()
+    check(f"{label}: energies carried by the last exchange against a "
+          "fresh evaluation", err, 1e-6)
+    if state.pos.device != torch.device(dev):
+        raise AssertionError(f"{label}: the state left {dev}")
+    if not (torch.isfinite(state.pos).all()
+            and torch.isfinite(state.mom).all()):
+        raise AssertionError(f"{label}: positions or momenta not finite")
+    for nm in FUSED_KERNELS:
+        if launches[nm] <= 0:
+            raise AssertionError(f"kernel {nm} was not launched by the "
+                                 f"{label} run")
+    per_eval = {nm: launches[nm] / evals for nm in FUSED_KERNELS}
+    res = {"steps_per_s": rate, "seconds": out["seconds"],
+           "swap_acceptance": swap_acc, "swaps": stats.tolist(),
+           "mean_bp_sweeps": sweeps, "force_evals": force_evals,
+           "energy_evals": energy_evals, "launches": launches,
+           "launches_per_eval": per_eval, "carried_energy_rel": err}
+    log(f"[{label}] {n} replicas, {REX_ROUNDS} rounds: {rate:.1f} steps/s "
+        f"with the swaps ({out['seconds']:.3f} s), swap acceptance "
+        f"{swap_acc:.4f} ({stats[0].item()} of {stats[1].item()}), mean BP "
+        f"sweeps {sweeps:.2f} a force evaluation, replica_index a "
+        "permutation")
+    log(f"[{label}] evaluations: {force_evals} with forces, "
+        f"{energy_evals} energy only; launches {launches}; per "
+        f"evaluation {per_eval}")
+    if mc:
+        ps = pivots
+        res["pivot_acceptance"] = ps[0].item() / ps[1].item()
+        com = state.pos.mean(1).abs().max().item()
+        log(f"[{label}] pivot acceptance {res['pivot_acceptance']:.4f} "
+            f"({ps[0].item()} of {ps[1].item()}), centre of mass after "
+            f"the last recentering {com:.3e} A")
+        if not com < 1e-4:
+            raise AssertionError(f"{label}: centre of mass {com} A")
+        res["com_after_recenter"] = com
+        rejected = 0
+        for _ in range(3):
+            new, acc = metropolis_step(state.pos, state.temperature,
+                                       sim.energy_fn(mixed), pivot,
+                                       sim.generator)
+            if not torch.equal(new[~acc], state.pos[~acc]):
+                raise AssertionError(f"{label}: a rejected pivot moved "
+                                     "its replica")
+            rejected += int((~acc).sum())
+            if rejected:
+                break
+        if not rejected:
+            raise AssertionError(f"{label}: no pivot rejected in 3 steps")
+        log(f"[{label}] {rejected} rejected pivots left their replicas "
+            "bitwise unchanged")
+        res["rejected_pivots_checked"] = rejected
+    return res, {nm: launches[nm] for nm in FUSED_KERNELS}
 
 
 def main():
@@ -1815,13 +2019,23 @@ def main():
     # ---- 6. training through K3 and the table cotangents
     train, launches_t = run_train(noenv_path, dev, gen, base_n)
     results["phases"]["train"] = train
+
+    # ---- 7. replica exchange: BASELINE config 4 on cytochrome c
+    rex_path = os.path.join(DATA_DIR, BUNDLE_REX)
+    base_r = torch.as_tensor(bundle.load(rex_path)[1], device=dev)
+    rex = {"gate": compare_rex(dev, gen, base_r, rex_path)}
+    rex["config4"], launches_r = rex_run(rex_path, dev, mc=False)
+    rex["config4_pivot"], launches_rm = rex_run(rex_path, dev, mc=True)
+    results["phases"]["rex"] = rex
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
-                "md ubiquitin_noenv": launches_n, "train": launches_t}
+                "md ubiquitin_noenv": launches_n, "train": launches_t,
+                "rex cytochrome_c": launches_r,
+                "rex cytochrome_c pivot": launches_rm}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 7. report
+    # ---- 8. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

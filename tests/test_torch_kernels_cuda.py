@@ -28,15 +28,22 @@ NaN/Inf in dead and culled slots (cotangents, K4's row weights) leaving
 the results unmoved; K5's forward, launched into a grid filled with NaN,
 must overwrite every element.
 The layouts (chain-ordered sites, corner pairs) serve the CPU tests of the
-cull too (tests/test_torch_tile_cull.py).
+cull too (tests/test_torch_tile_cull.py).  A Hamiltonian ensemble's
+stacked table launches the fused block once a slot: bitwise equal to one
+batched launch over identical slots; and K2 started cold (null warm-start
+pointers, as the energy-only evaluations of MC moves and replica swaps
+start it) after a warm call equals its first cold call bit for bit and
+the plain cold solve.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from upside_md_torch import DATA_DIR
 from upside_md_torch.ops import bp_cases
 from upside_md_torch.ops import bp_pairs as bp
 from upside_md_torch.ops import bp_planes as bpp
@@ -909,3 +916,56 @@ def test_k5_fwd_writes_every_element(cuda, shape):
         assert torch.equal((flags & tc.KEPT) != 0, keep)
         if step > 10.0:
             assert not keep[:, ps.tile_alive.bool()].all()
+
+
+@pytest.mark.requires_cuda
+def test_stacked_table_launch_per_slot_matches_batched(cuda):
+    """The trp-cage system with its rotamer table stacked over 4 identical
+    slots: the fused block runs once a slot with its own operands (4 K1
+    launches each way, K2 still once), and energies, forces and BP
+    beliefs equal the shared table's one batched launch bit for bit."""
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.system import System
+    system, pos = System.from_bundle(
+        os.path.join(DATA_DIR, "trp_cage_full_synth.npz"), device=cuda)
+    n = 4
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = pos + 0.05 * torch.randn((n,) + tuple(pos.shape), generator=gen,
+                                 device=cuda)
+    params = {k: dict(v) for k, v in system.params.items()}
+    table = system.params["rotamer"]["interaction_param"]
+    params["rotamer"]["interaction_param"] = table.expand(
+        (n,) + tuple(table.shape)).clone()
+    assert len(system.fused_prepared(params)) == n
+    kernels.reset_counts()
+    g, e, c = system.deriv(x, None, None, params)
+    per_slot = dict(kernels.LAUNCHES)
+    kernels.reset_counts()
+    g0, e0, c0 = system.deriv(x)
+    batched = dict(kernels.LAUNCHES)
+    assert per_slot["fused_pair_fwd"] == per_slot["fused_pair_bwd"] == n
+    assert batched["fused_pair_fwd"] == batched["fused_pair_bwd"] == 1
+    assert per_slot["bp_bethe_pairs"] == batched["bp_bethe_pairs"] == 1
+    assert torch.equal(e, e0) and torch.equal(g, g0)
+    assert torch.equal(c["rotamer"]["nb"], c0["rotamer"]["nb"])
+
+
+@pytest.mark.requires_cuda
+def test_cold_k2_after_warm_matches_plain(cuda):
+    """K2 cold, warm from that solution, then cold again: the second cold
+    call equals the first bit for bit (no warm state left behind), takes
+    the plain cold solve's sweep counts and matches its values rel
+    1e-4."""
+    E1, E, res, rot, valid, n2p = bp_cases.pairs_case(3, **bp_cases.MIXED)
+    st = bp.make_statics(res, rot, valid, n2p, *bp_cases.BP_SETTINGS, cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    e1, ep = torch.tensor(E1, **f32), torch.tensor(E, **f32)
+    cold = bp.bp_bethe_pairs_fwd(st, e1, ep)
+    warm = bp.bp_bethe_pairs_fwd(st, e1, ep, (cold[3], cold[4]))
+    assert (warm[6] <= cold[6]).all() and (warm[6] < cold[6]).any()
+    again = bp.bp_bethe_pairs_fwd(st, e1, ep)
+    assert all(torch.equal(a, b) for a, b in zip(cold, again))
+    plain = bp.bp_bethe_pairs_fwd(st, e1, ep, plain=True)
+    assert cold[6].tolist() == plain[6].tolist()
+    for i in range(5):
+        assert _rel(cold[i], plain[i]) < 1e-4, i

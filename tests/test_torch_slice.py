@@ -7,9 +7,11 @@ bundle, plus the bundle pin and the import isolation of the port.
 * one 3-stage Verlet round with the BP cache threaded through the stages,
   from the same positions and momenta: positions and momenta at rel 1e-4;
 * the OU thermostat formula on the noise JAX draws;
-* the trp-cage, RNase A and no-env ubiquitin bundles regenerated by
-  tools/export_torch_bundle.py match the committed ones to 1e-6;
-* `import upside_md_torch` (a short MD run, the engine and training
+* the trp-cage, RNase A, no-env ubiquitin and cytochrome c bundles
+  regenerated by tools/export_torch_bundle.py match the committed ones to
+  1e-6 (cytochrome c's Monte Carlo move tables exactly);
+* `import upside_md_torch` (a short MD run, one exchange round of a
+  Hamiltonian ensemble and one pivot step, the engine and training
   modules, one parameter derivative) with jax, h5py and upside_md_tpu
   blocked.
 """
@@ -162,7 +164,7 @@ def test_regenerated_bundle_matches_committed(tmp_path):
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     for name in ("trp_cage_full_synth", "rnase_a_full_synth",
-                 "ubiquitin_noenv_synth"):
+                 "ubiquitin_noenv_synth", "cytochrome_c_full_synth"):
         path = tool.build_bundle(name, str(tmp_path), str(tmp_path))
         new, pos_new = bundle.load(path)
         old, pos_old = bundle.load(os.path.join(DATA_DIR, name + ".npz"))
@@ -182,6 +184,18 @@ def test_regenerated_bundle_matches_committed(tmp_path):
                             err_msg=f"{name}/{a.name}/{k}")
                     else:
                         np.testing.assert_array_equal(va, vb)
+        if name == "cytochrome_c_full_synth":
+            # its Monte Carlo move tables, float tables in float32
+            new_aux = bundle.load_aux(path)
+            old_aux = bundle.load_aux(os.path.join(DATA_DIR, name + ".npz"))
+            assert set(old_aux) == {"pivot_moves"}
+            assert set(old_aux["pivot_moves"]) == {
+                "proposal_pot", "pivot_atom", "pivot_restype", "pivot_range"}
+            for sec, tables in old_aux.items():
+                assert set(new_aux[sec]) == set(tables)
+                for k, v in tables.items():
+                    np.testing.assert_array_equal(new_aux[sec][k], v)
+            assert old_aux["pivot_moves"]["proposal_pot"].dtype == np.float32
     sizes = [os.path.getsize(os.path.join(DATA_DIR, f))
              for f in ("trp_cage_full_synth.npz",
                        "ubiquitin_full_synth.npz")]
@@ -190,6 +204,8 @@ def test_regenerated_bundle_matches_committed(tmp_path):
                                         "rnase_a_full_synth.npz")) < 4e6
     assert os.path.getsize(os.path.join(DATA_DIR,
                                         "ubiquitin_noenv_synth.npz")) < 2.5e6
+    assert os.path.getsize(os.path.join(
+        DATA_DIR, "cytochrome_c_full_synth.npz")) < 5e6
 
 
 BLOCKED_IMPORT = r"""
@@ -211,6 +227,34 @@ system, pos = System.from_bundle(sys.argv[2], device="cpu")
 sim = Simulation(system, seed=0)
 state = sim.advance(sim.initial_state(pos, 1), 1)
 assert bool(torch.isfinite(state.pos).all())
+# one exchange round of a Hamiltonian ensemble and one pivot step, with
+# pivot tables from the Rama nodes and a flat proposal map
+from upside_md_torch.config import bundle
+from upside_md_torch.md.mc import PivotSampler, metropolis_step
+from upside_md_torch.md.replica import ReplicaExchange, even_odd_swap_sets
+from upside_md_torch.md.sim import stack_param_ensembles
+k = system.params["angle_spring"]["spring_const"]
+params, spec = stack_param_ensembles([
+    {**system.params, "angle_spring": {**system.params["angle_spring"],
+                                       "spring_const": k * f}}
+    for f in (0.99, 1.01)])
+state = sim.initial_state(pos, 2, [0.8, 0.816])
+state = sim.advance(state, 1, params, spec)
+pos2, ridx, stats, energies, cache = ReplicaExchange(
+    even_odd_swap_sets(2), 2).attempt_swaps(
+    state.pos, torch.arange(2), 1.0 / state.temperature, sim.energy_fn(params),
+    aux=state.cache, generator=sim.generator)
+assert sorted(ridx.tolist()) == [0, 1] and stats[0][0, 1] == 1
+by = {r.name: r for r in bundle.load(sys.argv[2])[0]}
+rc = by["rama_coord"].consts["id"]
+inner = ~by["rama_coord"].consts["dummy"].any(1)
+layer = by["rama_map_pot"].consts["rama_map_id"][inner]
+pivot = PivotSampler.from_tables(
+    rc[inner], [[a + 1, len(pos)] for a in rc[inner, 4]], layer,
+    [[[0.0] * 72] * 72] * (layer.max() + 1), device="cpu")
+moved, accepted = metropolis_step(pos2, state.temperature,
+                                  sim.energy_fn(params), pivot, sim.generator)
+assert moved.shape == pos2.shape and accepted.shape == (2,)
 engine = Upside(system, initial_pos=pos)
 assert engine.get_param_deriv("hbond_energy").shape == (1,)
 assert training.rotamer_packings(system.params)["rotamer"].symmetric

@@ -38,9 +38,13 @@ Run from the repository root (needs jax and h5py):
 It writes `ubiquitin_full_synth.npz` (76 residues),
 `trp_cage_full_synth.npz` (20 residues), `rnase_a_full_synth.npz`
 (124-residue bovine ribonuclease A, 543 sidechain beads: above the fused
-block's 512-bead cap, so the port runs its unfused path) and
-`ubiquitin_noenv_synth.npz` into `upside_md_torch/data/`.  The `_noenv`
-bundles are built the same way but without `add_environment`, as
+block's 512-bead cap, so the port runs its unfused path),
+`ubiquitin_noenv_synth.npz` and `cytochrome_c_full_synth.npz` (104-residue
+horse cytochrome c, `bench_systems.CYT_C`, 489 beads: the system of the
+Hamiltonian replica-exchange configuration, tools/bench_all.py:103-160)
+into `upside_md_torch/data/`.  Each bundle carries the reader's Monte
+Carlo move tables (`load_system`'s fourth value) as its aux section.  The
+`_noenv` bundles are built the same way but without `add_environment`, as
 `build_full_system` builds a system when the environment library is
 absent: the fused pair block then runs without its env band, and its
 backward is the recomputing one (K3).  `--only trp_cage_noenv_synth`
@@ -78,6 +82,7 @@ SYSTEMS = {
     "rnase_a_full_synth": RNASE_A,
     "ubiquitin_noenv_synth": "UBIQUITIN",
     "trp_cage_noenv_synth": "TRP_CAGE",
+    "cytochrome_c_full_synth": "CYT_C",
 }
 # bundles built without the environment/burial chain, as build_full_system
 # builds a system when no environment library exists
@@ -85,7 +90,10 @@ NO_ENV = {"ubiquitin_noenv_synth", "trp_cage_noenv_synth"}
 # what `main` writes by default; the trp-cage no-env bundle is built by the
 # tests where they need it
 COMMITTED = ("ubiquitin_full_synth", "trp_cage_full_synth",
-             "rnase_a_full_synth", "ubiquitin_noenv_synth")
+             "rnase_a_full_synth", "ubiquitin_noenv_synth",
+             "cytochrome_c_full_synth")
+# the aux sections a bundle carries (config/reader.py:367-370)
+AUX_SECTIONS = ("pivot_moves", "jump_moves")
 
 
 def _unit(v):
@@ -217,10 +225,15 @@ def build_bundle(name, out_dir, lib_dir):
     b.add_rotamer_node()
     up = os.path.join(lib_dir, f"{name}.up")
     b.write(up)
-    system, _, pos, _ = load_system(up)
+    system, _, pos, aux = load_system(up)
     records, pos = from_jax_specs(system.specs, pos)
     path = os.path.join(out_dir, f"{name}.npz")
-    bundle.save(path, records, pos)
+    # float tables in float32, the precision the samplers keep them in
+    # (mc.py:46-50): the float64 proposal map alone would double the file
+    bundle.save(path, records, pos, {
+        sec: {k: v.astype(np.float32) if v.dtype.kind == "f" else v
+              for k, v in aux[sec].items()}
+        for sec in AUX_SECTIONS if sec in aux})
     return path
 
 

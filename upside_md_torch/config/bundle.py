@@ -9,6 +9,13 @@ array lives under `"<spec number>/<consts|params>/<key>"`.
 
 Python scalars (ints, floats, bools, strings) ride in the JSON index;
 everything array-like is stored as an array with its dtype.
+
+An optional `aux` section carries tables outside the node graph, as the
+JAX reader's fourth value does (config/reader.py:367-370): the Monte Carlo
+move tables `pivot_moves` (proposal_pot, pivot_atom, pivot_restype,
+pivot_range) and `jump_moves` (atom_range, sigma_trans, sigma_rot), each
+array under `"aux/<section>/<key>"`.  A bundle without it has no `aux`
+entry in its index.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ def _split(values: Dict[str, Any], prefix: str, arrays: Dict[str, np.ndarray]):
     return index
 
 
-def save(path: str, specs: List[SpecRecord], pos: np.ndarray) -> str:
-    """Write a bundle.  `pos` is the (n_atom, 3) initial structure."""
+def save(path: str, specs: List[SpecRecord], pos: np.ndarray,
+         aux: Dict[str, Dict[str, np.ndarray]] = None) -> str:
+    """Write a bundle.  `pos` is the (n_atom, 3) initial structure; `aux`
+    {section: {key: array}} the optional aux section."""
     arrays: Dict[str, np.ndarray] = {"pos": np.asarray(pos, np.float32)}
     entries = []
     for k, s in enumerate(specs):
@@ -54,19 +63,29 @@ def save(path: str, specs: List[SpecRecord], pos: np.ndarray) -> str:
             "params": _split(s.params, f"{k}/params", arrays)})
     index = {"version": FORMAT_VERSION, "n_atom": int(np.shape(pos)[0]),
              "specs": entries}
+    if aux:
+        index["aux"] = {sec: sorted(tables) for sec, tables in aux.items()}
+        for sec, tables in aux.items():
+            for key, v in tables.items():
+                arrays[f"aux/{sec}/{key}"] = np.asarray(v)
     arrays["__index__"] = np.frombuffer(
         json.dumps(index, sort_keys=True).encode(), np.uint8)
     np.savez_compressed(path, **arrays)
     return path
 
 
+def _index(z, path):
+    index = json.loads(bytes(z["__index__"]).decode())
+    if index.get("version") != FORMAT_VERSION:
+        raise ValueError(f"{path}: unsupported bundle version "
+                         f"{index.get('version')}")
+    return index
+
+
 def load(path: str) -> Tuple[List[SpecRecord], np.ndarray]:
     """Read a bundle.  Returns (specs, pos)."""
     with np.load(path, allow_pickle=False) as z:
-        index = json.loads(bytes(z["__index__"]).decode())
-        if index.get("version") != FORMAT_VERSION:
-            raise ValueError(f"{path}: unsupported bundle version "
-                             f"{index.get('version')}")
+        index = _index(z, path)
         pos = np.asarray(z["pos"])
 
         def unpack(desc, prefix):
@@ -84,3 +103,11 @@ def load(path: str) -> Tuple[List[SpecRecord], np.ndarray]:
         raise ValueError(f"{path}: pos shape {pos.shape} does not match "
                          f"n_atom {index['n_atom']}")
     return specs, pos
+
+
+def load_aux(path: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """A bundle's aux section, {section: {key: array}}; {} without one."""
+    with np.load(path, allow_pickle=False) as z:
+        return {sec: {key: np.asarray(z[f"aux/{sec}/{key}"])
+                      for key in keys}
+                for sec, keys in _index(z, path).get("aux", {}).items()}

@@ -9,7 +9,10 @@ A node type is a function ``compute(consts, params, inputs, ctx)``:
 * ``inputs``: outputs of the argument nodes, each (n_replica, n_elem,
   width); the replica axis always leads;
 * ``ctx``: the evaluation context (`system.EvalContext`): warm-start cache,
-  fused-block results, the node's own name.
+  fused-block results, the node's own name and which of its parameters
+  are stacked over replicas (``ctx.stacked``: such a leaf carries a
+  leading replica axis, and the node evaluates each replica under its own
+  value; `rows` and `type_pairs` take that axis into account).
 
 Coordinate nodes return (n_replica, n_elem, width); potential nodes return
 one energy per replica, (n_replica,).  Node types are looked up by exact
@@ -75,6 +78,29 @@ def to_tensor(v, device, dtype):
     if a.dtype.kind == "b":
         return torch.tensor(a, device=device)
     raise TypeError(f"cannot move array of dtype {a.dtype} to torch")
+
+
+def rows(table, index, stacked):
+    """table[index] along its first axis, or along its second when the
+    table is `stacked` over replicas: (B, len(index), ...)."""
+    return table[:, index] if stacked else table[index]
+
+
+def per_slot(fn, table, *batched):
+    """fn(table[i], *(x[i:i+1] for x in batched)) for each replica slot i
+    of a `table` stacked over replicas, joined along the replica axis: a
+    kernel reads one table a launch, so a stacked one launches once a
+    slot."""
+    return torch.cat([fn(table[i], *(x[i:i + 1] for x in batched))
+                      for i in range(table.shape[0])])
+
+
+def type_pairs(table, t1, t2, stacked):
+    """The (n1, n2, ...) pair table of row types t1 and column types t2,
+    with a leading replica axis when `table` is `stacked`."""
+    if stacked:
+        return table[:, t1[:, None], t2[None, :]]
+    return table[t1[:, None], t2[None, :]]
 
 
 @dataclass

@@ -16,7 +16,7 @@ import torch
 from ..ops.pairs import sequence_exclusion_mask
 from ..ops.sigmoid import compact_sigmoid
 from ..ops.spline import eval_clamped_bspline
-from .base import flat_param, register_node
+from .base import flat_param, register_node, rows, type_pairs
 
 
 def _environment_coverage(c, p, inputs, ctx):
@@ -24,7 +24,8 @@ def _environment_coverage(c, p, inputs, ctx):
         return ctx.fused[ctx.node_name]
     cb = inputs[0][:, c["index1"]]                     # (B, n1, 6)
     sc = inputs[1][:, c["index2"]]                     # (B, n2, 4)
-    prm = p["interaction_param"][c["type1"][:, None], c["type2"][None, :]]
+    prm = type_pairs(p["interaction_param"], c["type1"], c["type2"],
+                     "interaction_param" in ctx.stacked)
     r0, r_sharp, dot0, dot_sharp = prm.unbind(-1)
     d = sc[..., None, :, 0:3] - cb[..., :, None, 0:3]
     dist2 = (d * d).sum(-1)
@@ -48,7 +49,8 @@ def _weighted_pos(c, p, inputs, ctx):
 
 
 def _nonlinear_coupling(c, p, inputs, ctx):
-    coeff = p["coeff"][c["coupling_types"]]            # (n, n_coeff)
+    coeff = rows(p["coeff"], c["coupling_types"],    # ([B,] n, n_coeff)
+                 "coeff" in ctx.stacked)
     x = (inputs[0][..., 0] - c["spline_offset"]) * c["spline_inv_dx"]
     v, _ = eval_clamped_bspline(coeff, x)
     return v.sum(-1)

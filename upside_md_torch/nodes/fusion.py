@@ -108,10 +108,22 @@ class PairFusionPlan:
                 residuals=True):
         """Run the fused block; returns {member name: node output}.  The
         table tensors of `params` go into the block, so their gradients
-        reach them."""
+        reach them.  `prep` a list (tables stacked over replicas,
+        `System.fused_prepared`): the block runs once per replica slot
+        with that slot's operands and tables."""
         x1, w1, x2, wcol = self.block_inputs(consts, outputs)
-        cov, grid, envsum = fused_pair_block(prep, x1, w1, x2, wcol, plain,
-                                             self.tables(params), residuals)
+        tabs = self.tables(params)
+        if isinstance(prep, list):
+            # a table is (n_type1, n_type2, width); stacked, (B, ...)
+            slots = [fused_pair_block(
+                p, x1[i:i + 1], w1[i:i + 1], x2[i:i + 1], wcol[i:i + 1],
+                plain, [t[i] if t is not None and t.ndim > 3 else t
+                        for t in tabs], residuals)
+                for i, p in enumerate(prep)]
+            cov, grid, envsum = (torch.cat(o) for o in zip(*slots))
+        else:
+            cov, grid, envsum = fused_pair_block(prep, x1, w1, x2, wcol,
+                                                 plain, tabs, residuals)
         out = {self.cov1.name: cov[:, 0, :, None],
                self.cov2.name: cov[:, 1, :, None],
                self.rot.name + ":E_pair": grid}

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.quadspline import PairSpline, quadspline_colsum
-from .base import register_node, to_tensor
+from .base import per_slot, register_node, to_tensor, type_pairs
 
 RADIAL_CUTOFF2 = 3.5 * 3.5  # hbond.cpp:124
 
@@ -62,7 +62,8 @@ def _protein_hbond(c, p, inputs, ctx):
     ho = inputs[0]
     don = ho[:, c["index1"]]
     acc = ho[:, c["index2"]]
-    table = p["interaction_param"][c["type1"][:, None], c["type2"][None, :]]
+    table = type_pairs(p["interaction_param"], c["type1"], c["type2"],
+                       "interaction_param" in ctx.stacked)
     hb = hbond_pair_strength(table, don[..., 0:3], don[..., 3:6],
                              acc[..., 0:3], acc[..., 3:6])
     # -log(1-hb), value capped at 100 and the argument floored at 1e-5
@@ -95,9 +96,14 @@ def _hbond_coverage(c, p, inputs, ctx):
     hb_nodes = inputs[0][:, c["index1"]]
     sc = inputs[1][:, c["index2"]]
     prefactor = (1.0 - hb_nodes[..., 6]) ** 2
-    cov = quadspline_colsum(c["spline"], p["interaction_param"],
-                            hb_nodes[..., :6], sc[..., :6], prefactor,
-                            ctx.plain)
+
+    def colsum(table, x1, x2, w1):
+        return quadspline_colsum(c["spline"], table, x1, x2, w1, ctx.plain)
+
+    args = (p["interaction_param"], hb_nodes[..., :6], sc[..., :6],
+            prefactor)
+    cov = per_slot(colsum, *args) if "interaction_param" in ctx.stacked \
+        else colsum(*args)
     return cov.unsqueeze(-1)
 
 

@@ -12,7 +12,7 @@ import torch
 
 from ..ops.geometry import quat_to_rot, rotate_vec
 from ..ops.spline import eval_periodic_bspline_2d
-from .base import flat_param, register_node
+from .base import flat_param, register_node, rows
 from .rama import rama_to_grid
 
 SIG_WIDTH = {"scalar": 1, "point": 3, "vector": 3}
@@ -38,7 +38,8 @@ def _fixed_placement(signature):
     def compute(c, p, inputs, ctx):
         affine = inputs[0][:, c["affine_residue"]]
         return _transform(signature, affine,
-                          p["placement_data"][c["layer_index"]])
+                          rows(p["placement_data"], c["layer_index"],
+                               "placement_data" in ctx.stacked))
     return compute
 
 
@@ -46,11 +47,12 @@ def _rama_placement(signature):
     def compute(c, p, inputs, ctx):
         affine = inputs[0][:, c["affine_residue"]]
         rama = inputs[1][:, c["rama_residue"]]          # (B, n, 2)
-        coeffs = p["coeffs"][c["layer_index"]]          # (n, nx, ny, w)
-        coeffs = coeffs.movedim(-1, 1)                  # (n, w, nx, ny)
+        coeffs = rows(p["coeffs"], c["layer_index"],    # ([B,] n, nx, ny, w)
+                      "coeffs" in ctx.stacked)
+        coeffs = coeffs.movedim(-1, -3)                 # ([B,] n, w, nx, ny)
         x = rama_to_grid(rama[..., 0:1], coeffs.shape[-2])
         y = rama_to_grid(rama[..., 1:2], coeffs.shape[-1])
-        width = coeffs.shape[1]
+        width = coeffs.shape[-3]
         val, _, _ = eval_periodic_bspline_2d(
             coeffs, x.expand(x.shape[:-1] + (width,)),
             y.expand(y.shape[:-1] + (width,)))          # (B, n, w)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import math
 
 from ..ops.spline import eval_periodic_bspline_2d
-from .base import register_node
+from .base import register_node, rows
 
 
 def rama_to_grid(rama, n_grid):
@@ -17,10 +17,11 @@ def rama_to_grid(rama, n_grid):
 
 def _rama_map_pot(c, p, inputs, ctx):
     rama = inputs[0][:, c["residue_id"]]               # (B, n_res, 2)
-    coeffs = p["coeffs"]                               # (n_layer, nx, ny)
+    coeffs = rows(p["coeffs"], c["rama_map_id"],     # ([B,] n_res, nx, ny)
+                  "coeffs" in ctx.stacked)
     x = rama_to_grid(rama[..., 0], coeffs.shape[-2])
     y = rama_to_grid(rama[..., 1], coeffs.shape[-1])
-    val, _, _ = eval_periodic_bspline_2d(coeffs[c["rama_map_id"]], x, y)
+    val, _, _ = eval_periodic_bspline_2d(coeffs, x, y)
     return val.sum(-1)
 
 

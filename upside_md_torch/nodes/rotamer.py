@@ -38,7 +38,7 @@ from ..ops.bp_pairs import (EPS, MAX_RES, NROT, bp_bethe_pairs,
                             make_statics, scatter_pairs)
 from ..ops.bp_planes import bp_bethe_planes
 from ..ops.quadspline import PairSpline, live_pairs, quadspline
-from .base import flat_param, register_node, to_tensor
+from .base import flat_param, per_slot, register_node, to_tensor
 
 EXTRAP_ALPHA = 1.0
 # above this many beads the JAX package leaves the bead-space BP kernel for
@@ -82,18 +82,24 @@ def assemble_one_body(c, inputs):
     return E1.reshape(E1.shape[0], st.n_res, NROT)
 
 
-def assemble_pair_grid(c, p, beads, plain=False):
+def assemble_pair_grid(c, p, beads, plain=False, stacked=False):
     """Unfused bead-pair grid (B, n, n) from K5: upper triangle, different
-    residues, within the family's cutoff (rotamer.py:208-236)."""
-    return quadspline(c["spline"], p["interaction_param"], beads, beads,
-                      plain)
+    residues, within the family's cutoff (rotamer.py:208-236).  A table
+    `stacked` over replicas launches K5 once a slot."""
+    def grid(table, b):
+        return quadspline(c["spline"], table, b, b, plain)
+    table = p["interaction_param"]
+    return per_slot(grid, table, beads) if stacked else grid(table, beads)
 
 
 def pair_adjacency(c, p, beads):
     """(B, R, R) bool: residues with a bead pair of the rotamer mask inside
     the cutoff, symmetric, no diagonal (rotamer.py:230-232, 266-267)."""
     ps = c["spline"]
-    live = live_pairs(ps, ps.table(p["interaction_param"]), beads, beads)
+    table = p["interaction_param"]
+    # the cutoff depends on the table's family (its width) only
+    live = live_pairs(ps, ps.table(table[0] if table.ndim > 3 else table),
+                      beads, beads)
     oh = c["res_onehot"]
     counts = oh.T @ live.to(oh.dtype) @ oh           # exact small integers
     adj = (counts + counts.transpose(1, 2)) > 0
@@ -128,12 +134,14 @@ def _rotamer(c, p, inputs, ctx):
     if raw is not None:
         init = (extrapolate_beliefs(raw["nb"], raw["prev_nb"]), raw["eb"])
     E_pair = ctx.fused.get(name + ":E_pair")
+    stacked = "interaction_param" in ctx.stacked
     beads = inputs[0][:, c["index"], :6]
     if E_pair is not None or not _takes_planes(st):
         if E_pair is None:
             pad = st.n2p - st.n_bead
             E_pair = torch.nn.functional.pad(
-                assemble_pair_grid(c, p, beads, ctx.plain), (0, pad, 0, pad))
+                assemble_pair_grid(c, p, beads, ctx.plain, stacked),
+                (0, pad, 0, pad))
         F, nb, eb, dev, iters = bp_bethe_pairs(
             st, E1, E_pair, init, ctx.plain,
             identity_edges=p["interaction_param"].requires_grad)
@@ -145,7 +153,7 @@ def _rotamer(c, p, inputs, ctx):
                 "(upside_md_tpu/nodes/rotamer.py:463-483), which has no "
                 "port to the card yet")
         E2planes, adj = residue_planes(
-            c, p, beads, assemble_pair_grid(c, p, beads, ctx.plain))
+            c, p, beads, assemble_pair_grid(c, p, beads, ctx.plain, stacked))
         F, nb, eb, dev, iters = bp_bethe_planes(st, E1, E2planes, adj, init,
                                                 ctx.plain)
     ctx.cache_out[name] = {

@@ -820,7 +820,12 @@ class FusedPairBlock(torch.autograd.Function):
 def fused_pair_block(prep, x1, w1, x2, wcol, plain=False, tabs=None,
                      residuals=True):
     """(cov, E_pair, env); `tabs` = (tab1, tab2, tab3, tab4 or None), the
-    tensors `prep` was built from, for their cotangents."""
+    tensors `prep` was built from, for their cotangents.  A call that no
+    backward can follow (grad mode off, or no input requiring grad: the
+    energy-only evaluations of MC moves and replica swaps) keeps no
+    residual."""
     tabs = tuple(tabs) if tabs is not None else (None,) * 4
+    residuals = residuals and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x1, w1, x2, wcol) + tabs)
     return FusedPairBlock.apply(x1, w1, x2, wcol, *tabs, prep, plain,
                                 residuals)

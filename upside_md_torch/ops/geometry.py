@@ -13,6 +13,10 @@ def mag(v, dim=-1, keepdim=False):
     return torch.sqrt((v * v).sum(dim, keepdim=keepdim))
 
 
+def normalized(v, dim=-1, eps=0.0):
+    return v / (mag(v, dim, keepdim=True) + eps)
+
+
 def dihedral(r1, r2, r3, r4):
     """Dihedral in (-pi, pi] with the reference's sign convention
     (src/vector_math.h:703-735): atan2(C.G, (A.B)|G|), F=r1-r2, G=r2-r3,
@@ -40,6 +44,20 @@ def quat_to_rot(q):
         2 * (b * d - a * c), 2 * (c * d + a * b), a * a - b * b - c * c + d * d,
     ], dim=-1)
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_rot(angle, axis):
+    """Rotation (..., 3, 3) by `angle` (...) about the unit `axis` (..., 3)
+    (reference axis_angle_to_rot, src/affine.h:49-64)."""
+    x, y, z = axis.unbind(-1)
+    c, s = torch.cos(angle), torch.sin(angle)
+    C = 1.0 - c
+    r = torch.stack([
+        x * x * C + c, x * y * C - z * s, x * z * C + y * s,
+        y * x * C + z * s, y * y * C + c, y * z * C - x * s,
+        z * x * C - y * s, z * y * C + x * s, z * z * C + c,
+    ], dim=-1)
+    return r.reshape(angle.shape + (3, 3))
 
 
 def rotate_vec(R, v):

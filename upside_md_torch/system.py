@@ -2,16 +2,24 @@
 upside_md_tpu/system.py; reference DerivEngine, src/deriv_engine.cpp).
 
 Positions carry an explicit leading replica axis, (B, n_atom, 3); node
-tables are shared across replicas.  Forces are -d(sum of energies)/d(pos)
-from `torch.autograd.grad`.  The fused pair block (nodes/fusion.py) fires
-at the first coverage member; `System.__init__` moves that member directly
-before the second so every fused input exists by then.
+tables are shared across replicas, or, in a Hamiltonian ensemble
+(md/sim.py `stack_param_ensembles`), a parameter leaf carries a leading
+replica axis of its own and every slot is evaluated under its own value.
+The plain nodes broadcast such a leaf; a stacked table of the fused pair
+block runs the block once per replica slot, each with its own operands
+(the `lax.map` fallback of the JAX kernels' vmap rules,
+pallas_quadspline.py:671-676, :1841-1846).  Forces are
+-d(sum of energies)/d(pos) from `torch.autograd.grad`.  The fused pair
+block (nodes/fusion.py) fires at the first coverage member;
+`System.__init__` moves that member directly before the second so every
+fused input exists by then.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from . import nodes  # noqa: F401  (registers the node types)
@@ -28,7 +36,16 @@ class EvalContext:
         self.cache_out = {}          # this evaluation's solver state
         self.fused = {}              # fused pair block results by node
         self.node_name = None
+        # names of the node's parameters stacked over replicas
+        self.stacked = frozenset()
         self.plain = plain           # plain versions on the card
+
+
+def slot_params(params, spec, i):
+    """Replica slot i's own parameters out of a stacked set: the leaves in
+    `spec` ((node, name) pairs) indexed, the shared ones as they are."""
+    return {n: {k: v[i] if (n, k) in spec else v for k, v in leaves.items()}
+            for n, leaves in params.items()}
 
 
 class System:
@@ -90,20 +107,41 @@ class System:
 
     # -- parameter-only operands ----------------------------------------------
 
+    def stacked_leaves(self, params) -> frozenset:
+        """The (node, name) leaves of `params` that carry a leading replica
+        axis the system's own lack: `stack_param_ensembles`' spec."""
+        if params is self.params:
+            return frozenset()
+        return frozenset(
+            (n, k) for n, leaves in params.items() for k, v in leaves.items()
+            if isinstance(v, torch.Tensor)
+            and v.ndim > np.ndim(self.params[n][k]))
+
     def fused_prepared(self, params=None):
         """The fused block's parameter-only operands, rebuilt only when a
         table tensor it reads changes: the memo of sim.py:244-271, keyed on
         (id, version) of each table, so an in-place optimizer step
         invalidates it.  The memo holds the tensors, so no new tensor can
-        take a key's id while it stands."""
+        take a key's id while it stands.  When a table is stacked over
+        replicas, a list of every slot's operands."""
         if self.pair_fusion is None:
             return None
         params = self.params if params is None else params
         tabs = self.pair_fusion.tables(params)
         key = tuple((id(t), t._version) for t in tabs if t is not None)
         if self._prep_memo is None or self._prep_memo[0] != key:
-            self._prep_memo = (key, tabs, self.pair_fusion.prepare(
-                params, self.device, self.dtype))
+            fusion = self.pair_fusion
+            spec = {(n, "interaction_param") for n in fusion.table_nodes} \
+                & self.stacked_leaves(params)
+            if spec:
+                n_slot = params[next(iter(spec))[0]]["interaction_param"] \
+                    .shape[0]
+                prep = [fusion.prepare(slot_params(params, spec, i),
+                                       self.device, self.dtype)
+                        for i in range(n_slot)]
+            else:
+                prep = fusion.prepare(params, self.device, self.dtype)
+            self._prep_memo = (key, tabs, prep)
         return self._prep_memo[2]
 
     # -- graph evaluation ---------------------------------------------------
@@ -114,9 +152,17 @@ class System:
         """Run the graph on pos (B, n_atom, 3).  Returns (total (B,),
         outputs, per_term, ctx); ctx.cache_out holds the new solver state.
         params: {node: {name: tensor}} in place of `self.params` (its
-        tensors may require grad); inject: {node: tensor} added to that
-        node's output (how `get_sens` reads output cotangents)."""
+        tensors may require grad; a leaf with a leading replica axis of
+        size B gives each replica its own value); inject: {node: tensor}
+        added to that node's output (how `get_sens` reads output
+        cotangents)."""
         params = self.params if params is None else params
+        spec = self.stacked_leaves(params)
+        for n, k in spec:
+            if params[n][k].shape[0] != pos.shape[0]:
+                raise ValueError(f"parameter {n}/{k} is stacked over "
+                                 f"{params[n][k].shape[0]} replicas, the "
+                                 f"positions hold {pos.shape[0]}")
         ctx = EvalContext(cache, self.plain)
         outputs = {"pos": pos}
         per_term = {}
@@ -128,6 +174,7 @@ class System:
                 ctx.fused = fusion.compute(self.consts, outputs, prep, params,
                                            self.plain, self.residuals)
             ctx.node_name = s.name
+            ctx.stacked = frozenset(k for n, k in spec if n == s.name)
             out = s.node_type.compute(self.consts[s.name],
                                       params.get(s.name, {}),
                                       [outputs[a] for a in s.args], ctx)
