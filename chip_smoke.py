@@ -20,7 +20,12 @@ checks them:
   K2), a Hamiltonian ensemble of 64 replicas under a +-1% ladder of the
   first spring node's spring_const at temperatures 0.80 1.02^i, even/odd
   swap sets every 10 rounds, through `cli.run_ensemble`; once more with
-  pivot MC every 10 rounds and recentering at every frame.
+  pivot MC every 10 rounds and recentering at every frame;
+* proteins past the kernels' caps: 164-residue T4 lysozyme (770 beads; K4
+  and K5, and BP by the plain port of the XLA `_bp_solve`, the reference's
+  own branch past 128 residues) and 238-residue GFP (1,143 beads; the
+  fixed-K neighbour lists of the rotamer grid and both coverages, plain
+  PyTorch as the reference's are XLA, and the plain BP solve).
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -114,7 +119,25 @@ the bundle's seed.  Phases:
    recentering prints pivot acceptance and checks that a rejected pivot
    leaves its replica bitwise unchanged and the centres of mass below
    1e-4 A after recentering;
-8. prints the kernel table as one JSON line (launches summed over the
+8. proteins past 128 residues and 1,024 beads, at full width:
+   `[large t4_lysozyme]` the whole evaluation with kernels against
+   `kernels=False` at BP tol 1e-6 (energy and force RMS rel < 1e-3), K4's
+   and K5's forward and backward at 64 replicas against their plain
+   versions (phase 4's tolerances, tile decisions equal to `cull_tiles`,
+   device time by launch, bounds, the plain versions' time), MD at 64
+   and 512 replicas; `[large gfp]` a whole evaluation on the card in
+   float32 against the port on the CPU in float64 (no kernel lies on this
+   path; same limits), MD at 64 replicas, for the rotamer grid and both
+   coverages the largest in-cutoff partner count of a row beside the
+   list's width K, and the device time of an evaluation's three
+   neighbour-list calls, forward and backward, beside the MD's.  Each MD: 2 warm-up rounds, 3 x 3 timed rounds
+   (steps/s, mean BP sweeps and host syncs of the plain solve an
+   evaluation, peak memory), then 2 rounds under `torch.profiler` (device
+   time an evaluation, idle share, the plain solve's share of device
+   time); launch counts set to 0 just before each path and read just
+   after: T4 lysozyme's K4 and K5 launched and no other kernel, GFP no
+   kernel at all;
+9. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -141,6 +164,9 @@ BUNDLE = "ubiquitin_full_synth.npz"        # fused path (<= 512 beads)
 BUNDLE_UNFUSED = "rnase_a_full_synth.npz"  # unfused path (543 beads)
 BUNDLE_NOENV = "ubiquitin_noenv_synth.npz"  # fused block, no env band
 BUNDLE_REX = "cytochrome_c_full_synth.npz"  # replica exchange (489 beads)
+BUNDLE_T4 = "t4_lysozyme_full_synth.npz"   # 164 residues: plain BP solve
+BUNDLE_GFP = "gfp_full_synth.npz"          # 1,143 beads: neighbour lists
+T4_SIZE, GFP_SIZE = (164, 770), (238, 1143)  # rotamer residues, beads
 KERNEL_INFO = {
     "fused_pair_fwd": ("upside_md_torch/csrc/fused_pair_fwd.cu",
                        "upside_md_tpu/ops/pallas_quadspline.py:1021"),
@@ -165,6 +191,8 @@ KERNEL_INFO = {
 FUSED_KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
 UNFUSED_KERNELS = ("quadspline_fwd", "quadspline_bwd", "colsum_fwd",
                    "colsum_bwd", "bp_bethe_planes")
+# T4 lysozyme's path: K4 and K5; its BP is the plain solve, past K6's cap
+LARGE_KERNELS = UNFUSED_KERNELS[:4]
 NOENV_KERNELS = ("fused_pair_fwd", "fused_pair_bwd_recompute",
                  "bp_bethe_pairs")
 TRAIN_CONFIGS, TRAIN_STEPS, TRAIN_LR = 8, 5, 0.03
@@ -190,6 +218,9 @@ COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
 # BASELINE config 4 (tools/bench_all.py:103-160): replicas, timed rounds,
 # rounds between exchanges (and frames, and pivot moves), warm-up blocks
 REX_REPLICAS, REX_ROUNDS, REX_EVERY, REX_WARMUP_BLOCKS = 64, 60, 10, 2
+# phase 8's MD: replicas, timed rounds (three times), profiled rounds
+T4_MD_REPLICAS, GFP_MD_REPLICAS, LARGE_ROUNDS = (64, 512), (64,), 3
+LARGE_PROFILE_ROUNDS = 2
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
 ROW_TILE_REPLICAS = (64, 512)    # the row-tile kernels, by launch, at both
@@ -1445,9 +1476,9 @@ def log_bounds(label, n, rec):
         f"({rec['bound_table_ms'][1]})")
 
 
-def row_tile_k4(covs, n, gen, dev):
+def row_tile_k4(covs, n, gen, dev, where="RNase A"):
     """K4's forward and backward, both coverage calls of one evaluation, at
-    n replicas of perturbed RNase A (`covs`: the operands from the
+    n replicas of perturbed `where` (`covs`: the operands from the
     kernels' own evaluation): each call's cull held to `cull_tiles`, the
     first COMPARE_REPLICAS against the plain versions, bitwise repeatable,
     each kernel's time split by launch, its bounds (`k4_fwd_bounds`,
@@ -1481,7 +1512,7 @@ def row_tile_k4(covs, n, gen, dev):
                 d = run(flags=flags)
                 repeatable(f"{label} {name} at {n} replicas", d, run())
                 rec["cull"][name] = check_cull(
-                    f"{label} {name}, RNase A, {n} replicas", flags, keep,
+                    f"{label} {name}, {where}, {n} replicas", flags, keep,
                     live, masked)
                 compare([f"{label} {name} at {n} replicas, the first "
                          f"{COMPARE_REPLICAS}, output {k}"
@@ -1491,25 +1522,25 @@ def row_tile_k4(covs, n, gen, dev):
             calls.append((cps, ctab, x1, x2, w1, g))
             pairs.append((masked, live))
         fwd.update(time_launches(
-            "colsum_fwd (K4 fwd, both calls)",
+            f"colsum_fwd (K4 fwd, both calls, {where})",
             lambda: [qs.colsum_fwd(*c[:5]) for c in calls], n))
         fwd["bound_ms"], fwd["bound_table_ms"] = k4_fwd_bounds(
             [c[:5] for c in calls], outs_f, pairs)
         bwd.update(time_launches(
-            "colsum_bwd (K4 bwd, both calls)",
+            f"colsum_bwd (K4 bwd, both calls, {where})",
             lambda: [qs.colsum_bwd(*c) for c in calls], n))
         bwd["bound_ms"], bwd["bound_table_ms"] = k4_bwd_bounds(calls, outs_b,
                                                                pairs)
-    log_bounds("K4 fwd", n, fwd)
-    log_bounds("K4 bwd", n, bwd)
+    log_bounds(f"K4 fwd, {where},", n, fwd)
+    log_bounds(f"K4 bwd, {where},", n, bwd)
     del calls, outs_f, outs_b
     torch.cuda.empty_cache()
     return {"colsum_fwd": fwd, "colsum_bwd": bwd}
 
 
-def row_tile_k5(rot_ops, n, gen, dev):
+def row_tile_k5(rot_ops, n, gen, dev, where="RNase A"):
     """K5's forward, and its backward under a random grid cotangent, at n
-    replicas of perturbed RNase A (`rot_ops`: the rotamer beads of the
+    replicas of perturbed `where` (`rot_ops`: the rotamer beads of the
     kernels' own evaluation): each one's cull held to `cull_tiles`, the
     first COMPARE_REPLICAS against the plain version (the forward exactly
     0 where the plain one has no live pair), bitwise repeatable, its time
@@ -1530,20 +1561,20 @@ def row_tile_k5(rot_ops, n, gen, dev):
         repeatable(f"K5 bwd at {n} replicas", d,
                    qs.quadspline_bwd(ps, tab, beads, beads, g))
         masked, live = spline_pairs(ps, tab, beads, beads)
-        rec = {"cull": check_cull(f"K5 bwd, RNase A, {n} replicas", flags,
+        rec = {"cull": check_cull(f"K5 bwd, {where}, {n} replicas", flags,
                                   keep, live, masked)}
         flags = torch.full(keep.shape, 7, dtype=torch.uint8, device=dev)
         out = qs.quadspline_fwd(ps, tab, beads, beads, flags=flags)
         repeatable(f"K5 fwd at {n} replicas", (out,),
                    (qs.quadspline_fwd(ps, tab, beads, beads),))
-        fwd = {"cull": check_cull(f"K5 fwd, RNase A, {n} replicas", flags,
+        fwd = {"cull": check_cull(f"K5 fwd, {where}, {n} replicas", flags,
                                   keep, live, masked)}
         compare_grid(f"K5 fwd at {n} replicas, the first "
                      f"{COMPARE_REPLICAS}", out[first], qs.quadspline_fwd(
                          ps, tab, beads[first], beads[first], plain=True),
                      qs.live_pairs(ps, tab, beads[first], beads[first]))
         fwd.update(time_launches(
-            "quadspline_fwd (K5 fwd)",
+            f"quadspline_fwd (K5 fwd, {where})",
             lambda: qs.quadspline_fwd(ps, tab, beads, beads), n))
         fwd["grid_zero_device_ms"] = time_launches(
             "zero_ of K5 fwd's grid (its bytes alone)", out.zero_,
@@ -1557,7 +1588,8 @@ def row_tile_k5(rot_ops, n, gen, dev):
             (0, -ps.n1 % 32)).reshape(-1, 32).sum(1)
         rec["walked_by_row_tile"] = (keep.sum((0, 2)) / n).tolist()
         rec["live_by_row_tile"] = (live_rt / n).tolist()
-        log(f"[balance] K5 bwd at {n} replicas, a replica by row tile: "
+        log(f"[balance] K5 bwd, {where}, at {n} replicas, a replica by row "
+            "tile: "
             f"tiles walked {[round(v, 2) for v in rec['walked_by_row_tile']]}"
             f", live pairs {[round(v, 1) for v in rec['live_by_row_tile']]}")
         compare([f"K5 bwd at {n} replicas, the first {COMPARE_REPLICAS}, "
@@ -1565,12 +1597,12 @@ def row_tile_k5(rot_ops, n, gen, dev):
                 qs.quadspline_bwd(ps, tab, beads[first], beads[first],
                                   g[first], plain=True), 1e-4)
         rec.update(time_launches(
-            "quadspline_bwd (K5 bwd)",
+            f"quadspline_bwd (K5 bwd, {where})",
             lambda: qs.quadspline_bwd(ps, tab, beads, beads, g), n))
         rec["bound_ms"], rec["bound_table_ms"] = k5_bwd_bounds(
             ps, tab, beads, g, d, (masked, live))
-    log_bounds("K5 fwd", n, fwd)
-    log_bounds("K5 bwd", n, rec)
+    log_bounds(f"K5 fwd, {where},", n, fwd)
+    log_bounds(f"K5 bwd, {where},", n, rec)
     del g, d, out
     torch.cuda.empty_cache()
     return {"quadspline_fwd": fwd, "quadspline_bwd": rec}
@@ -1910,6 +1942,278 @@ def rex_run(path, dev, mc):
     return res, {nm: launches[nm] for nm in FUSED_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# proteins past 128 residues and 1,024 beads: T4 lysozyme and GFP
+# ---------------------------------------------------------------------------
+
+def large_statics(system, label, n_res, n_bead):
+    """The rotamer statics, checked against the bundle's size; the path
+    must be the unfused one."""
+    st = system.consts[[s.name for s in system.specs
+                         if s.node_type.name == "rotamer"][0]]["bp"]
+    if (st.n_res, st.n_bead) != (n_res, n_bead) \
+            or system.pair_fusion is not None:
+        raise AssertionError(f"{label}: {st.n_res} residues, {st.n_bead} "
+                             "beads, or a fusion plan")
+    return st
+
+
+def read_launches(label, names):
+    """The launch counts since they were set to 0: each of `names` must
+    be > 0 and every other kernel 0."""
+    from upside_md_torch.ops import kernels
+    launches = dict(kernels.LAUNCHES)
+    log(f"[{label}] kernel launches: {launches}")
+    for nm, k in launches.items():
+        if (k > 0) != (nm in names):
+            raise AssertionError(f"{label}: kernel {nm} launched {k} times")
+    return {nm: launches[nm] for nm in names}
+
+
+def large_t4(dev, gen, base, path):
+    """[large t4_lysozyme]: the whole evaluation with kernels against
+    `kernels=False` at BP tol 1e-6; K4's and K5's forward and backward at
+    64 replicas against their plain versions (phase 4's tolerances), their
+    tile decisions equal to `cull_tiles`, device time by launch, bounds,
+    and the plain versions' time at the same shapes."""
+    import torch
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.ops import quadspline as qs
+    label = "large t4_lysozyme"
+    sys_k, _ = load_system(path, dev, True, tol=1e-6)
+    sys_p, _ = load_system(path, dev, False, tol=1e-6)
+    st = large_statics(sys_k, label, *T4_SIZE)
+    log(f"[{label}] {st.n_res} residues, {st.n_bead} beads: K4, K5 and "
+        "the plain BP solve")
+    kernels.reset_counts()
+    gate = compare_whole(sys_k, sys_p,
+                         perturbed(base, COMPARE_REPLICAS, gen, dev),
+                         f"[{label}]")
+    read_launches(f"{label} gate", LARGE_KERNELS)
+    del sys_p
+    n = TIME_REPLICAS
+    with torch.no_grad():
+        _, outs, _, _ = sys_k.evaluate(perturbed(base, n, gen, dev))
+        covs, rot_ops = unfused_operands(sys_k, outs)
+    del outs
+    rows = {**row_tile_k4(covs, n, gen, dev, "T4 lysozyme"),
+            **row_tile_k5(rot_ops, n, gen, dev, "T4 lysozyme")}
+    c, p, beads, _ = rot_ops
+    ps = c["spline"]
+    tab = ps.table(p["interaction_param"])
+    g5 = torch.randn((n, ps.n1, ps.n2), generator=gen, device=dev)
+    cov_ops = [(cps, cps.table(table), x1, x2, w1)
+               for _, cps, table, x1, x2, w1 in covs]
+    g4 = [torch.randn(x2[..., 0].shape, generator=gen, device=dev)
+          for _, _, _, x2, _ in cov_ops]
+    with torch.no_grad():
+        plain = {
+            "quadspline_fwd": lambda: qs.quadspline_fwd(ps, tab, beads, beads,
+                                                        plain=True),
+            "quadspline_bwd": lambda: qs.quadspline_bwd(ps, tab, beads, beads,
+                                                        g5, plain=True),
+            "colsum_fwd": lambda: [qs.colsum_fwd(*o, plain=True)
+                                   for o in cov_ops],
+            "colsum_bwd": lambda: [qs.colsum_bwd(*o, g, plain=True)
+                                   for o, g in zip(cov_ops, g4)]}
+        for nm, fn in plain.items():
+            rows[nm]["plain_ms"] = cuda_ms(fn, reps=5)
+            r = rows[nm]
+            log(f"[{label}] {nm} at {n} replicas: {r['ms']:.4f} ms a call, "
+                f"device {r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                f"ms, bound {r['bound_ms'][0]:.4f} ms ({r['bound_ms'][1]})")
+    del covs, rot_ops, cov_ops, g4, g5, sys_k
+    torch.cuda.empty_cache()
+    return {"gate": gate, "kernels": rows}
+
+
+def large_md(path, dev, label, replicas, names, rounds):
+    """MD of a large protein at each replica count: 2 warm-up rounds, then
+    3 x `rounds` timed rounds (steps/s, mean BP sweeps and host syncs of
+    the plain solve a force evaluation, peak memory), then
+    LARGE_PROFILE_ROUNDS rounds under `torch.profiler` with the plain BP
+    solve (`bp_bethe_planes_plain`: `bp_solve_plain` and
+    `bethe_and_gradients`) inside a range of its own: device time an
+    evaluation, the idle share, the plain solve's share of device time
+    and kernel launches an evaluation.  The launch counts are set to 0
+    just before and read just after: each of `names` > 0, every other 0.
+    Returns (records, launches, the last run's positions)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from upside_md_torch.md.sim import Simulation
+    from upside_md_torch.ops import bp_pairs, kernels
+    from upside_md_torch.ops import bp_planes as bpp
+    system, pos0 = load_system(path, dev)
+    md = {}
+    kernels.reset_counts()
+    for n_rep in replicas:
+        torch.cuda.reset_peak_memory_stats()
+        sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
+        state = sim.advance(sim.initial_state(pos0, n_rep, temperature=0.85),
+                            2)
+        torch.cuda.synchronize()
+        times = []
+        s0, e0 = state.bp_sweeps.sum().item(), state.n_evals
+        h0 = bp_pairs.HOST_SYNCS["bp_solve_plain"]
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state = sim.advance(state, rounds)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        evals = state.n_evals - e0
+        sweeps = (state.bp_sweeps.sum().item() - s0) / (evals * n_rep)
+        syncs = (bp_pairs.HOST_SYNCS["bp_solve_plain"] - h0) / evals
+        if not (state.pos.shape == (n_rep,) + tuple(pos0.shape)
+                and torch.isfinite(state.pos).all()):
+            raise AssertionError(f"{label} MD at {n_rep} replicas: bad "
+                                 "positions")
+        rate = 3 * rounds * n_rep / statistics.median(times)
+        rec = {"steps_per_s": rate, "times_s": times,
+               "mean_bp_sweeps": sweeps, "host_syncs_per_eval": syncs,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        real = bpp.bp_bethe_planes_plain
+
+        def annotated(*args):
+            with record_function("bp_solve_plain"):
+                return real(*args)
+
+        bpp.bp_bethe_planes_plain = annotated
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state = sim.advance(state, LARGE_PROFILE_ROUNDS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            bpp.bp_bethe_planes_plain = real
+        # the range's device-side copy is not device work
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name != "bp_solve_plain"]
+        busy = sum(e.device_time for e in kern) * 1e-6
+        solve = sum(e.device_time_total for e in prof.events()
+                    if e.name == "bp_solve_plain"
+                    and e.device_type == torch.autograd.DeviceType.CPU) * 1e-6
+        n_ev = 3 * LARGE_PROFILE_ROUNDS
+        rec.update({"profiled_wall_s": wall, "device_s_per_eval": busy / n_ev,
+                    "idle_share": 1.0 - busy / wall,
+                    "plain_bp_share": solve / busy if busy else None,
+                    "launches_per_eval": len(kern) / n_ev})
+        share = "not measured" if not solve else \
+            f"{rec['plain_bp_share']:.3f}"
+        log(f"[{label}] MD {n_rep} replicas: {rate:.1f} steps/s (median of "
+            f"{[round(t, 4) for t in times]} s per {rounds} rounds), mean BP "
+            f"sweeps {sweeps:.2f}, host syncs of the plain solve {syncs:.2f} "
+            f"an evaluation, peak memory {rec['peak_mem_gb']:.2f} GB; under "
+            f"the profiler ({LARGE_PROFILE_ROUNDS} rounds, wall {wall:.4f} s)"
+            f" device {rec['device_s_per_eval'] * 1e3:.3f} ms an evaluation, "
+            f"idle share {rec['idle_share']:.3f}, plain BP solve's share of "
+            f"device time {share}, {rec['launches_per_eval']:.0f} launches "
+            "an evaluation; positions finite")
+        md[n_rep] = rec
+        last = state.pos
+        del sim, state, prof, kern
+        torch.cuda.empty_cache()
+    launches = read_launches(f"{label} MD", names)
+    return md, launches, last
+
+
+def large_gfp_gate(dev, gen, base, path):
+    """[large gfp]: a whole evaluation on the card in float32 against the
+    port on the CPU in float64, both at BP tol 1e-6: no kernel lies on
+    this path, so the gate is device against host (energy and force RMS
+    rel < 1e-3), and no kernel may launch."""
+    import torch
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.system import System
+    label = "large gfp"
+    sys_d, _ = load_system(path, dev, True, tol=1e-6)
+    large_statics(sys_d, label, *GFP_SIZE)
+    specs, pos0 = bundle.load(path)
+    for s in specs:
+        if s.type_name == "rotamer":
+            s.consts["tol"] = 1e-6
+    sys_h = System(len(pos0), specs, "cpu", torch.float64)
+    pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
+    kernels.reset_counts()
+    gd, ed, _ = sys_d.deriv(pos, sys_d.init_cache(COMPARE_REPLICAS))
+    read_launches(f"{label} gate", ())
+    gh, eh, _ = sys_h.deriv(pos.double().cpu(),
+                            sys_h.init_cache(COMPARE_REPLICAS))
+    gd, ed = gd.double().cpu(), ed.double().cpu()
+    err_e = ((ed - eh).abs() / eh.abs().clamp(min=1.0)).max().item()
+    err_g = ((gd - gh).pow(2).mean().sqrt()
+             / gh.pow(2).mean().sqrt().clamp(min=1e-12)).item()
+    check(f"[{label}] whole evaluation energy, card float32 against host "
+          "float64", err_e, 1e-3)
+    check(f"[{label}] whole evaluation force RMS, card float32 against "
+          "host float64", err_g, 1e-3)
+    if not (torch.isfinite(gd).all() and torch.isfinite(ed).all()):
+        raise AssertionError(f"{label}: non-finite energy or forces")
+    return {"energy_rel": err_e, "force_rms_rel": err_g}
+
+
+def large_nl(path, dev, pos, device_ms_per_eval):
+    """[large gfp] NL: at `pos`, for the rotamer grid and both coverage
+    nodes, the largest in-cutoff partner count of any row beside the
+    list's width K, and the rows above K (whose farthest partners the list
+    drops, as the reference's does); then the device time of the three
+    neighbour-list calls of an evaluation, forward and backward under
+    random cotangents, beside the MD's device time an evaluation."""
+    import torch
+    from upside_md_torch.nodes import hbond, rotamer
+    from upside_md_torch.ops.pairs import partner_counts, quadspline_family
+    system, _ = load_system(path, dev)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(pos)
+    covs, (c, p, beads, _) = unfused_operands(system, outs)
+    del outs
+    sites = [(name, cps.mask, table, x1, x2, hbond.COVERAGE_NEIGHBOR_K)
+             for name, cps, table, x1, x2, _ in covs]
+    sites.append(("rotamer", c["spline"].mask, p["interaction_param"],
+                  beads, beads, min(beads.shape[1], rotamer.NEIGHBOR_K)))
+    out = {}
+    for name, mask, table, x1, x2, K in sites:
+        ka, k, dx = quadspline_family(table.shape[-1])
+        cnt = partner_counts(x1[..., :3], x2[..., :3],
+                             ((k - 2 - 1e-6) * dx) ** 2, mask.bool())
+        out[name] = {"max_partners": int(cnt.max()), "K": K,
+                     "rows_over_K": int((cnt > K).sum()), "rows": cnt.numel()}
+        log(f"[large gfp] NL {name}: largest in-cutoff partner count of a "
+            f"row {out[name]['max_partners']} beside K {K}; rows above K "
+            f"{out[name]['rows_over_K']} of {cnt.numel()} ({pos.shape[0]} "
+            "replicas)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    leaves = [t.detach().requires_grad_(True)
+              for t in [beads] + [x for cv in covs for x in cv[3:5]]]
+
+    def nl_calls():
+        grid, _ = rotamer.assemble_pair_grid(c, p, leaves[0])
+        parts = [grid] + [hbond.coverage_nl(system.consts[name], table,
+                                            leaves[1 + 2 * i],
+                                            leaves[2 + 2 * i], w1)
+                          for i, (name, _, table, _, _, w1)
+                          in enumerate(covs)]
+        cots = [torch.randn(t.shape, generator=gen, device=dev)
+                for t in parts]
+        torch.autograd.grad(sum((t * g).sum() for t, g in zip(parts, cots)),
+                            leaves)
+
+    ms = device_ms(nl_calls, reps=5)
+    share = None if ms is None else ms / device_ms_per_eval
+    out["device_ms"], out["share_of_md_device_time"] = ms, share
+    log(f"[large gfp] NL: the three neighbour-list calls of an evaluation, "
+        f"forward and backward, device "
+        f"{'not measured' if ms is None else f'{ms:.3f} ms'} at "
+        f"{pos.shape[0]} replicas; "
+        f"{'not measured' if share is None else f'{share:.3f}'} of the MD's "
+        f"device time an evaluation ({device_ms_per_eval:.3f} ms)")
+    del covs, leaves, system
+    torch.cuda.empty_cache()
+    return out
+
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--out", default=None)
@@ -2027,15 +2331,35 @@ def main():
     rex["config4"], launches_r = rex_run(rex_path, dev, mc=False)
     rex["config4_pivot"], launches_rm = rex_run(rex_path, dev, mc=True)
     results["phases"]["rex"] = rex
+
+    # ---- 8. proteins past 128 residues and 1,024 beads
+    t4_path = os.path.join(DATA_DIR, BUNDLE_T4)
+    gfp_path = os.path.join(DATA_DIR, BUNDLE_GFP)
+    large = {"t4_lysozyme": large_t4(
+        dev, gen, torch.as_tensor(bundle.load(t4_path)[1], device=dev),
+        t4_path)}
+    large["t4_lysozyme"]["md"], launches_t4, _ = large_md(
+        t4_path, dev, "large t4_lysozyme", T4_MD_REPLICAS, LARGE_KERNELS,
+        LARGE_ROUNDS)
+    large["gfp"] = {"gate": large_gfp_gate(
+        dev, gen, torch.as_tensor(bundle.load(gfp_path)[1], device=dev),
+        gfp_path)}
+    large["gfp"]["md"], launches_gfp, last = large_md(
+        gfp_path, dev, "large gfp", GFP_MD_REPLICAS, (), LARGE_ROUNDS)
+    large["gfp"]["nl"] = large_nl(
+        gfp_path, dev, last,
+        large["gfp"]["md"][GFP_MD_REPLICAS[0]]["device_s_per_eval"] * 1e3)
+    results["phases"]["large"] = large
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
-                "rex cytochrome_c pivot": launches_rm}
+                "rex cytochrome_c pivot": launches_rm,
+                "md t4_lysozyme": launches_t4, "md gfp": launches_gfp}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 8. report
+    # ---- 9. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

@@ -33,7 +33,9 @@ stacked table launches the fused block once a slot: bitwise equal to one
 batched launch over identical slots; and K2 started cold (null warm-start
 pointers, as the energy-only evaluations of MC moves and replica swaps
 start it) after a warm call equals its first cold call bit for bit and
-the plain cold solve.
+the plain cold solve.  T4 lysozyme and GFP, past 128 residues and
+1,024 beads, evaluate on the card (K6 not launched, GFP no kernel at all)
+and match the port on the CPU in float64 at rel 1e-3.
 """
 
 import dataclasses
@@ -969,3 +971,37 @@ def test_cold_k2_after_warm_matches_plain(cuda):
     assert cold[6].tolist() == plain[6].tolist()
     for i in range(5):
         assert _rel(cold[i], plain[i]) < 1e-4, i
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name, launched", [
+    ("t4_lysozyme_full_synth",
+     {"quadspline_fwd", "quadspline_bwd", "colsum_fwd", "colsum_bwd"}),
+    ("gfp_full_synth", set())])
+def test_large_systems_on_the_card_match_the_host(cuda, name, launched):
+    """T4 lysozyme (164 residues, 770 beads) and GFP (238 residues, 1,143
+    beads) evaluate on the card: past 128 residues BP is the plain port of
+    `_bp_solve`, so K6 does not launch; T4 lysozyme's grid and coverages
+    are K5 and K4, GFP's are neighbour lists in plain PyTorch, so GFP
+    launches no kernel.  Energy and forces of two replicas in float32
+    against the port on the CPU in float64, both at BP tol 1e-6: rel
+    1e-3, forces as RMS relative error."""
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.system import System
+    specs, pos = bundle.load(os.path.join(DATA_DIR, name + ".npz"))
+    for s in specs:
+        if s.type_name == "rotamer":
+            s.consts["tol"] = 1e-6
+    x = np.stack([pos, pos]) + 0.05 * np.random.default_rng(4).normal(
+        size=(2,) + pos.shape)
+    card = System(len(pos), specs, cuda)
+    host = System(len(pos), specs, "cpu", torch.float64)
+    kernels.reset_counts()
+    g, e, _ = card.deriv(torch.tensor(x, dtype=torch.float32, device=cuda))
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == launched
+    g_h, e_h, _ = host.deriv(torch.tensor(x))
+    assert _rel(e, e_h) < 1e-3
+    g = g.double().cpu()
+    assert ((g - g_h).pow(2).mean().sqrt()
+            / g_h.pow(2).mean().sqrt()).item() < 1e-3

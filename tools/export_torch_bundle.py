@@ -34,15 +34,23 @@ libraries are synthetic, made from a numpy seed in the real layout:
 Run from the repository root (needs jax and h5py):
 
     python tools/export_torch_bundle.py [--out DIR] [--only NAME ...]
+    python tools/export_torch_bundle.py --up CONFIG.up [--name NAME] [--out DIR]
 
-It writes `ubiquitin_full_synth.npz` (76 residues),
+The second form converts a `.up` config the user wrote (any system the
+JAX reader loads) into `NAME.npz`, the same chain the synthetic systems
+take: `load_system` -> `convert.from_jax_specs` -> `bundle.save`.
+
+The first form writes `ubiquitin_full_synth.npz` (76 residues),
 `trp_cage_full_synth.npz` (20 residues), `rnase_a_full_synth.npz`
 (124-residue bovine ribonuclease A, 543 sidechain beads: above the fused
 block's 512-bead cap, so the port runs its unfused path),
 `ubiquitin_noenv_synth.npz` and `cytochrome_c_full_synth.npz` (104-residue
 horse cytochrome c, `bench_systems.CYT_C`, 489 beads: the system of the
-Hamiltonian replica-exchange configuration, tools/bench_all.py:103-160)
-into `upside_md_torch/data/`.  Each bundle carries the reader's Monte
+Hamiltonian replica-exchange configuration, tools/bench_all.py:103-160),
+`t4_lysozyme_full_synth.npz` (164-residue T4 lysozyme, 770 beads: the
+unfused path with more than 128 rotamer residues) and `gfp_full_synth.npz`
+(238-residue GFP, 1,143 beads: the neighbour-list pair path above 1,024
+beads) into `upside_md_torch/data/`.  Each bundle carries the reader's Monte
 Carlo move tables (`load_system`'s fourth value) as its aux section.  The
 `_noenv` bundles are built the same way but without `add_environment`, as
 `build_full_system` builds a system when the environment library is
@@ -75,6 +83,16 @@ LIB_SEED = 2024
 RNASE_A = ("KETAAAKFERQHMDSSTSAASSSNYCNQMMKSRNLTKDRCKPVNTFVHESLADVQAVCSQKNVA"
            "CKNGQTNCYQSYSTMSITDCRETGSSKYPNCAYKTTQANKHIIVACEGNPYVPVHFDASV")
 
+# bacteriophage T4 lysozyme, wild type (UniProt P00720, PDB 2LZM)
+T4_LYSOZYME = ("MNIFEMLRIDEGLRLKIYKDTEGYYTIGIGHLLTKSPSLNAAKSELDKAIGRNCNGVITKDEAEK"
+               "LFNQDVDAAVRGILRNAKLKPVYDSLDAVRRCALINMVFQMGETGVAGFTNSLRMLQQKRWDEA"
+               "AVNLAKSRWYNQTPNRAKRVITTFRTGTWDAYKNL")
+# green fluorescent protein of Aequorea victoria (UniProt P42212)
+GFP = ("MSKGEELFTGVVPILVELDGDVNGHKFSVSGEGEGDATYGKLTLKFICTTGKLPVPWPTLVTTFSY"
+       "GVQCFSRYPDHMKQHDFFKSAMPEGYVQERTIFFKDDGNYKTRAEVKFEGDTLVNRIELKGIDFKED"
+       "GNILGHKLEYNYNSHNVYIMADKQKNGIKVNFKIRHNIEDGSVQLADHYQQNTPIGDGPVLLPDNHY"
+       "LSTQSALSKDPNEKRDHMVLLEFVTAAGITHGMDELYK")
+
 # bundle name -> sequence, or the name of a sequence in bench_systems
 SYSTEMS = {
     "ubiquitin_full_synth": "UBIQUITIN",
@@ -83,7 +101,14 @@ SYSTEMS = {
     "ubiquitin_noenv_synth": "UBIQUITIN",
     "trp_cage_noenv_synth": "TRP_CAGE",
     "cytochrome_c_full_synth": "CYT_C",
+    "t4_lysozyme_full_synth": T4_LYSOZYME,
+    "gfp_full_synth": GFP,
 }
+# (residues, rotamer beads) the synthetic library gives the large systems:
+# T4 lysozyme runs the dense unfused path past 128 residues, GFP the
+# neighbour lists past 1,024 beads
+SIZES = {"t4_lysozyme_full_synth": (164, 770),
+         "gfp_full_synth": (238, 1143)}
 # bundles built without the environment/burial chain, as build_full_system
 # builds a system when no environment library exists
 NO_ENV = {"ubiquitin_noenv_synth", "trp_cage_noenv_synth"}
@@ -91,7 +116,8 @@ NO_ENV = {"ubiquitin_noenv_synth", "trp_cage_noenv_synth"}
 # tests where they need it
 COMMITTED = ("ubiquitin_full_synth", "trp_cage_full_synth",
              "rnase_a_full_synth", "ubiquitin_noenv_synth",
-             "cytochrome_c_full_synth")
+             "cytochrome_c_full_synth", "t4_lysozyme_full_synth",
+             "gfp_full_synth")
 # the aux sections a bundle carries (config/reader.py:367-370)
 AUX_SECTIONS = ("pivot_moves", "jump_moves")
 
@@ -201,9 +227,6 @@ def build_bundle(name, out_dir, lib_dir):
     """Build one system the way build_full_system does; write its bundle."""
     from upside_md_tpu import bench_systems
     from upside_md_tpu.config.builder import ConfigBuilder
-    from upside_md_tpu.config.reader import load_system
-    from upside_md_torch.config import bundle
-    from upside_md_torch.convert import from_jax_specs
 
     rng = np.random.default_rng(LIB_SEED)
     sidechain = write_sidechain_library(
@@ -225,9 +248,24 @@ def build_bundle(name, out_dir, lib_dir):
     b.add_rotamer_node()
     up = os.path.join(lib_dir, f"{name}.up")
     b.write(up)
+    path = export_up(up, os.path.join(out_dir, f"{name}.npz"))
+    if name in SIZES:
+        got = (len(seq), rotamer_beads(path))
+        if got != SIZES[name]:
+            raise ValueError(f"{name}: {got} residues and rotamer beads, "
+                             f"expected {SIZES[name]}")
+    return path
+
+
+def export_up(up, path):
+    """Convert the `.up` config `up` into the bundle `path`: the JAX
+    reader's specs, initial positions and Monte Carlo move tables."""
+    from upside_md_tpu.config.reader import load_system
+    from upside_md_torch.config import bundle
+    from upside_md_torch.convert import from_jax_specs
+
     system, _, pos, aux = load_system(up)
     records, pos = from_jax_specs(system.specs, pos)
-    path = os.path.join(out_dir, f"{name}.npz")
     # float tables in float32, the precision the samplers keep them in
     # (mc.py:46-50): the float64 proposal map alone would double the file
     bundle.save(path, records, pos, {
@@ -237,13 +275,31 @@ def build_bundle(name, out_dir, lib_dir):
     return path
 
 
+def rotamer_beads(path):
+    """Sidechain beads of the bundle's rotamer node (0 without one)."""
+    from upside_md_torch.config import bundle
+    return sum(len(s.consts["index"]) for s in bundle.load(path)[0]
+               if s.type_name == "rotamer")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "upside_md_torch",
                                                   "data"))
     ap.add_argument("--only", nargs="*", choices=sorted(SYSTEMS))
+    ap.add_argument("--up", help="export this .up config instead of the "
+                    "synthetic systems")
+    ap.add_argument("--name", help="bundle name of --up (default: the "
+                    ".up file's name)")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    if args.up:
+        if args.only:
+            ap.error("--up and --only exclude each other")
+        name = args.name or os.path.splitext(os.path.basename(args.up))[0]
+        path = export_up(args.up, os.path.join(args.out, f"{name}.npz"))
+        print(f"{path}: {os.path.getsize(path)} bytes")
+        return
     with tempfile.TemporaryDirectory() as lib_dir:
         for name in args.only or COMMITTED:
             path = build_bundle(name, args.out, lib_dir)

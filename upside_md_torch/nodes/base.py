@@ -88,11 +88,14 @@ def rows(table, index, stacked):
 
 def per_slot(fn, table, *batched):
     """fn(table[i], *(x[i:i+1] for x in batched)) for each replica slot i
-    of a `table` stacked over replicas, joined along the replica axis: a
-    kernel reads one table a launch, so a stacked one launches once a
-    slot."""
-    return torch.cat([fn(table[i], *(x[i:i + 1] for x in batched))
-                      for i in range(table.shape[0])])
+    of a `table` stacked over replicas, joined along the replica axis (each
+    part joined where fn returns a tuple): a kernel reads one table a
+    launch, so a stacked one launches once a slot."""
+    outs = [fn(table[i], *(x[i:i + 1] for x in batched))
+            for i in range(table.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(part) for part in zip(*outs))
+    return torch.cat(outs)
 
 
 def type_pairs(table, t1, t2, stacked):

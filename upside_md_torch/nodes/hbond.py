@@ -9,7 +9,9 @@ reference src/hbond.cpp).
   row sites weighted by (1 - s)^2.  Up to 512 beads it comes out of the
   fused pair block (nodes/fusion.py); above, each node runs K4, the
   weighted column sums of the pair spline (hbond.py:124-166 of the JAX
-  package).
+  package), and above COVERAGE_NL_THRESHOLD columns the neighbour list
+  (hbond.py:139-148): each row's COVERAGE_NEIGHBOR_K nearest in-cutoff
+  columns, their weighted values summed by column.
 """
 
 from __future__ import annotations
@@ -17,10 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.pairs import quadspline_coverage_nl, quadspline_family
 from ..ops.quadspline import PairSpline, quadspline_colsum
 from .base import per_slot, register_node, to_tensor, type_pairs
 
 RADIAL_CUTOFF2 = 3.5 * 3.5  # hbond.cpp:124
+# above this many columns the coverage takes the fixed-K neighbour list
+# (hbond.py:32-33 of the JAX package); read at call time
+COVERAGE_NL_THRESHOLD = 1024
+COVERAGE_NEIGHBOR_K = 96
 
 
 def _unit(v):
@@ -98,6 +105,8 @@ def _hbond_coverage(c, p, inputs, ctx):
     prefactor = (1.0 - hb_nodes[..., 6]) ** 2
 
     def colsum(table, x1, x2, w1):
+        if x2.shape[1] > COVERAGE_NL_THRESHOLD:
+            return coverage_nl(c, table, x1, x2, w1)
         return quadspline_colsum(c["spline"], table, x1, x2, w1, ctx.plain)
 
     args = (p["interaction_param"], hb_nodes[..., :6], sc[..., :6],
@@ -105,6 +114,24 @@ def _hbond_coverage(c, p, inputs, ctx):
     cov = per_slot(colsum, *args) if "interaction_param" in ctx.stacked \
         else colsum(*args)
     return cov.unsqueeze(-1)
+
+
+def coverage_nl(c, table, x1, x2, w1):
+    """The coverage (B, n2) from the neighbour list (hbond.py:139-148):
+    w1[i] times the pair value at each row's COVERAGE_NEIGHBOR_K nearest
+    in-cutoff columns, summed by column, the slots off the list sent to a
+    dropped column n2."""
+    ka, k, dx = quadspline_family(table.shape[-1])
+    cov, idx, mask = quadspline_coverage_nl(
+        table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
+        x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
+        c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K)
+    B, n2 = x2.shape[:2]
+    val = torch.where(mask, w1[..., None] * cov, torch.zeros_like(cov))
+    safe = torch.where(mask, idx, torch.full_like(idx, n2))
+    out = val.new_zeros((B, n2 + 1)).scatter_add(
+        1, safe.reshape(B, -1), val.reshape(B, -1))
+    return out[:, :n2]
 
 
 infer_H_O = register_node("infer_H_O", False, _infer_h_o)

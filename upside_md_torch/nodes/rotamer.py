@@ -15,9 +15,16 @@ dispatch (rotamer.py:418-461):
   energies E2, the adjacency is the in-cutoff bead-pair mask lifted to
   residues, symmetric with no diagonal, and K6 (`ops/bp_planes.py`) solves
   BP on the 36 (a, b) planes of E2;
-* more than 128 residues (the XLA `_bp_solve` branch, rotamer.py:463-483)
-  runs the planes path's plain version on the CPU and is not ported to
-  the card.
+* more than 128 residues (the XLA `_bp_solve` branch, rotamer.py:463-483):
+  the planes path with the port of `_bp_solve` + `bethe_free_energy` in
+  K6's place, on the card too (`bp_planes.planes_solver` chooses by R
+  alone, as `_use_pallas_bp` does).
+
+Above NEIGHBOR_LIST_THRESHOLD beads the grid is not K5's dense one but
+the fixed-K neighbour list's (rotamer.py:221-228): each bead's
+min(n_bead, NEIGHBOR_K) nearest in-cutoff partners, scattered back onto
+the grid, and the residue adjacency comes from the partners the list
+kept.  Both thresholds are read at call time.
 
 Both solvers return the Bethe free energy with its envelope gradients.
 
@@ -37,6 +44,8 @@ import torch
 from ..ops.bp_pairs import (EPS, MAX_RES, NROT, bp_bethe_pairs,
                             make_statics, scatter_pairs)
 from ..ops.bp_planes import bp_bethe_planes
+from ..ops.pairs import (quadspline_coverage_nl, quadspline_family,
+                         scatter_rows)
 from ..ops.quadspline import PairSpline, live_pairs, quadspline
 from .base import flat_param, per_slot, register_node, to_tensor
 
@@ -44,6 +53,10 @@ EXTRAP_ALPHA = 1.0
 # above this many beads the JAX package leaves the bead-space BP kernel for
 # the residue-plane one (rotamer.py:46)
 PAIRS_KERNEL_MAX_BEADS = 512
+# above this many beads the pair grid comes from a fixed-K neighbour list
+# of min(n_bead, NEIGHBOR_K) partners a bead (rotamer.py:39-40)
+NEIGHBOR_LIST_THRESHOLD = 1024
+NEIGHBOR_K = 128
 
 
 def _prepare(c, device, dtype):
@@ -83,23 +96,34 @@ def assemble_one_body(c, inputs):
 
 
 def assemble_pair_grid(c, p, beads, plain=False, stacked=False):
-    """Unfused bead-pair grid (B, n, n) from K5: upper triangle, different
-    residues, within the family's cutoff (rotamer.py:208-236).  A table
-    `stacked` over replicas launches K5 once a slot."""
-    def grid(table, b):
+    """Unfused bead-pair grid (B, n, n): upper triangle, different
+    residues, within the family's cutoff (rotamer.py:208-236), and the
+    pairs the neighbour list kept (None on the dense path).  Up to
+    NEIGHBOR_LIST_THRESHOLD beads K5 computes the grid; above, the
+    neighbour list.  A table `stacked` over replicas runs once a slot."""
+    n = beads.shape[1]
+
+    def dense(table, b):
         return quadspline(c["spline"], table, b, b, plain)
+
+    def neighbours(table, b):
+        ka, k, dx = quadspline_family(table.shape[-1])
+        x, d = b[..., 0:3], b[..., 3:6]
+        cov, idx, mask = quadspline_coverage_nl(
+            table, c["type"], c["type"], x, d, x, d, ka, k, 1.0 / dx,
+            c["spline"].mask.bool(), min(n, NEIGHBOR_K))
+        return (scatter_rows(cov, idx, mask, n),
+                scatter_rows(mask.to(cov.dtype), idx, mask, n) > 0)
+
+    grid = neighbours if n > NEIGHBOR_LIST_THRESHOLD else dense
     table = p["interaction_param"]
-    return per_slot(grid, table, beads) if stacked else grid(table, beads)
+    out = per_slot(grid, table, beads) if stacked else grid(table, beads)
+    return out if isinstance(out, tuple) else (out, None)
 
 
-def pair_adjacency(c, p, beads):
-    """(B, R, R) bool: residues with a bead pair of the rotamer mask inside
-    the cutoff, symmetric, no diagonal (rotamer.py:230-232, 266-267)."""
-    ps = c["spline"]
-    table = p["interaction_param"]
-    # the cutoff depends on the table's family (its width) only
-    live = live_pairs(ps, ps.table(table[0] if table.ndim > 3 else table),
-                      beads, beads)
+def residue_adjacency(c, live):
+    """(B, R, R) bool from a (B, n, n) bead-pair mask: residues with a
+    pair in it, symmetric, no diagonal (rotamer.py:230-232, 266-267)."""
     oh = c["res_onehot"]
     counts = oh.T @ live.to(oh.dtype) @ oh           # exact small integers
     adj = (counts + counts.transpose(1, 2)) > 0
@@ -107,14 +131,29 @@ def pair_adjacency(c, p, beads):
                             device=adj.device)
 
 
-def residue_planes(c, p, beads, grid):
-    """The planes path's K6 inputs from the K5 grid: E2 as 36 (a*6+b)
-    planes (B, 36, R, R), scattered by index, and the adjacency."""
+def pair_adjacency(c, p, beads):
+    """`residue_adjacency` of the rotamer mask's bead pairs inside the
+    cutoff: the dense path's pair mask."""
+    ps = c["spline"]
+    table = p["interaction_param"]
+    # the cutoff depends on the table's family (its width) only
+    return residue_adjacency(c, live_pairs(
+        ps, ps.table(table[0] if table.ndim > 3 else table), beads, beads))
+
+
+def residue_planes(c, p, beads, grid, kept=None):
+    """The planes path's BP inputs from the bead grid: E2 as 36 (a*6+b)
+    planes (B, 36, R, R), scattered by index, and the adjacency, from the
+    pairs the neighbour list `kept` where it made the grid (an overflowing
+    row's dropped partners are no edge, as in the reference's pair mask),
+    else from the pairs inside the cutoff."""
     st = c["bp"]
     E2 = scatter_pairs(st, grid)
     planes = E2.permute(0, 3, 4, 1, 2).reshape(E2.shape[0], NROT * NROT,
                                                st.n_res, st.n_res)
-    return planes, pair_adjacency(c, p, beads)
+    adj = pair_adjacency(c, p, beads) if kept is None \
+        else residue_adjacency(c, kept)
+    return planes, adj
 
 
 def extrapolate_beliefs(nb1, nb0, alpha=EXTRAP_ALPHA):
@@ -140,20 +179,15 @@ def _rotamer(c, p, inputs, ctx):
         if E_pair is None:
             pad = st.n2p - st.n_bead
             E_pair = torch.nn.functional.pad(
-                assemble_pair_grid(c, p, beads, ctx.plain, stacked),
+                assemble_pair_grid(c, p, beads, ctx.plain, stacked)[0],
                 (0, pad, 0, pad))
         F, nb, eb, dev, iters = bp_bethe_pairs(
             st, E1, E_pair, init, ctx.plain,
             identity_edges=p["interaction_param"].requires_grad)
     else:
-        if st.n_res > MAX_RES and E1.is_cuda:
-            raise NotImplementedError(
-                f"{st.n_res} rotamer residues: above {MAX_RES} the JAX "
-                "package solves BP with the XLA `_bp_solve` branch "
-                "(upside_md_tpu/nodes/rotamer.py:463-483), which has no "
-                "port to the card yet")
         E2planes, adj = residue_planes(
-            c, p, beads, assemble_pair_grid(c, p, beads, ctx.plain, stacked))
+            c, p, beads,
+            *assemble_pair_grid(c, p, beads, ctx.plain, stacked))
         F, nb, eb, dev, iters = bp_bethe_planes(st, E1, E2planes, adj, init,
                                                 ctx.plain)
     ctx.cache_out[name] = {

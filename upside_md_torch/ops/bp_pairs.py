@@ -98,6 +98,12 @@ def make_statics(res, rot, valid, n2p, damping, max_iter, tol, chunk,
         chunk=max(1, int(chunk)))
 
 
+# host syncs of the plain solve: one a chunk of sweeps, where it reads
+# whether any replica is still active (XLA's while_loop keeps that test on
+# the device); nothing else changes the count
+HOST_SYNCS = {"bp_solve_plain": 0}
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -125,6 +131,12 @@ def node_potentials(E1, valid):
     prob = torch.where(valid, torch.exp(offset[..., None] - E1),
                        torch.zeros_like(E1))
     return offset, prob
+
+
+def _any_active(active):
+    """Whether a replica is still solving: a host sync, counted."""
+    HOST_SYNCS["bp_solve_plain"] += 1
+    return bool(active.any())
 
 
 def bp_solve_plain(prob, P, adj, valid, damping, max_iter, tol, chunk,
@@ -160,7 +172,7 @@ def bp_solve_plain(prob, P, adj, valid, damping, max_iter, tol, chunk,
     it = torch.zeros(B, dtype=torch.int32, device=prob.device)
     dev = torch.full((B,), float("inf"), dtype=prob.dtype, device=prob.device)
     active = torch.ones(B, dtype=torch.bool, device=prob.device)
-    while bool(active.any()):
+    while _any_active(active):
         nb_c, eb_c = nb, eb
         for _ in range(chunk):
             nb_prev = nb_c

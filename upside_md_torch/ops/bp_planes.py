@@ -19,17 +19,22 @@ The VJP scales the envelope gradients G1 (B, R, 6) and G2 (B, 36, R, R)
 (nonzero on adjacent i < j only) by the cotangent of F, as `_bp_fwd` /
 `_bp_bwd` (pallas_bp.py:376-390) do.
 
-The plain version reuses `bp_solve_plain` and `bethe_and_gradients` of
-ops/bp_pairs.py; the wrapper takes it for CPU tensors (or when asked, for
-comparisons on the card) and launches csrc/bp_bethe_planes.cu for CUDA
-tensors: a grid-wide prologue (adjacency bits, compact edges, each
-directed edge's 36 factors gathered out of the planes), the per-replica
-solve on the compact edges, and a grid-wide epilogue that writes G2 and
-the dense messages (csrc/bp_common.cuh; the plain versions of those passes
-are in ops/bp_pairs.py).  Residues i != j are joined where either
-adj[i, j] or adj[j, i] is set, in the kernel and in the plain version: the
-rotamer node's adjacency is symmetric, and one that is not is symmetrised
-rather than trusted.
+The plain version, `bp_bethe_planes_plain`, reuses `bp_solve_plain` and
+`bethe_and_gradients` of ops/bp_pairs.py: it is the port of the XLA
+`_bp_solve` + `bethe_free_energy`.  `planes_solver` chooses the solve by R
+alone, as `_use_pallas_bp` (rotamer.py:271-275) does: on CUDA tensors K6
+up to MAX_RES residues and the plain function above them, where the
+reference has no kernel either; on CPU tensors (or when asked, for
+comparisons on the card) the plain function.  The choice never depends on
+whether a kernel ran, and `bp_planes_kernel` raises above MAX_RES.  K6 is
+csrc/bp_bethe_planes.cu: a grid-wide prologue (adjacency bits, compact
+edges, each directed edge's 36 factors gathered out of the planes), the
+per-replica solve on the compact edges, and a grid-wide epilogue that
+writes G2 and the dense messages (csrc/bp_common.cuh; the plain versions
+of those passes are in ops/bp_pairs.py).  Residues i != j are joined
+where either adj[i, j] or adj[j, i] is set, in the kernel and in the
+plain version: the rotamer node's adjacency is symmetric, and one that is
+not is symmetrised rather than trusted.
 """
 
 from __future__ import annotations
@@ -65,12 +70,23 @@ def bp_bethe_planes_plain(st, E1, P, adj, init=None):
     return F, G1, G2, nb, eb, dev, it
 
 
-def bp_bethe_planes_fwd(st, E1, P, adj, init=None, plain=False):
-    """K6: the plain version on CPU tensors (or when asked), the CUDA
-    kernel on CUDA tensors."""
-    if plain or not E1.is_cuda:
-        return bp_bethe_planes_plain(st, E1, P, adj, init)
+def k6(st, E1, P, adj, init=None):
+    """K6's outputs (F, G1, G2, nb, eb, dev, iters)."""
     return bp_planes_kernel(st, E1, P, adj, init)[0]
+
+
+def planes_solver(n_res, on_card, plain=False):
+    """The solve of a residue-plane BP call of n_res residues: `k6` on the
+    card up to MAX_RES residues, `bp_bethe_planes_plain` (the port of the
+    XLA `_bp_solve`) above them, on the CPU, or when `plain` asks."""
+    return k6 if on_card and not plain and n_res <= MAX_RES \
+        else bp_bethe_planes_plain
+
+
+def bp_bethe_planes_fwd(st, E1, P, adj, init=None, plain=False):
+    """(F, G1, G2, nb, eb, dev, iters) from the solve `planes_solver`
+    chooses."""
+    return planes_solver(st.n_res, E1.is_cuda, plain)(st, E1, P, adj, init)
 
 
 def bp_planes_kernel(st, E1, P, adj, init=None):
