@@ -25,7 +25,13 @@ checks them:
   and K5, and BP by the plain port of the XLA `_bp_solve`, the reference's
   own branch past 128 residues) and 238-residue GFP (1,143 beads; the
   fixed-K neighbour lists of the rotamer grid and both coverages, plain
-  PyTorch as the reference's are XLA, and the plain BP solve).
+  PyTorch as the reference's are XLA, and the plain BP solve);
+* the node types the older bundles do not use, on the fused path:
+  BASELINE config 2 (ubiquitin with sidechain_radial packing; K1 fwd, K1
+  bwd, K2), BASELINE config 5 (chi1 prediction on ubiquitin through
+  `chi1.predict_chi1_from_bundle`; K1 fwd, K2) and trp-cage with every
+  config-builder extra plus the hand-built graph of the types no builder
+  writes (`config/extras_graph.py`; K1 fwd, K1 bwd, K2).
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -136,8 +142,27 @@ the bundle's seed.  Phases:
    time an evaluation, idle share, the plain solve's share of device
    time); launch counts set to 0 just before each path and read just
    after: T4 lysozyme's K4 and K5 launched and no other kernel, GFP no
-   kernel at all;
-9. prints the kernel table as one JSON line (launches summed over the
+   kernel at all; GFP's evaluation is also held against the port on the
+   CPU in float32 (printed, not gated: precision apart from fault);
+9. the remaining node types, each gate card float32 against the port on
+   the CPU in float64 at BP tol 1e-6 (energy and force RMS rel < 1e-3):
+   `[config2 ubiquitin_radial]` BASELINE config 2, its fusion plan's
+   node names equal to ubiquitin_full_synth's, the gate also against
+   `kernels=False`, K1 fwd, K1 bwd and K2 once a force evaluation, MD at
+   64 and 512 replicas (2 warm-up rounds, 3 x 3 timed rounds: steps/s,
+   mean BP sweeps <= 4.01, ubiquitin_full_synth's
+   beside it), a profiled round beside ubiquitin_full_synth's (device
+   time, idle share, launches an evaluation) and `radial`'s share of
+   device time; `[chi1 ubiquitin]` BASELINE config 5 through
+   `chi1.predict_chi1_from_bundle` at 1 and 64 configurations (chi1
+   probabilities within 1e-3 absolute of the CPU's, rows summing to 1
+   within 2e-2, K1 fwd and K2 launched, K1 bwd not, the wall time of a
+   prediction); `[extras trp_cage]` trp_cage_extras_synth and the
+   hand-built graph on it (each new node type's energy or output with
+   its error), MD at 64 replicas with AFM's energy after it against the
+   CPU at the same force-evaluation counter (rel < 1e-5), a profiled
+   round, and radial's and fixed_hmm's shares and device launches;
+10. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -221,6 +246,14 @@ REX_REPLICAS, REX_ROUNDS, REX_EVERY, REX_WARMUP_BLOCKS = 64, 60, 10, 2
 # phase 8's MD: replicas, timed rounds (three times), profiled rounds
 T4_MD_REPLICAS, GFP_MD_REPLICAS, LARGE_ROUNDS = (64, 512), (64,), 3
 LARGE_PROFILE_ROUNDS = 2
+# phase 9: the remaining node types
+BUNDLE_RADIAL = "ubiquitin_radial_synth.npz"   # BASELINE config 2
+BUNDLE_CHI1 = "ubiquitin_chi1_synth.npz"       # BASELINE config 5
+BUNDLE_EXTRAS = "trp_cage_extras_synth.npz"    # every builder extra
+CHI1_CONFIGS = (1, 64)
+EXTRAS_REPLICAS, MD_ROUNDS_EXTRAS = 64, 3
+N_DERIV_EVALS = 7     # the force-evaluation counter of the extras gate
+PROFILE_ROUNDS = 1
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
 ROW_TILE_REPLICAS = (64, 512)    # the row-tile kernels, by launch, at both
@@ -233,6 +266,13 @@ BP_SWEEPS_TOL = 1e-4
 # mean BP sweeps per evaluation of the ubiquitin MD paths must not rise
 # above what the solver took before its redesign
 MAX_MEAN_SWEEPS = 3.99
+# config 2 (ubiquitin with sidechain_radial packing) over its 3 x 3 timed
+# rounds: about two of the solver's 2-sweep chunks an evaluation (on an
+# NVIDIA H100 80GB HBM3 at 700 W it took 4.0000 at 64 replicas and 4.0017
+# at 512, ubiquitin without radial 4.0000 and 4.0009 under the same
+# schedule, which is printed beside it); checked on two decimals, as
+# MAX_MEAN_SWEEPS
+CONFIG2_MAX_SWEEPS = 4.01
 
 
 def log(msg):
@@ -530,11 +570,14 @@ def perturbed(base, n, gen, dev):
 
 
 def load_system(path, dev, kernels=True, tol=None, coupling_offset=None,
-                max_iter=None):
+                max_iter=None, dtype="float32", specs=None):
+    """(System, initial positions) of a bundle, or of `specs` (bundle
+    records) with the bundle's positions, on `dev` in `dtype`."""
     import torch
     from upside_md_torch.config import bundle
     from upside_md_torch.system import System
-    specs, pos0 = bundle.load(path)
+    recs, pos0 = bundle.load(path)
+    specs = recs if specs is None else specs
     for s in specs:
         if s.type_name == "rotamer" and tol is not None:
             s.consts["tol"] = tol
@@ -542,7 +585,13 @@ def load_system(path, dev, kernels=True, tol=None, coupling_offset=None,
             s.consts["max_iter"] = max_iter
         if s.type_name == "nonlinear_coupling" and coupling_offset is not None:
             s.consts["spline_offset"] = coupling_offset
-    return System(len(pos0), specs, dev, torch.float32, kernels), pos0
+    return System(len(pos0), specs, dev, getattr(torch, dtype), kernels), \
+        pos0
+
+
+def host_system(path, dtype, specs=None):
+    """The port on the CPU at BP tol 1e-6: what the card is held to."""
+    return load_system(path, "cpu", tol=1e-6, dtype=dtype, specs=specs)[0]
 
 
 def compare_k3(label, prep, x, plain_fwd, randn):
@@ -1706,40 +1755,50 @@ def compare_whole(sys_k, sys_p, pos, label, params_k=None, params_p=None):
     return {"energy_rel": err_e, "force_rms_rel": err_g}
 
 
+def md_rate(system, pos0, n_rep, rounds):
+    """steps/s of `rounds` rounds after 2 warm-up rounds (median of 3
+    blocks), the mean BP sweeps a force evaluation of the last block, and
+    the final state."""
+    import torch
+    from upside_md_torch.md.sim import Simulation
+    sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
+    state = sim.advance(sim.initial_state(pos0, n_rep, temperature=0.85), 2)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s0, e0 = state.bp_sweeps.sum().item(), state.n_evals
+        t0 = time.perf_counter()
+        state = sim.advance(state, rounds)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sweeps = (state.bp_sweeps.sum().item() - s0) / (
+        (state.n_evals - e0) * n_rep)
+    if not torch.isfinite(state.pos).all():
+        raise AssertionError(f"MD at {n_rep} replicas: positions not "
+                             "finite")
+    return 3 * rounds * n_rep / statistics.median(times), times, sweeps, \
+        state
+
+
 def run_md(path, dev, label, names, rounds=5, absent=(), max_sweeps=None):
     """MD on one path at 64 and 512 replicas; the launch counts are set to 0
     just before and read just after, each of `names` must be > 0 and each
     of `absent` 0; the mean BP sweeps per evaluation (two decimals) must
     not exceed `max_sweeps`."""
     import torch
-    from upside_md_torch.md.sim import Simulation
     from upside_md_torch.ops import kernels
     system, pos0 = load_system(path, dev)
     md = {}
     kernels.reset_counts()
     for n_rep in MD_REPLICAS:
         torch.cuda.reset_peak_memory_stats()
-        sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
-        state = sim.initial_state(pos0, n_rep, temperature=0.85)
-        state = sim.advance(state, 2)                      # warm-up
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            s0, e0 = state.bp_sweeps.sum().item(), state.n_evals
-            t0 = time.perf_counter()
-            state = sim.advance(state, rounds)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        sweeps = (state.bp_sweeps.sum().item() - s0) / (
-            (state.n_evals - e0) * n_rep)
-        if not (state.pos.shape == (n_rep,) + tuple(pos0.shape)
-                and torch.isfinite(state.pos).all()):
+        rate, times, sweeps, state = md_rate(system, pos0, n_rep, rounds)
+        if state.pos.shape != (n_rep,) + tuple(pos0.shape):
             raise AssertionError(f"{label} MD at {n_rep} replicas: bad "
                                  "positions")
         if max_sweeps is not None and round(sweeps, 2) > max_sweeps:
             raise AssertionError(f"{label} MD at {n_rep} replicas: mean BP "
                                  f"sweeps {sweeps:.4f} above {max_sweeps}")
-        rate = 3 * rounds * n_rep / statistics.median(times)
         md[n_rep] = {"steps_per_s": rate, "times_s": times,
                      "mean_bp_sweeps": sweeps,
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1747,7 +1806,7 @@ def run_md(path, dev, label, names, rounds=5, absent=(), max_sweeps=None):
             f"{[round(t, 4) for t in times]} s per {rounds} rounds), mean "
             f"BP sweeps {sweeps:.2f}, peak memory "
             f"{md[n_rep]['peak_mem_gb']:.2f} GB, positions finite")
-        del sim, state
+        del state
         torch.cuda.empty_cache()
     launches = dict(kernels.LAUNCHES)
     log(f"[md {label}] kernel launches: {launches}")
@@ -2119,40 +2178,60 @@ def large_md(path, dev, label, replicas, names, rounds):
     return md, launches, last
 
 
+def card_vs_host(label, sys_d, sys_h, pos, n_deriv_evals=0, gate=True):
+    """A whole evaluation on the card against the port on the CPU (in the
+    host system's dtype) at the same positions: energy rel and force RMS
+    rel, checked < 1e-3 when `gate`, else only printed.  Returns the
+    errors and both evaluations' per-term energies and outputs."""
+    import torch
+    n = pos.shape[0]
+    gd, ed, _ = sys_d.deriv(pos, sys_d.init_cache(n),
+                            n_deriv_evals=n_deriv_evals)
+    x = pos.to(device="cpu", dtype=sys_h.dtype)
+    gh, eh, _ = sys_h.deriv(x, sys_h.init_cache(n),
+                            n_deriv_evals=n_deriv_evals)
+    gd, ed = gd.double().cpu(), ed.double().cpu()
+    gh, eh = gh.double(), eh.double()
+    err_e = ((ed - eh).abs() / eh.abs().clamp(min=1.0)).max().item()
+    err_g = ((gd - gh).pow(2).mean().sqrt()
+             / gh.pow(2).mean().sqrt().clamp(min=1e-12)).item()
+    what = f"card float32 against host {str(sys_h.dtype)[6:]}"
+    if gate:
+        check(f"[{label}] whole evaluation energy, {what}", err_e, 1e-3)
+        check(f"[{label}] whole evaluation force RMS, {what}", err_g, 1e-3)
+    else:
+        log(f"  [{label}] whole evaluation, {what} (a measurement, not a "
+            f"gate): energy rel {err_e:.3e}, force RMS rel {err_g:.3e}")
+    if not (torch.isfinite(gd).all() and torch.isfinite(ed).all()):
+        raise AssertionError(f"{label}: non-finite energy or forces")
+    with torch.no_grad():
+        _, outs_d, per_d, _ = sys_d.evaluate(pos, n_deriv_evals=n_deriv_evals)
+        _, outs_h, per_h, _ = sys_h.evaluate(x, n_deriv_evals=n_deriv_evals)
+    return ({"energy_rel": err_e, "force_rms_rel": err_g},
+            (per_d, outs_d), (per_h, outs_h))
+
+
 def large_gfp_gate(dev, gen, base, path):
     """[large gfp]: a whole evaluation on the card in float32 against the
     port on the CPU in float64, both at BP tol 1e-6: no kernel lies on
     this path, so the gate is device against host (energy and force RMS
-    rel < 1e-3), and no kernel may launch."""
-    import torch
-    from upside_md_torch.config import bundle
+    rel < 1e-3), and no kernel may launch.  Beside it, the same against
+    the CPU in float32 (printed, not gated): precision apart from fault."""
     from upside_md_torch.ops import kernels
-    from upside_md_torch.system import System
     label = "large gfp"
     sys_d, _ = load_system(path, dev, True, tol=1e-6)
     large_statics(sys_d, label, *GFP_SIZE)
-    specs, pos0 = bundle.load(path)
-    for s in specs:
-        if s.type_name == "rotamer":
-            s.consts["tol"] = 1e-6
-    sys_h = System(len(pos0), specs, "cpu", torch.float64)
     pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
     kernels.reset_counts()
-    gd, ed, _ = sys_d.deriv(pos, sys_d.init_cache(COMPARE_REPLICAS))
+    out = card_vs_host(label, sys_d, host_system(path, "float64"), pos)[0]
     read_launches(f"{label} gate", ())
-    gh, eh, _ = sys_h.deriv(pos.double().cpu(),
-                            sys_h.init_cache(COMPARE_REPLICAS))
-    gd, ed = gd.double().cpu(), ed.double().cpu()
-    err_e = ((ed - eh).abs() / eh.abs().clamp(min=1.0)).max().item()
-    err_g = ((gd - gh).pow(2).mean().sqrt()
-             / gh.pow(2).mean().sqrt().clamp(min=1e-12)).item()
-    check(f"[{label}] whole evaluation energy, card float32 against host "
-          "float64", err_e, 1e-3)
-    check(f"[{label}] whole evaluation force RMS, card float32 against "
-          "host float64", err_g, 1e-3)
-    if not (torch.isfinite(gd).all() and torch.isfinite(ed).all()):
-        raise AssertionError(f"{label}: non-finite energy or forces")
-    return {"energy_rel": err_e, "force_rms_rel": err_g}
+    f32 = card_vs_host(label, sys_d, host_system(path, "float32"), pos,
+                       gate=False)[0]
+    log(f"[{label}] force RMS rel, card float32 against host float64 "
+        f"{out['force_rms_rel']:.3e}, against host float32 "
+        f"{f32['force_rms_rel']:.3e}")
+    out["host_float32"] = f32
+    return out
 
 
 def large_nl(path, dev, pos, device_ms_per_eval):
@@ -2213,6 +2292,373 @@ def large_nl(path, dev, pos, device_ms_per_eval):
     del covs, leaves, system
     torch.cuda.empty_cache()
     return out
+
+# ---------------------------------------------------------------------------
+# the remaining node types: config 2, chi1 prediction, the extras
+# ---------------------------------------------------------------------------
+
+def plan_names(system):
+    """(cov1, cov2, rot, env) of a system's fusion plan, or None."""
+    f = system.pair_fusion
+    return None if f is None else (f.cov1.name, f.cov2.name, f.rot.name,
+                                   None if f.env is None else f.env.name)
+
+
+def profiled_round(path, dev, n_rep, ranges=(), specs=None):
+    """PROFILE_ROUNDS rounds of MD under `torch.profiler` after 2 warm-up
+    rounds, each node type named in `ranges` inside a `record_function`
+    range of its name (its forward: autograd runs the backward outside
+    it): device time an evaluation, idle share, device launches an
+    evaluation and each range's share of device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from upside_md_torch.md.sim import Simulation
+    from upside_md_torch.nodes.base import NODE_REGISTRY
+    from upside_md_torch.system import System
+    if specs is None:
+        system, pos0 = load_system(path, dev)
+    else:
+        system = System(len(specs[1]), specs[0], dev, torch.float32)
+        pos0 = specs[1]
+    sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
+    state = sim.advance(sim.initial_state(pos0, n_rep, temperature=0.85), 2)
+    torch.cuda.synchronize()
+    real = {nm: NODE_REGISTRY[nm].compute for nm in ranges}
+
+    def ranged(nm, fn):
+        def compute(*args):
+            with record_function(nm):
+                return fn(*args)
+        return compute
+
+    for nm, fn in real.items():
+        NODE_REGISTRY[nm].compute = ranged(nm, fn)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = sim.advance(state, PROFILE_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for nm, fn in real.items():
+            NODE_REGISTRY[nm].compute = fn
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in real]
+    busy = sum(e.device_time for e in kern) * 1e-6
+    if not busy:
+        raise AssertionError("the profiler recorded no device time")
+    n_ev = 3 * PROFILE_ROUNDS
+    shares = {nm: sum(e.device_time_total for e in prof.events()
+                      if e.name == nm and e.device_type
+                      == torch.autograd.DeviceType.CPU) * 1e-6 / busy
+              for nm in real}
+    return {"wall_s": wall, "device_ms_per_eval": busy / n_ev * 1e3,
+            "idle_share": 1.0 - busy / wall,
+            "launches_per_eval": len(kern) / n_ev,
+            "range_share_fwd": shares}
+
+
+def node_call(system, pos, name, gen):
+    """A node's forward and backward (under a random cotangent) at the
+    inputs the graph gives it at `pos`: (device ms, device launches) of
+    one call."""
+    import torch
+    from upside_md_torch.system import EvalContext
+    with torch.no_grad():
+        outs = system.evaluate(pos, n_deriv_evals=1)[1]
+    spec = system.by_name[name]
+    ins = [outs[a].detach().requires_grad_(True) for a in spec.args]
+    ctx = EvalContext(n_replica=pos.shape[0], n_deriv_evals=1)
+    ctx.node_name = name
+    out = spec.node_type.compute(system.consts[name], system.params[name],
+                                 ins, ctx)
+    cot = torch.randn(out.shape, generator=gen, device=pos.device)
+
+    def call():
+        o = spec.node_type.compute(system.consts[name], system.params[name],
+                                   ins, ctx)
+        torch.autograd.grad((o * cot).sum(), ins)
+    return device_ms(call, reps=5), len(device_events(call, reps=1))
+
+
+def config2(dev, gen, path, ubq_path):
+    """[config2 ubiquitin_radial]: BASELINE config 2 (the ubiquitin full
+    force field with sidechain_radial packing).  The fusion plan's node
+    names equal ubiquitin_full_synth's; the whole evaluation with kernels
+    against `kernels=False` at BP tol 1e-6 and on the card against the
+    port on the CPU in float64 (energy and force RMS rel < 1e-3), K1 fwd,
+    K1 bwd and K2 launched once by its one force evaluation and nothing
+    else; MD at 64 and 512 replicas (`run_md`: steps/s, mean BP sweeps <=
+    CONFIG2_MAX_SWEEPS, launches per evaluation; ubiquitin_full_synth's
+    steps/s and sweeps under the same schedule beside them); then one
+    profiled round at each count
+    beside ubiquitin_full_synth's: device time and launches an
+    evaluation, idle share, `radial`'s share (its forward's range, and its
+    forward and backward timed apart over the device time an
+    evaluation)."""
+    import torch
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import kernels
+    label = "config2 ubiquitin_radial"
+    sys_k, _ = load_system(path, dev, True, tol=1e-6)
+    sys_p, _ = load_system(path, dev, False, tol=1e-6)
+    plan, plan_u = plan_names(sys_k), plan_names(load_system(ubq_path,
+                                                             dev)[0])
+    log(f"[{label}] fusion plan {plan}; ubiquitin_full_synth's {plan_u}")
+    if plan is None or plan != plan_u or plan[3] is None:
+        raise AssertionError(f"{label}: fusion plan {plan}, ubiquitin's "
+                             f"{plan_u}")
+    base = torch.as_tensor(bundle.load(path)[1], device=dev)
+    pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
+    kernels.reset_counts()
+    out = {"gate": compare_whole(sys_k, sys_p, pos, f"[{label}]")}
+    got = read_launches(f"{label} gate", FUSED_KERNELS)
+    if any(k != 1 for k in got.values()):
+        raise AssertionError(f"{label}: {got} launches for one force "
+                             "evaluation")
+    out["host"] = card_vs_host(label, sys_k, host_system(path, "float64"),
+                               pos)[0]
+    del sys_p
+    out["md"], launches = run_md(path, dev, label, FUSED_KERNELS, rounds=3,
+                                 max_sweeps=CONFIG2_MAX_SWEEPS)
+    ubq, pos_u = load_system(ubq_path, dev)
+    for n_rep, r in out["md"].items():
+        rate_u, _, sweeps_u, _ = md_rate(ubq, pos_u, n_rep, 3)
+        r["ubiquitin_full"] = {"steps_per_s": rate_u,
+                               "mean_bp_sweeps": sweeps_u}
+        log(f"[{label}] MD {n_rep} replicas: {r['steps_per_s']:.1f} steps/s"
+            f", mean BP sweeps {r['mean_bp_sweeps']:.4f}; ubiquitin_full_"
+            f"synth under the same schedule {rate_u:.1f} steps/s, mean BP "
+            f"sweeps {sweeps_u:.4f}")
+    del ubq
+    evals = launches["bp_bethe_pairs"]
+    per_eval = {nm: k / evals for nm, k in launches.items()}
+    log(f"[{label}] kernel launches per force evaluation {per_eval}")
+    if any(v != 1.0 for v in per_eval.values()):
+        raise AssertionError(f"{label}: launches per evaluation {per_eval}")
+    out["profile"] = {}
+    for n_rep in MD_REPLICAS:
+        pr = profiled_round(path, dev, n_rep, ("radial",))
+        pu = profiled_round(ubq_path, dev, n_rep)
+        ms, n_launch = node_call(sys_k, perturbed(base, n_rep, gen, dev),
+                                 "radial", gen)
+        pr["radial_fwd_bwd_ms"], pr["radial_launches"] = ms, n_launch
+        pr["radial_share"] = None if ms is None \
+            else ms / pr["device_ms_per_eval"]
+        out["profile"][n_rep] = {"config2": pr, "ubiquitin_full": pu}
+        share = "not measured" if ms is None else \
+            f"{pr['radial_share']:.4f} ({ms:.4f} ms, {n_launch} launches)"
+        log(f"[{label}] profiled round at {n_rep} replicas: device "
+            f"{pr['device_ms_per_eval']:.3f} ms an evaluation (ubiquitin_full"
+            f"_synth {pu['device_ms_per_eval']:.3f}), idle share "
+            f"{pr['idle_share']:.3f} ({pu['idle_share']:.3f}), "
+            f"{pr['launches_per_eval']:.0f} device launches an evaluation "
+            f"({pu['launches_per_eval']:.0f}); radial's share of device time:"
+            f" its forward's range {pr['range_share_fwd']['radial']:.4f}, "
+            f"forward and backward timed apart {share}")
+    del sys_k
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def chi1_phase(dev, gen, path):
+    """[chi1 ubiquitin]: BASELINE config 5.  `predict_chi1_from_bundle` on
+    the card at 1 and 64 configurations, the launch counts set to 0 just
+    before and read just after: K1 fwd and K2 launched (twice a
+    prediction: `get_sens` evaluates once for the output's shape and once
+    for its cotangent, as the JAX package's does), K1 bwd not (the
+    sensitivities need no cotangent of the positions, so no backward of
+    the fused block runs: K3 is reported); its wall time and the
+    evaluation's.  The gate, card float32 against the port on the CPU in
+    float64 at the same configurations, takes BP tol 1e-6 (float32
+    rounding of the deviation decides when the solve at the bundle's 1e-3
+    stops): probabilities' largest absolute difference < 1e-3, every row
+    summing to 1 within 2e-2; the difference at the bundle's tol is
+    printed beside it."""
+    import torch
+    from upside_md_torch.chi1 import Chi1Predict, predict_chi1_from_bundle
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import kernels
+    label = "chi1 ubiquitin"
+    base = torch.as_tensor(bundle.load(path)[1], device=dev)
+    aux = bundle.load_aux(path)["chi1"]
+    pred = Chi1Predict.from_aux(aux)
+    seq = [str(s) for s in aux["sequence"]]
+    sys_d, _ = load_system(path, dev, True, tol=1e-6)
+    sys_h = host_system(path, "float64")
+    residue = sys_h.consts["placement_fixed_point_vector_only"][
+        "affine_residue"].numpy()
+    out, launches = {}, {nm: 0 for nm in kernels.KERNELS}
+    predict_chi1_from_bundle(path, dev, base)          # warm-up
+    for n in CHI1_CONFIGS:
+        pos = perturbed(base, n, gen, dev)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        prob, seq_d, elapsed = predict_chi1_from_bundle(path, dev, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        for nm, k in got.items():
+            launches[nm] += k
+        log(f"[{label}] {n} configurations: kernel launches {got}")
+        for nm in ("fused_pair_fwd", "bp_bethe_pairs"):
+            if got[nm] <= 0:
+                raise AssertionError(f"{label}: {nm} not launched")
+        if got["fused_pair_bwd"] != 0:
+            raise AssertionError(f"{label}: K1's backward launched")
+        prob_h32 = pred.predict_chi1(
+            seq, residue, sys_h.get_sens(pos.double().cpu(),
+                                         "hbond_coverage")[..., 0])
+        real_tol = (prob.cpu() - prob_h32).abs().max().item()
+        prob_d = pred.predict_chi1(
+            seq, residue, sys_d.get_sens(pos, "hbond_coverage")[..., 0])
+        err = (prob_d.cpu() - prob_h32).abs().max().item()
+        rows = (prob.sum(-1) - 1.0).abs().max().item()
+        log(f"  [{label}] {n} configurations, BP tol 1e-6: chi1 "
+            f"probabilities' largest absolute difference card float32 "
+            f"against host float64 {err:.3e} (tol 1e-3; at the bundle's "
+            f"BP tol 1e-3 {real_tol:.3e}); rows sum to 1 within {rows:.3e} "
+            "(tol 2e-2)")
+        if not err < 1e-3:
+            raise AssertionError(f"{label}: chi1 probabilities differ by "
+                                 f"{err}")
+        if not rows < 2e-2 or seq_d != seq or tuple(prob.shape) != \
+                (n, len(seq), 3) or not torch.isfinite(prob).all():
+            raise AssertionError(f"{label}: bad probabilities")
+        out[n] = {"max_abs_diff": err, "max_abs_diff_bundle_tol": real_tol,
+                  "row_sum_err": rows, "evaluation_s": elapsed,
+                  "wall_s": wall, "launches": got}
+        log(f"[{label}] {n} configurations: one prediction "
+            f"{wall * 1e3:.1f} ms wall (bundle load and System included), "
+            f"the evaluation (get_sens) {elapsed * 1e3:.1f} ms; K3 launched "
+            f"{got['fused_pair_bwd_recompute']} times")
+    del sys_d, sys_h
+    torch.cuda.empty_cache()
+    return out, {nm: k for nm, k in launches.items() if k}
+
+
+def extras_phase(dev, gen, path):
+    """[extras trp_cage]: trp_cage_extras_synth (every builder extra,
+    `dynamic_1body=False`) and the hand-built graph on it
+    (`config/extras_graph.py`), on the card in float32 against the port on
+    the CPU in float64 at BP tol 1e-6 and the force-evaluation counter 7:
+    the whole evaluation's energy and force RMS rel < 1e-3, each of the 24
+    node types' energy or output with its error, the fusion plan with the
+    env band, K1 fwd, K1 bwd and K2 launched once by the force evaluation.
+    Then MD_ROUNDS_EXTRAS rounds of MD of the hand-built graph at 64
+    replicas (launch counts set to 0 just before, read just after), AFM's
+    energy after them against a CPU evaluation at the same counter (rel <
+    1e-5), steps/s; one profiled round (device time and launches an
+    evaluation, idle share, the forward ranges of radial and fixed_hmm);
+    radial's and fixed_hmm's forward and backward timed apart, with their
+    device launches (fixed_hmm's forward recursion runs a few launches a
+    residue)."""
+    import torch
+    from upside_md_torch.config import bundle
+    from upside_md_torch.config.extras_graph import EXTRAS_NODES, extras_graph
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.system import System
+    label = "extras trp_cage"
+    recs, pos0 = bundle.load(path)
+    base = torch.as_tensor(pos0, device=dev)
+    graphs = {"bundle": lambda: bundle.load(path)[0],
+              "hand_built": lambda: extras_graph(*bundle.load(path))}
+    out = {}
+    for graph, make in graphs.items():
+        specs = make()
+        for s in specs:
+            if s.type_name == "rotamer":
+                s.consts["tol"] = 1e-6
+        sys_d = System(len(pos0), specs, dev, torch.float32)
+        plan = plan_names(sys_d)
+        if plan != ("hbond_coverage", "hbond_coverage_hydrophobe",
+                    "rotamer", "environment_coverage"):
+            raise AssertionError(f"{label} {graph}: fusion plan {plan}")
+        pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
+        kernels.reset_counts()
+        sys_d.deriv(pos, sys_d.init_cache(COMPARE_REPLICAS),
+                    n_deriv_evals=N_DERIV_EVALS)
+        got = read_launches(f"{label} {graph} gate", FUSED_KERNELS)
+        if any(k != 1 for k in got.values()):
+            raise AssertionError(f"{label}: {got} launches for one force "
+                                 "evaluation")
+        errs, (per_d, outs_d), (per_h, outs_h) = card_vs_host(
+            f"{label} {graph}", sys_d,
+            host_system(path, "float64", specs=make()), pos, N_DERIV_EVALS)
+        nodes = {}
+        for t, nm in EXTRAS_NODES.items():
+            if nm not in sys_d.by_name:
+                continue
+            if nm in per_d:
+                d, h = per_d[nm].double().cpu(), per_h[nm]
+                what = f"energy {d[0].item():.6g} (host {h[0].item():.6g})"
+            else:
+                d, h = outs_d[nm].double().cpu(), outs_h[nm]
+                what = f"output {tuple(d.shape)}"
+            e = ((d - h).abs().max() / h.abs().max().clamp(min=1e-12)).item()
+            nodes[t] = e
+            log(f"  [{label}] {graph} {t} ({nm}): {what}, rel err {e:.3e}")
+            if not e < 1e-3:
+                raise AssertionError(f"{label} {graph}: {nm} rel err {e}")
+        out[graph] = {**errs, "nodes": nodes}
+        del sys_d
+    if set(out["hand_built"]["nodes"]) != set(EXTRAS_NODES):
+        raise AssertionError(f"{label}: the graphs miss node types")
+
+    # MD of the hand-built graph
+    specs = extras_graph(*bundle.load(path))
+    system = System(len(pos0), specs, dev, torch.float32)
+    kernels.reset_counts()
+    rate, times, sweeps, state = md_rate(system, pos0, EXTRAS_REPLICAS,
+                                         MD_ROUNDS_EXTRAS)
+    launches = read_launches(f"{label} MD", FUSED_KERNELS)
+    evals = launches["bp_bethe_pairs"]
+    counter = 3 * state.round_num
+    host = host_system(path, "float64", specs=extras_graph(
+        *bundle.load(path)))
+    with torch.no_grad():
+        afm_d = system.evaluate(state.pos,
+                                n_deriv_evals=counter)[2]["AFM"].double()
+        afm_h = host.evaluate(state.pos.double().cpu(),
+                              n_deriv_evals=counter)[2]["AFM"]
+        afm_0 = host.evaluate(state.pos.double().cpu())[2]["AFM"]
+    afm_err = ((afm_d.cpu() - afm_h).abs() / afm_h.abs()).max().item()
+    check(f"[{label}] AFM energy after {state.round_num} rounds at the "
+          f"counter {counter}, card against host", afm_err, 1e-5)
+    if not (afm_h - afm_0).abs().min() > 0:
+        raise AssertionError(f"{label}: the AFM tip did not move")
+    log(f"[{label}] MD {EXTRAS_REPLICAS} replicas: {rate:.1f} steps/s "
+        f"(median of {[round(t, 4) for t in times]} s per {MD_ROUNDS_EXTRAS}"
+        f" rounds), mean BP sweeps {sweeps:.2f}; kernel launches per force "
+        f"evaluation { {nm: k / evals for nm, k in launches.items()} }; AFM "
+        f"energy {afm_h.mean().item():.4f} at the counter {counter} "
+        f"(counter 0: {afm_0.mean().item():.4f})")
+    prof = profiled_round(None, dev, EXTRAS_REPLICAS,
+                          ("radial", "fixed_hmm"), (specs, pos0))
+    calls = {}
+    for nm in ("radial", "fixed_hmm"):
+        ms, n_launch = node_call(system, state.pos, nm, gen)
+        calls[nm] = {"fwd_bwd_ms": ms, "launches": n_launch,
+                     "share": None if ms is None
+                     else ms / prof["device_ms_per_eval"]}
+        share = "not measured" if ms is None else \
+            f"{calls[nm]['share']:.4f} ({ms:.4f} ms)"
+        log(f"[{label}] {nm}: forward range {prof['range_share_fwd'][nm]:.4f}"
+            f" of device time, forward and backward timed apart {share}, "
+            f"{n_launch} device launches an evaluation")
+    log(f"[{label}] profiled round at {EXTRAS_REPLICAS} replicas: device "
+        f"{prof['device_ms_per_eval']:.3f} ms an evaluation, idle share "
+        f"{prof['idle_share']:.3f}, {prof['launches_per_eval']:.0f} device "
+        "launches an evaluation")
+    out["md"] = {"steps_per_s": rate, "times_s": times,
+                 "mean_bp_sweeps": sweeps, "afm_rel": afm_err,
+                 "profile": prof, "nodes": calls}
+    del system, state, host
+    torch.cuda.empty_cache()
+    return out, launches
+
 
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
@@ -2350,16 +2796,29 @@ def main():
         gfp_path, dev, last,
         large["gfp"]["md"][GFP_MD_REPLICAS[0]]["device_s_per_eval"] * 1e3)
     results["phases"]["large"] = large
+
+    # ---- 9. the remaining node types: config 2, chi1, the extras
+    rest = {}
+    rest["config2"], launches_c2 = config2(
+        dev, gen, os.path.join(DATA_DIR, BUNDLE_RADIAL), fused_path)
+    rest["chi1"], launches_chi1 = chi1_phase(
+        dev, gen, os.path.join(DATA_DIR, BUNDLE_CHI1))
+    rest["extras"], launches_x = extras_phase(
+        dev, gen, os.path.join(DATA_DIR, BUNDLE_EXTRAS))
+    results["phases"]["remaining_nodes"] = rest
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
                 "rex cytochrome_c pivot": launches_rm,
-                "md t4_lysozyme": launches_t4, "md gfp": launches_gfp}
+                "md t4_lysozyme": launches_t4, "md gfp": launches_gfp,
+                "md config2 ubiquitin_radial": launches_c2,
+                "chi1 ubiquitin": launches_chi1,
+                "md extras trp_cage": launches_x}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 9. report
+    # ---- 10. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

@@ -12,8 +12,9 @@ bundle, plus the bundle pin and the import isolation of the port.
   1e-6 (cytochrome c's Monte Carlo move tables exactly);
 * `import upside_md_torch` (a short MD run, one exchange round of a
   Hamiltonian ensemble and one pivot step, the engine and training
-  modules, one parameter derivative) with jax, h5py and upside_md_tpu
-  blocked.
+  modules, one parameter derivative; the extras slice's node modules, the
+  hand-built graph on the extras bundle, a diagnostics channel and a chi1
+  prediction) with jax, h5py and upside_md_tpu blocked.
 """
 
 import importlib.util
@@ -258,6 +259,19 @@ assert moved.shape == pos2.shape and accepted.shape == (2,)
 engine = Upside(system, initial_pos=pos)
 assert engine.get_param_deriv("hbond_energy").shape == (1,)
 assert training.rotamer_packings(system.params)["rotamer"].symmetric
+# the extras slice: every node type, chi1 prediction, the diagnostics
+from upside_md_torch import chi1
+from upside_md_torch.config.extras_graph import extras_graph
+from upside_md_torch.nodes import hmm, membrane, nn, radial
+from upside_md_torch.nodes.base import NODE_REGISTRY
+assert len(NODE_REGISTRY) == 42
+recs, p0 = bundle.load(sys.argv[3])
+extras = System(len(p0), extras_graph(recs, p0), device="cpu")
+assert bool(torch.isfinite(extras.energy(torch.as_tensor(p0)[None])).all())
+diag = Upside(extras, initial_pos=torch.as_tensor(p0))
+assert diag.get_value_by_name("rotamer", "n_node")[0] == 20
+prob, seq, _ = chi1.predict_chi1_from_bundle(sys.argv[4], "cpu")
+assert prob.shape == (1, len(seq), 3)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
 assert not bad, bad
@@ -266,7 +280,9 @@ print("isolated ok")
 
 
 def test_port_imports_without_jax_h5py_or_reference():
-    r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT, ROOT, TRP],
+    r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT, ROOT, TRP,
+                        os.path.join(DATA_DIR, "trp_cage_extras_synth.npz"),
+                        os.path.join(DATA_DIR, "ubiquitin_chi1_synth.npz")],
                        capture_output=True, text=True, timeout=300,
                        env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stderr[-3000:]

@@ -30,6 +30,19 @@ libraries are synthetic, made from a numpy seed in the real layout:
 * Ramachandran maps: smooth per-residue mixtures of alpha, beta and
   left-handed wells on the 72x72 grid.  (White-noise maps, the bench
   fallback, give a Rama energy of order 1e5 on the initial structure.)
+* the sidechain library also carries `rotamer_prob_fixed` (the fixed
+  1-body energies `dynamic_1body=False` reads: -log of each rotamer's
+  mean probability over the Rama grid) and `restype_and_chi_and_state`
+  (rotamer state s of a restype at chi1 = 60, 180 or 300 degrees for s
+  mod 3), the chi1 table; neither changes the older bundles.
+* from a second seed: a sidechain-radial library (`names`, and
+  `interaction_param` (20, 20, 17), symmetric rows [inv_dx 1.5, 16
+  knots] of a repulsive core and an attractive well that reach 0 at the
+  cutoff), a membrane library (`names` with NON, `cb_energy` (21, 101)
+  and `uhb_energy` (2, 101) on z in [-25, 25] at thickness 30,
+  `cov_midpoint`, `cov_sharpness`) and a torus-DBN library
+  (`restype_order` with CPR, `basin_param` (6, 6), `aa_basin_energy`
+  (21, 6), `transition_energy` (6, 6)).
 
 Run from the repository root (needs jax and h5py):
 
@@ -57,6 +70,20 @@ Carlo move tables (`load_system`'s fourth value) as its aux section.  The
 absent: the fused pair block then runs without its env band, and its
 backward is the recomputing one (K3).  `--only trp_cage_noenv_synth`
 builds the trp-cage one, which the tests build for themselves.
+
+Three more bundles carry the node types the older ones do not use:
+
+* `ubiquitin_radial_synth.npz`: BASELINE config 2, the ubiquitin full
+  force field with `add_sidechain_radial` on the CB placement;
+* `ubiquitin_chi1_synth.npz`: BASELINE config 5, the prediction config of
+  `chi1.predict_chi1_from_pdb` (chi1.py:96-105: rotamer damping 0.4,
+  dynamic 1-body, loose hbond -1e-5 with coverage, the rotamer node) on
+  ubiquitin, with the aux section `chi1` (the library's `restype_order`
+  and `restype_and_chi_and_state`, and the sequence);
+* `trp_cage_extras_synth.npz`: trp-cage built with `dynamic_1body=False`
+  and every builder extra: `radial`, four `contact` pairs,
+  `cavity_radial`, `z_flat_bottom`, `tension`, `AFM`,
+  `membrane_potential` (thickness 30) and `torus_dbn` -> `fixed_hmm`.
 """
 
 from __future__ import annotations
@@ -103,6 +130,9 @@ SYSTEMS = {
     "cytochrome_c_full_synth": "CYT_C",
     "t4_lysozyme_full_synth": T4_LYSOZYME,
     "gfp_full_synth": GFP,
+    "ubiquitin_radial_synth": "UBIQUITIN",
+    "ubiquitin_chi1_synth": "UBIQUITIN",
+    "trp_cage_extras_synth": "TRP_CAGE",
 }
 # (residues, rotamer beads) the synthetic library gives the large systems:
 # T4 lysozyme runs the dense unfused path past 128 residues, GFP the
@@ -117,9 +147,13 @@ NO_ENV = {"ubiquitin_noenv_synth", "trp_cage_noenv_synth"}
 COMMITTED = ("ubiquitin_full_synth", "trp_cage_full_synth",
              "rnase_a_full_synth", "ubiquitin_noenv_synth",
              "cytochrome_c_full_synth", "t4_lysozyme_full_synth",
-             "gfp_full_synth")
+             "gfp_full_synth", "ubiquitin_radial_synth",
+             "ubiquitin_chi1_synth", "trp_cage_extras_synth")
 # the aux sections a bundle carries (config/reader.py:367-370)
 AUX_SECTIONS = ("pivot_moves", "jump_moves")
+# the seed of the libraries the older bundles do not read
+EXTRA_LIB_SEED = 2025
+MEMBRANE_THICKNESS = 30.0
 
 
 def _unit(v):
@@ -148,12 +182,18 @@ def write_sidechain_library(path, rng):
                  + amp[:, 3, None, None] * np.sin(psi))
         p = np.exp(logit - logit.max(0))
         probs = np.moveaxis(p / p.sum(0), 0, -1)          # (36, 36, n_rot)
-        data[rt] = {"centers": c, "n_bead": 1, "probs": probs}
+        # [chi1, chi2, state]: state s in the chi1 well of s mod 3
+        chi = [[np.deg2rad(60.0 + 120.0 * (s % 3)), 0.0, s]
+               for s in range(n_rot)]
+        data[rt] = {"centers": c, "n_bead": 1, "probs": probs,
+                    "chi_table": chi}
     write_placement_library(path, data)
 
     import h5py
     n_type = len(RESTYPES)
     with h5py.File(path, "a") as f:
+        f.create_dataset("rotamer_prob_fixed", data=-np.log(
+            np.asarray(f["rotamer_prob"]).mean((0, 1))))
         pair = np.zeros((n_type, n_type, 2 * KA + 2 * K_PAIR))
         pair[..., :2 * KA] = 1.0 + 0.15 * rng.normal(size=(n_type, n_type,
                                                             2 * KA))
@@ -208,6 +248,71 @@ def write_environment_library(path, rng):
     return path
 
 
+def write_radial_library(path, rng):
+    """Sidechain-radial library as `add_sidechain_radial` reads it:
+    `names` and symmetric `interaction_param` rows [inv_dx, 16 knots]."""
+    import h5py
+    n_type = len(RESTYPES)
+    knots = np.array([3.0, 1.6, 0.7, 0.15, -0.25, -0.45, -0.5, -0.42,
+                      -0.3, -0.18, -0.09, -0.03, -0.01, 0.0, 0.0, 0.0])
+    scale = rng.uniform(0.3, 1.0, size=(n_type, n_type))
+    scale = 0.5 * (scale + scale.T)
+    param = np.zeros((n_type, n_type, 17))
+    param[..., 0] = 1.5                       # cutoff 14 / 1.5 = 9.3 A
+    param[..., 1:] = scale[..., None] * knots
+    with h5py.File(path, "w") as f:
+        f.create_dataset("names", data=np.asarray(RESTYPES, "S"))
+        f.create_dataset("interaction_param", data=param)
+    return path
+
+
+def write_membrane_library(path, rng):
+    """Membrane library as `add_membrane_potential` reads it (the layout
+    of tests/test_membrane_rescale.py)."""
+    import h5py
+    z = np.linspace(-25.0, 25.0, 101)
+    names = RESTYPES + ["NON"]
+    n = len(names)
+    depth = rng.uniform(-0.6, 0.6, size=(n, 1))
+    cb = depth * np.exp(-(z / 12.0) ** 2) \
+        + 0.05 * np.sin(z / 6.0 + rng.uniform(0, np.pi, size=(n, 1)))
+    uhb = np.stack([1.2 * np.exp(-(z / 10.0) ** 2),
+                    0.9 * np.exp(-(z / 11.0) ** 2)])
+    with h5py.File(path, "w") as f:
+        f.create_dataset("names", data=np.asarray(names, "S"))
+        for key, data in (("cb_energy", cb), ("uhb_energy", uhb)):
+            d = f.create_dataset(key, data=data)
+            d.attrs["z_min"], d.attrs["z_max"] = -25.0, 25.0
+        f["cb_energy"].attrs["thickness"] = MEMBRANE_THICKNESS
+        f.create_dataset("cov_midpoint", data=rng.uniform(1.0, 3.0, n))
+        f.create_dataset("cov_sharpness", data=rng.uniform(0.5, 1.5, n))
+    return path
+
+
+def write_torus_library(path, rng):
+    """Torus-DBN library as `add_torus_dbn` reads it: six basins of
+    (phi, psi) with von-Mises concentrations."""
+    import h5py
+    order = RESTYPES + ["CPR"]
+    centers = np.array([[-1.1, -0.8], [-2.1, 2.3], [1.0, 0.8],
+                        [-1.4, 2.6], [-1.6, -0.4], [1.2, -2.9]])
+    basin = np.zeros((6, 6))
+    basin[:, 0] = rng.uniform(-1.0, 1.0, 6)            # log_norm
+    basin[:, 1] = rng.uniform(1.0, 4.0, 6)             # kappa_phi
+    basin[:, 2] = centers[:, 0]
+    basin[:, 3] = rng.uniform(1.0, 4.0, 6)             # kappa_psi
+    basin[:, 4] = centers[:, 1]
+    basin[:, 5] = rng.uniform(-0.5, 0.5, 6)            # kappa_cor
+    with h5py.File(path, "w") as f:
+        f.create_dataset("restype_order", data=np.asarray(order, "S"))
+        f.create_dataset("basin_param", data=basin)
+        f.create_dataset("aa_basin_energy",
+                         data=rng.normal(scale=0.5, size=(len(order), 6)))
+        f.create_dataset("transition_energy",
+                         data=rng.normal(scale=0.7, size=(6, 6)))
+    return path
+
+
 def smooth_rama_maps(n_res, rng, n_grid=72):
     grid = -np.pi + 2 * np.pi * np.arange(n_grid) / n_grid
     phi, psi = np.meshgrid(grid, grid, indexing="ij")
@@ -237,18 +342,38 @@ def build_bundle(name, out_dir, lib_dir):
     seq = SYSTEMS[name]
     seq = getattr(bench_systems, seq) if hasattr(bench_systems, seq) else seq
     b = ConfigBuilder(f">x\n{seq}\n", seed=1)
-    b.add_backbone_springs()
-    b.add_rama_map_pot(smooth_rama_maps(b.n_res, rng))
-    b.add_backbone_pairs()
-    b.add_rotamer_sidechains(sidechain, sidechain, damping=0.1,
-                             dynamic_1body=True)
-    b.add_hbond(hbond_energy=-2.1119, coverage_library=sidechain)
-    if name not in NO_ENV:
-        b.add_environment(environment)
-    b.add_rotamer_node()
+    aux = None
+    if name == "ubiquitin_chi1_synth":
+        # chi1.py:96-105: no springs or sterics, loose hbond criteria
+        b.add_rotamer_sidechains(sidechain, sidechain, damping=0.4,
+                                 dynamic_1body=True)
+        b.add_hbond(hbond_energy=-1e-5, loose=True,
+                    coverage_library=sidechain)
+        b.add_rotamer_node()
+        import h5py
+        with h5py.File(sidechain, "r") as f:
+            aux = {"chi1": {
+                "restype_order": np.asarray(f["restype_order"]).astype(
+                    str),
+                "restype_and_chi_and_state": np.asarray(
+                    f["restype_and_chi_and_state"])}}
+    else:
+        b.add_backbone_springs()
+        b.add_rama_map_pot(smooth_rama_maps(b.n_res, rng))
+        b.add_backbone_pairs()
+        # the extras bundle takes the fixed 1-body placement_fixed_scalar
+        fixed = name == "trp_cage_extras_synth"
+        b.add_rotamer_sidechains(sidechain, sidechain, damping=0.1,
+                                 dynamic_1body=not fixed)
+        b.add_hbond(hbond_energy=-2.1119, coverage_library=sidechain)
+        if name not in NO_ENV:
+            b.add_environment(environment)
+        b.add_rotamer_node()
+    if name in ("ubiquitin_radial_synth", "trp_cage_extras_synth"):
+        add_extras(b, name, lib_dir)
     up = os.path.join(lib_dir, f"{name}.up")
     b.write(up)
-    path = export_up(up, os.path.join(out_dir, f"{name}.npz"))
+    path = export_up(up, os.path.join(out_dir, f"{name}.npz"), aux)
     if name in SIZES:
         got = (len(seq), rotamer_beads(path))
         if got != SIZES[name]:
@@ -257,9 +382,43 @@ def build_bundle(name, out_dir, lib_dir):
     return path
 
 
-def export_up(up, path):
+def add_extras(b, name, lib_dir):
+    """The builder extras of the radial and extras bundles, from libraries
+    of EXTRA_LIB_SEED."""
+    rng = np.random.default_rng(EXTRA_LIB_SEED)
+    b.add_sidechain_radial(write_radial_library(
+        os.path.join(lib_dir, "radial_synth.h5"), rng))
+    if name != "trp_cage_extras_synth":
+        return
+    membrane = write_membrane_library(
+        os.path.join(lib_dir, "membrane_synth.h5"), rng)
+    torus = write_torus_library(os.path.join(lib_dir, "torus_synth.h5"), rng)
+    n = b.n_res
+    # the four closest CA pairs at sequence separation 3 or more, each
+    # inside its sigmoid's transition
+    ca = b.pos[1::3]
+    d = np.linalg.norm(ca[:, None] - ca[None], axis=-1)
+    i, j = np.triu_indices(n, 3)
+    ids = np.stack([i, j], 1)[np.argsort(d[i, j])[:4]]
+    b.add_contacts(ids, energy=rng.uniform(-1.5, -0.5, len(ids)),
+                   distance=d[ids[:, 0], ids[:, 1]] + 0.5,
+                   width=np.full(len(ids), 2.0))
+    # a few atoms outside the cavity
+    r = np.linalg.norm(b.pos, axis=-1)
+    b.add_cavity_radial(radius=float(np.quantile(r, 0.9)),
+                        spring_constant=5.0)
+    b.add_z_flat_bottom([(3, 0.0, 2.0, 1.0), (n - 4, 1.0, 1.5, 1.0)])
+    b.add_tension([(0, 0.05, 0.0, -0.02), (n - 1, -0.05, 0.0, 0.02)])
+    tip = b.pos[3 * (n - 1) + 1] + np.array([1.0, 0.0, 0.0])
+    b.add_afm([(n - 1, 2.0, *tip, 0.5, 0.0, 0.0)])
+    b.add_membrane_potential(membrane, MEMBRANE_THICKNESS)
+    b.add_torus_dbn(torus)
+
+
+def export_up(up, path, extra_aux=None):
     """Convert the `.up` config `up` into the bundle `path`: the JAX
-    reader's specs, initial positions and Monte Carlo move tables."""
+    reader's specs, initial positions and Monte Carlo move tables, and the
+    aux sections `extra_aux` as they are."""
     from upside_md_tpu.config.reader import load_system
     from upside_md_torch.config import bundle
     from upside_md_torch.convert import from_jax_specs
@@ -268,10 +427,15 @@ def export_up(up, path):
     records, pos = from_jax_specs(system.specs, pos)
     # float tables in float32, the precision the samplers keep them in
     # (mc.py:46-50): the float64 proposal map alone would double the file
-    bundle.save(path, records, pos, {
-        sec: {k: v.astype(np.float32) if v.dtype.kind == "f" else v
-              for k, v in aux[sec].items()}
-        for sec in AUX_SECTIONS if sec in aux})
+    tables = {sec: {k: v.astype(np.float32) if v.dtype.kind == "f" else v
+                    for k, v in aux[sec].items()}
+              for sec in AUX_SECTIONS if sec in aux}
+    if extra_aux:
+        for sec, t in extra_aux.items():
+            tables[sec] = dict(t)
+        if "chi1" in extra_aux:
+            tables["chi1"]["sequence"] = np.asarray(aux["sequence"])
+    bundle.save(path, records, pos, tables)
     return path
 
 

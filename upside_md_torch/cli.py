@@ -35,12 +35,13 @@ def event_rounds(start, n_round, frame_interval, replica_interval=0):
     return events
 
 
-def _frame(sim, state, params, replica_index, last_mc):
+def _frame(sim, state, params, replica_index, last_mc, done):
     """One frame's values as numpy arrays (cli.py:265-327): potential per
-    slot, kinetic energy, temperature, replica index, the MC stats since
-    the last frame, and each rotamer node's BP health."""
+    slot at the force-evaluation counter 3 * done (cli.py:269), kinetic
+    energy, temperature, replica index, the MC stats since the last frame,
+    and each rotamer node's BP health."""
     system = sim.system
-    frame = {"potential": sim.potential_energy(state, params),
+    frame = {"potential": sim.potential_energy(state, params, 3 * done),
              "kinetic": sim.kinetic_energy(state),
              "temperature": state.temperature,
              "replica_index": replica_index}
@@ -100,7 +101,8 @@ def run_ensemble(sim, state, params, spec, n_round, rex=None,
         if is_frame:
             if sim.do_recenter:
                 state = sim.recentered(state)
-            values = _frame(sim, state, params, replica_index, last_mc)
+            values = _frame(sim, state, params, replica_index, last_mc,
+                            done)
             n_energy_evals += 1
             kinetic.append(values["kinetic"])
             if frame_callback is not None:

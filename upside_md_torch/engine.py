@@ -6,9 +6,9 @@ get_output_dims / get_param / set_param / get_param_deriv.  The backing
 engine is the port's `System`; parameter derivatives come from autograd
 with respect to the node's parameter tensors, through the kernels' table
 cotangents.  Positions go in and results come out as numpy arrays of one
-configuration, (n_atom, 3), as in the reference.
-
-Not ported yet: `get_value_by_name` and `count_edges_by_type` (ROADMAP).
+configuration, (n_atom, 3), as in the reference.  `get_value_by_name` is
+the diagnostics channel (engine.py:109-183): the rotamer node's channels
+and `count_edges_by_type` of the pair nodes.
 """
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .nodes.base import type_pairs
+from .nodes.rotamer import rotamer_1body_energy, rotamer_diagnostics
+from .ops.pairs import quadspline_family, sequence_exclusion_mask
 from .system import System
 
 
@@ -119,3 +122,74 @@ class Upside:
         (sorted keys)."""
         grads = self.system.param_deriv(self._batch(), node_name)
         return _flatten_node_params(grads)
+
+    def get_value_by_name(self, node_name, log_name):
+        """Diagnostics channel (reference DerivComputation::get_value_by_name,
+        rotamer.cpp:675-773, hbond.cpp:406-412): the rotamer node's
+        channels (and the aliases `edge_marginal_in_graph_order`,
+        `n_node`, `rotamer_1body_energy<k>`), and `count_edges_by_type` of
+        the rotamer, coverage and environment nodes.  Anything else
+        raises, as the JAX method does."""
+        spec = self.system.by_name[node_name]
+        with torch.no_grad():
+            outputs = self.system.evaluate(self._batch())[1]
+            c, p = self.system.consts[node_name], self.params[node_name]
+            if spec.node_type.name == "rotamer":
+                inputs = [outputs[a] for a in spec.args]
+                if log_name.startswith("rotamer_1body_energy"):
+                    k = int(log_name[len("rotamer_1body_energy"):] or 0)
+                    return rotamer_1body_energy(c, p, inputs, k)[0] \
+                        .cpu().numpy()
+                if log_name == "n_node":
+                    return np.array([float(c["bp"].n_res)])
+                diag = rotamer_diagnostics(c, p, inputs)
+                key = {"edge_marginal_in_graph_order": "edge_marginal"} \
+                    .get(log_name, log_name)
+                if key in diag:
+                    return diag[key][0].cpu().numpy()
+            if log_name == "count_edges_by_type":
+                return self._count_edges_by_type(spec, outputs)
+        raise ValueError(f"value {log_name} not implemented for {node_name}")
+
+    def _count_edges_by_type(self, spec, outputs):
+        """Edge counts per (type1, type2) pair, flattened: the pairs inside
+        the cutoff under the node's own mask (reference
+        interaction_graph.h:427-441)."""
+        c = self.system.consts[spec.name]
+        name = spec.node_type.name
+        table = self.params[spec.name]["interaction_param"]
+
+        def sq_dist(x1, x2):
+            return ((x1[:, None] - x2[None, :]) ** 2).sum(-1)
+        if name == "rotamer":
+            x = outputs[spec.args[0]][0, c["index"], 0:3]
+            _, k, dx = quadspline_family(table.shape[-1])
+            cutoff = (k - 2 - 1e-6) * dx
+            res = c["res"]
+            n = len(res)
+            mask = (sq_dist(x, x) < cutoff * cutoff) & torch.ones(
+                n, n, dtype=torch.bool, device=x.device).triu(1) \
+                & (res[:, None] != res[None, :])
+            t1 = t2 = c["type"]
+        elif name in ("hbond_coverage", "environment_coverage"):
+            x1 = outputs[spec.args[0]][0, c["index1"], 0:3]
+            x2 = outputs[spec.args[1]][0, c["index2"], 0:3]
+            t1, t2 = c["type1"], c["type2"]
+            if name == "hbond_coverage":
+                _, k, dx = quadspline_family(table.shape[-1])
+                cutoff = (k - 2 - 1e-6) * dx
+            else:
+                prm = type_pairs(table, t1, t2, False)
+                cutoff = prm[..., 0] + 1.0 / prm[..., 1]
+            mask = (sq_dist(x1, x2) < cutoff * cutoff) \
+                & sequence_exclusion_mask(c["id1"], c["id2"], 2)
+        else:
+            raise ValueError(
+                f"count_edges_by_type not implemented for {name}")
+        i, j = torch.nonzero(mask, as_tuple=True)
+        n2t = table.shape[1]
+        out = torch.zeros(table.shape[0] * n2t, dtype=torch.float64,
+                          device=mask.device)
+        out.index_add_(0, t1[i] * n2t + t2[j],
+                       torch.ones(len(i), dtype=out.dtype, device=out.device))
+        return out.cpu().numpy()

@@ -153,12 +153,13 @@ class Simulation:
         s = t0.sqrt() * (1.0 - frac) + (t0 * self.anneal_factor).sqrt() * frac
         return s * s
 
-    def energy_fn(self, params):
+    def energy_fn(self, params, n_deriv_evals=0):
         """Cold-started energies (B,) of positions under `params`: what MC
-        moves and replica swaps compare (JAX `system.energy(p, params)`)."""
+        moves and replica swaps compare (JAX `system.energy(p, params)`,
+        whose AFM tip sits at the counter 0 as here)."""
         def energy(p):
             with torch.no_grad():
-                return self.system.energy(p, params)
+                return self.system.energy(p, params, n_deriv_evals)
         return energy
 
     def advance(self, state: SimState, n_rounds: int, params=None,
@@ -184,8 +185,10 @@ class Simulation:
         sweeps, n_evals = state.bp_sweeps, state.n_evals
 
         def deriv(p, stage, c):
+            # the JAX loop's counter, 3 * round + stage + 1 (sim.py:193)
             nonlocal sweeps, n_evals
-            g, _, c = system.deriv(p, c, fused_prep, params)
+            g, _, c = system.deriv(p, c, fused_prep, params,
+                                   n_deriv_evals=3 * nr + stage + 1)
             for entry in c.values():
                 if isinstance(entry, dict) and "iters" in entry:
                     sweeps = sweeps + entry["iters"]
@@ -225,9 +228,10 @@ class Simulation:
         """(1/2)<|p|^2> per atom (main.cpp:532-536), (B,)."""
         return 0.5 * state.mom.pow(2).sum(-1).mean(-1)
 
-    def potential_energy(self, state, params=None):
-        """Each slot's cold-started potential under its own parameters."""
-        return self.energy_fn(params)(state.pos)
+    def potential_energy(self, state, params=None, n_deriv_evals=0):
+        """Each slot's cold-started potential under its own parameters, at
+        the force-evaluation counter `n_deriv_evals`."""
+        return self.energy_fn(params, n_deriv_evals)(state.pos)
 
     def recentered(self, state):
         return replace(state, pos=recenter(state.pos, self.xy_recenter_only))

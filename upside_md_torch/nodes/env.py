@@ -1,10 +1,13 @@
-"""Burial / environment chain (port of the main-path subset of
-upside_md_tpu/nodes/env.py; reference src/environment.cpp).
+"""Burial / environment chain (port of upside_md_tpu/nodes/env.py;
+reference src/environment.cpp).
 
 * environment_coverage: direction-weighted burial of each CB against the
   Boltzmann-weighted sidechain beads (radial x angular compact sigmoids);
   on the main path it is the env band of the fused pair block.
 * weighted_pos: (x, y, z, exp(-E)) of each bead.
+* uniform_transform: a clamped-spline transform of a scalar signal.
+* linear_coupling_uniform / linear_coupling_with_inactivation: per-type
+  linear energies of a signal, the second gated by (1 - another)^2.
 * nonlinear_coupling: per-restype clamped-spline energy of burial.
 """
 
@@ -48,6 +51,47 @@ def _weighted_pos(c, p, inputs, ctx):
     return torch.cat([pos, w], dim=-1)
 
 
+def _uniform_transform(c, p, inputs, ctx):
+    def rep(k):
+        # a leaf stacked over replicas, (B, ...), against the (B, n) signal
+        v = p[k]
+        return v.reshape(v.shape[:1] + (1,) + v.shape[1:]) \
+            if k in ctx.stacked else v
+    x = (inputs[0][..., 0] - rep("spline_offset")) * rep("spline_inv_dx")
+    v, _ = eval_clamped_bspline(rep("bspline_coeff"), x)
+    return v.unsqueeze(-1)
+
+
+def _ut_get_param(c, p):
+    """[offset, inv_dx, coeffs...] in float32 (env.py:86-89)."""
+    return np.concatenate([
+        p["spline_offset"].detach().cpu().numpy().reshape(1),
+        p["spline_inv_dx"].detach().cpu().numpy().reshape(1),
+        p["bspline_coeff"].detach().cpu().numpy().ravel()]
+    ).astype(np.float32)
+
+
+def _ut_set_param(c, p, flat):
+    flat = np.asarray(flat, np.float32)
+    t = p["bspline_coeff"]
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=t.dtype, device=t.device)
+    return {"spline_offset": tensor(flat[0]), "spline_inv_dx": tensor(flat[1]),
+            "bspline_coeff": tensor(flat[2:])}
+
+
+def _linear_coupling(with_inactivation):
+    def compute(c, p, inputs, ctx):
+        coup = rows(p["couplings"], c["coupling_types"],
+                    "couplings" in ctx.stacked)
+        e = coup * inputs[0][..., 0]
+        if with_inactivation:
+            e = e * (1.0 - inputs[1][..., c["inactivation_dim"]]) ** 2
+        return e.sum(-1)
+    return compute
+
+
 def _nonlinear_coupling(c, p, inputs, ctx):
     coeff = rows(p["coeff"], c["coupling_types"],    # ([B,] n, n_coeff)
                  "coeff" in ctx.stacked)
@@ -59,6 +103,17 @@ def _nonlinear_coupling(c, p, inputs, ctx):
 environment_coverage = register_node("environment_coverage", False,
                                      _environment_coverage)
 weighted_pos = register_node("weighted_pos", False, _weighted_pos)
+uniform_transform = register_node("uniform_transform", False,
+                                  _uniform_transform,
+                                  get_param=_ut_get_param,
+                                  set_param=_ut_set_param)
+_get_couplings, _set_couplings = flat_param("couplings", np.float32)
+linear_coupling_uniform = register_node(
+    "linear_coupling_uniform", True, _linear_coupling(False),
+    get_param=_get_couplings, set_param=_set_couplings)
+linear_coupling_with_inactivation = register_node(
+    "linear_coupling_with_inactivation", True, _linear_coupling(True),
+    get_param=_get_couplings, set_param=_set_couplings)
 _get_coeff, _set_coeff = flat_param("coeff", np.float32)
 nonlinear_coupling = register_node("nonlinear_coupling", True,
                                    _nonlinear_coupling, get_param=_get_coeff,

@@ -1,5 +1,5 @@
-"""Placement nodes (port of the main-path variants of
-upside_md_tpu/nodes/placement.py; reference src/placement.cpp).
+"""Placement nodes (port of upside_md_tpu/nodes/placement.py; reference
+src/placement.cpp): all seven variants.
 
 Per-residue local data is placed with the rigid frames of
 `affine_alignment`: points as R v + t, vectors as R v, scalars unchanged.
@@ -61,13 +61,24 @@ def _rama_placement(signature):
 
 
 _get_data, _set_data = flat_param("placement_data")
+
+
+def _fixed(name, signature):
+    return register_node(name, False, _fixed_placement(signature),
+                         get_param=_get_data, set_param=_set_data)
+
+
 placement_scalar = register_node(
     "placement_scalar", False, _rama_placement(("scalar",)))
-placement_fixed_point_vector_only = register_node(
-    "placement_fixed_point_vector_only", False,
-    _fixed_placement(("point", "vector")), get_param=_get_data,
-    set_param=_set_data)
-placement_fixed_point_vector_scalar = register_node(
-    "placement_fixed_point_vector_scalar", False,
-    _fixed_placement(("point", "vector", "scalar")), get_param=_get_data,
-    set_param=_set_data)
+placement_fixed_scalar = _fixed("placement_fixed_scalar", ("scalar",))
+placement_point_only = register_node(
+    "placement_point_only", False, _rama_placement(("point",)))
+placement_fixed_point_only = _fixed("placement_fixed_point_only",
+                                    ("point",))
+placement_point_vector_only = register_node(
+    "placement_point_vector_only", False,
+    _rama_placement(("point", "vector")))
+placement_fixed_point_vector_only = _fixed(
+    "placement_fixed_point_vector_only", ("point", "vector"))
+placement_fixed_point_vector_scalar = _fixed(
+    "placement_fixed_point_vector_scalar", ("point", "vector", "scalar"))

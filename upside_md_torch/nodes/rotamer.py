@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from ..ops.bp_pairs import (EPS, MAX_RES, NROT, bp_bethe_pairs,
-                            make_statics, scatter_pairs)
+                            bp_solve_plain, make_statics, node_potentials,
+                            scatter_pairs)
 from ..ops.bp_planes import bp_bethe_planes
 from ..ops.pairs import (quadspline_coverage_nl, quadspline_family,
                          scatter_rows)
@@ -124,7 +125,9 @@ def assemble_pair_grid(c, p, beads, plain=False, stacked=False):
 def residue_adjacency(c, live):
     """(B, R, R) bool from a (B, n, n) bead-pair mask: residues with a
     pair in it, symmetric, no diagonal (rotamer.py:230-232, 266-267)."""
-    oh = c["res_onehot"]
+    oh = c["res_onehot"] if "res_onehot" in c else \
+        torch.nn.functional.one_hot(c["res"], c["bp"].n_res).to(
+            torch.float32)
     counts = oh.T @ live.to(oh.dtype) @ oh           # exact small integers
     adj = (counts + counts.transpose(1, 2)) > 0
     return adj & ~torch.eye(adj.shape[-1], dtype=torch.bool,
@@ -212,3 +215,84 @@ _get_table, _set_table = flat_param("interaction_param")
 rotamer = register_node("rotamer", True, _rotamer, prepare=_prepare,
                         init_cache=_init_cache, get_param=_get_table,
                         set_param=_set_table)
+
+
+# -- diagnostics (rotamer.py:566-627 of the JAX package) ----------------------
+
+def rotamer_problem(c, p, inputs, plain=False):
+    """The residue-level BP problem of `assemble_rotamer_energies`
+    (rotamer.py:239-268): (E1, offset, prob, E2 (B, R, R, 6, 6) symmetric,
+    adjacency (B, R, R)), from the unfused pair grid whatever path the
+    node itself takes."""
+    st = c["bp"]
+    E1 = assemble_one_body(c, inputs)
+    offset, prob = node_potentials(E1, st.valid)
+    beads = inputs[0][:, c["index"], :6]
+    grid, kept = assemble_pair_grid(c, p, beads, plain)
+    adj = pair_adjacency(c, p, beads) if kept is None \
+        else residue_adjacency(c, kept)
+    return E1, offset, prob, scatter_pairs(st, grid), adj
+
+
+def _solve(c, prob, P, adj):
+    """The cold `_bp_solve` of the diagnostics, 2 sweeps a chunk."""
+    st = c["bp"]
+    return bp_solve_plain(prob, P, adj, st.valid, st.damping, st.max_iter,
+                          st.tol, 2)[:2]
+
+
+def _bead_values(c, nb):
+    """Per-bead values (B, n_bead) of per-slot ones (B, R, 6)."""
+    return nb.reshape(nb.shape[0], -1)[:, c["res"] * NROT + c["rot"]]
+
+
+def rotamer_diagnostics(consts, params, inputs, plain=False):
+    """The reference's get_value_by_name channels (rotamer.cpp:675-773):
+    per-residue free energies, 1-body energies, node and edge energies
+    and marginals, each with the replica axis first."""
+    valid = consts["bp"].valid
+    E1, offset, prob, E2, adj = rotamer_problem(consts, params, inputs,
+                                                plain)
+    P = torch.exp(-E2)
+    nb, eb = _solve(consts, prob, P, adj)
+    zero = torch.zeros_like(nb)
+    node_en = offset + torch.where(
+        valid, nb * torch.log((EPS + nb) / (EPS + prob)), zero).sum(-1)
+    bc1 = nb[:, :, None, :] / (EPS + eb)
+    bc2 = bc1.transpose(1, 2)
+    m_raw = P * bc1[..., :, None] * bc2[..., None, :]
+    m = m_raw / torch.clamp(m_raw.sum((-1, -2), keepdim=True), min=EPS)
+    pbb = P * nb[:, :, None, :, None] * nb[:, None, :, None, :]
+    pv = valid[:, None, :, None] & valid[None, :, None, :]
+    edge_en = torch.where(pv, m * torch.log((EPS + m) / (EPS + pbb)),
+                          torch.zeros_like(m)).sum((-1, -2))
+    edge_en = torch.where(adj, edge_en, torch.zeros_like(edge_en))
+    adj4 = adj[..., None, None]
+    return {
+        "node_marginal": nb,
+        "edge_marginal": torch.where(adj4, m, torch.zeros_like(m)),
+        "node_energy": torch.where(valid, E1, torch.full_like(E1, 1e5)),
+        "edge_energy": -torch.log(torch.where(adj4, P, torch.ones_like(P))),
+        "node_free_energy": node_en,
+        "edge_free_energy": edge_en,
+        "rotamer_free_energy": node_en + 0.5 * edge_en.sum(-1),
+        "bead_marginal": _bead_values(consts, nb),
+        "adjacency": adj,
+    }
+
+
+def rotamer_1body_energy(consts, params, inputs, prob_node_index,
+                         plain=False):
+    """Marginal-weighted 1-body energy (B, R) of one energy input
+    (rotamer.cpp:904-926)."""
+    w = rotamer_diagnostics(consts, params, inputs, plain)["bead_marginal"]
+    e_bead = inputs[1 + prob_node_index][:, consts["index"], 0]
+    out = e_bead.new_zeros((e_bead.shape[0], consts["bp"].n_res))
+    return out.index_add(1, consts["res"], w * e_bead)
+
+
+def rotamer_marginals(consts, params, inputs, plain=False):
+    """Posterior node marginals (B, R, 6) and per bead (B, n_bead)."""
+    _, _, prob, E2, adj = rotamer_problem(consts, params, inputs, plain)
+    nb, _ = _solve(consts, prob, torch.exp(-E2), adj)
+    return nb, _bead_values(consts, nb)

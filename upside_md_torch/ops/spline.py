@@ -117,3 +117,12 @@ def eval_periodic_bspline_2d(coeffs, x, y):
     cy = (sub * wx.unsqueeze(-1)).sum(-2)                      # (..., 4)
     cdx = (sub * dwx.unsqueeze(-1)).sum(-2)
     return (cy * wy).sum(-1), (cdx * wy).sum(-1), (cy * dwy).sum(-1)
+
+
+def eval_clamped_interp(coeffs, x):
+    """A spline fitted by the JAX package's `fit_clamped_interp_bspline`
+    (the bundle stores its coefficients) at data coordinates x: the data
+    domain [0, n-1], n = coeffs.shape[-1] - 2, with constant value and zero
+    slope outside it (ops/spline.py:272; reference LayeredClampedSpline1D,
+    src/spline.h:454-516)."""
+    return eval_clamped_bspline(coeffs, x + 1.0)

@@ -31,7 +31,8 @@ from .nodes.fusion import plan_pair_fusion
 class EvalContext:
     """Per-evaluation state the nodes read and write."""
 
-    def __init__(self, cache=None, plain=False):
+    def __init__(self, cache=None, plain=False, n_replica=1,
+                 n_deriv_evals=0):
         self.cache = cache or {}     # previous evaluation's solver state
         self.cache_out = {}          # this evaluation's solver state
         self.fused = {}              # fused pair block results by node
@@ -39,6 +40,11 @@ class EvalContext:
         # names of the node's parameters stacked over replicas
         self.stacked = frozenset()
         self.plain = plain           # plain versions on the card
+        self.n_replica = n_replica   # for nodes without inputs (constant)
+        # force evaluations so far, a host int: AFM's tip moves with it
+        # (the JAX package's extra["n_deriv_evals"]; 0 in an energy-only
+        # evaluation, as there)
+        self.n_deriv_evals = n_deriv_evals
 
 
 def slot_params(params, spec, i):
@@ -148,14 +154,15 @@ class System:
 
     def evaluate(self, pos, cache: Optional[Dict] = None, fused_prep=None,
                  params: Optional[Dict] = None,
-                 inject: Optional[Dict] = None):
+                 inject: Optional[Dict] = None, n_deriv_evals: int = 0):
         """Run the graph on pos (B, n_atom, 3).  Returns (total (B,),
         outputs, per_term, ctx); ctx.cache_out holds the new solver state.
         params: {node: {name: tensor}} in place of `self.params` (its
         tensors may require grad; a leaf with a leading replica axis of
         size B gives each replica its own value); inject: {node: tensor}
         added to that node's output (how `get_sens` reads output
-        cotangents)."""
+        cotangents); n_deriv_evals: the force-evaluation counter AFM reads
+        (the MD loop passes 3 * round + stage + 1)."""
         params = self.params if params is None else params
         spec = self.stacked_leaves(params)
         for n, k in spec:
@@ -163,7 +170,7 @@ class System:
                 raise ValueError(f"parameter {n}/{k} is stacked over "
                                  f"{params[n][k].shape[0]} replicas, the "
                                  f"positions hold {pos.shape[0]}")
-        ctx = EvalContext(cache, self.plain)
+        ctx = EvalContext(cache, self.plain, pos.shape[0], n_deriv_evals)
         outputs = {"pos": pos}
         per_term = {}
         fusion = self.pair_fusion
@@ -199,27 +206,30 @@ class System:
         return cache
 
     def energy_and_cache(self, pos, cache=None, fused_prep=None,
-                         params=None):
+                         params=None, n_deriv_evals=0):
         """(energy (B,), new cache): threads per-node solver state."""
-        total, _, _, ctx = self.evaluate(pos, cache, fused_prep, params)
+        total, _, _, ctx = self.evaluate(pos, cache, fused_prep, params,
+                                         n_deriv_evals=n_deriv_evals)
         new_cache = dict(cache or {})
         new_cache.update(ctx.cache_out)
         return total, new_cache
 
-    def energy(self, pos, params=None):
+    def energy(self, pos, params=None, n_deriv_evals=0):
         """Total potential from a cold solver start: (B,) for pos (B,
         n_atom, 3), a scalar for one configuration (n_atom, 3), as the JAX
         System's `energy(pos, params)`.  Differentiable in `params`."""
         one = pos.ndim == 2
-        total = self.evaluate(pos[None] if one else pos, params=params)[0]
+        total = self.evaluate(pos[None] if one else pos, params=params,
+                              n_deriv_evals=n_deriv_evals)[0]
         return total[0] if one else total
 
-    def deriv(self, pos, cache=None, fused_prep=None, params=None):
+    def deriv(self, pos, cache=None, fused_prep=None, params=None,
+              n_deriv_evals=0):
         """(dU/dpos (B, n_atom, 3), energy (B,), new cache)."""
         with torch.enable_grad():
             x = pos.detach().requires_grad_(True)
             total, new_cache = self.energy_and_cache(x, cache, fused_prep,
-                                                     params)
+                                                     params, n_deriv_evals)
             (g,) = torch.autograd.grad(total.sum(), x)
         return g, total.detach(), new_cache
 
