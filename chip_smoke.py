@@ -31,7 +31,10 @@ checks them:
   bwd, K2), BASELINE config 5 (chi1 prediction on ubiquitin through
   `chi1.predict_chi1_from_bundle`; K1 fwd, K2) and trp-cage with every
   config-builder extra plus the hand-built graph of the types no builder
-  writes (`config/extras_graph.py`; K1 fwd, K1 bwd, K2).
+  writes (`config/extras_graph.py`; K1 fwd, K1 bwd, K2);
+* the command line and its trajectory files: `cli.main` on ubiquitin at
+  64 slots and on config 4 (K1 fwd, K1 bwd, K2), through the per-node
+  streams and the numpy-only HDF5 writer.
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -162,7 +165,24 @@ the bundle's seed.  Phases:
    its error), MD at 64 replicas with AFM's energy after it against the
    CPU at the same force-evaluation counter (rel < 1e-5), a profiled
    round, and radial's and fixed_hmm's shares and device launches;
-10. prints the kernel table as one JSON line (launches summed over the
+10. the command line (`python -m upside_md_torch.cli`, driven in
+   process through `cli.main`), writing its per-slot HDF5 files with
+   `io/h5.py` into a temporary directory: `[cli ubiquitin]` 64 slots of
+   ubiquitin at the detailed log level, 60 rounds, frames every 10,
+   beside a bare `run_ensemble` under the same schedule (K1 fwd, K1 bwd
+   and K2 launched as often over as many evaluations; every file read
+   back by the port's reader, every frame finite; the logged potential
+   equal to `System.energy` at the logged positions, rel 1e-5; frame 1's
+   streams of 4 slots equal to the port on the CPU in float64 within 1e-4
+   of each stream's largest value, or of 1 where that is smaller;
+   prints steps/s of both, ms a frame (the evaluation with its streams,
+   the copies and the logging) beside the bare run's, bytes a frame a slot
+   and ms a flush); `[cli rex cytochrome_c]` config 4 through the
+   command line from 64 ladder bundles written with `bundle.save`, even/odd
+   swap sets every 10 rounds, 40 rounds (replica_index a permutation in
+   every frame; swap acceptance and steps/s beside phase 7's); `[cli pda]`
+   --potential-deriv-agreement on ubiquitin (its value, finite);
+11. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -254,6 +274,11 @@ CHI1_CONFIGS = (1, 64)
 EXTRAS_REPLICAS, MD_ROUNDS_EXTRAS = 64, 3
 N_DERIV_EVALS = 7     # the force-evaluation counter of the extras gate
 PROFILE_ROUNDS = 1
+# phase 10: the command line (slots, rounds, frame interval; config 4's
+# rounds; slots whose frame-1 streams are recomputed on the CPU)
+CLI_SLOTS, CLI_ROUNDS, CLI_EVERY, CLI_REX_ROUNDS = 64, 60, 10, 40
+CLI_HOST_SLOTS = 4
+CLI_APPEND_FRAMES = 300     # three flushes: one creating, two appending
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
 ROW_TILE_REPLICAS = (64, 512)    # the row-tile kernels, by launch, at both
@@ -2660,6 +2685,415 @@ def extras_phase(dev, gen, path):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# the command line and its trajectory files
+# ---------------------------------------------------------------------------
+
+class _Recorded:
+    """`cli.main`'s loop, frames and loggers, recorded: `cli.run_ensemble`,
+    `cli._frame` and `cli.H5Logger` wrapped for the duration of a `with`
+    block, so a run hands back its final state, summary, loggers and each
+    frame's values; the wall time of each frame (the evaluation with its
+    streams, the copies to the host and the frame callback's logging, from
+    a synchronised card); and the clock at each `run_ensemble` call's start
+    and end and at each logger's close, its files written."""
+
+    def __enter__(self):
+        import torch
+        from upside_md_torch import cli
+        self.cli, self.runs, self.loggers, self.frame_s = cli, [], [], []
+        self.values, self.run_t, self.close_t = [], [], []
+        self.saved = cli.run_ensemble, cli._frame, cli.H5Logger
+        run, frame, logger_cls = self.saved
+        runs, loggers, frame_s = self.runs, self.loggers, self.frame_s
+        values, run_t, close_t = self.values, self.run_t, self.close_t
+
+        def sync():
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+
+        def run_ensemble(*a, **k):
+            cb = k.get("frame_callback")
+            if cb is not None:
+                def timed_cb(done, v):
+                    t0 = time.perf_counter()
+                    cb(done, v)
+                    frame_s[-1] += time.perf_counter() - t0
+                    values.append((done, v))
+                k["frame_callback"] = timed_cb
+            t0 = time.perf_counter()
+            out = run(*a, **k)
+            run_t.append((t0, time.perf_counter()))
+            runs.append(out)
+            return out
+
+        def timed_frame(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = frame(*a, **k)
+            frame_s.append(time.perf_counter() - t0)
+            return out
+
+        class Logger(logger_cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                loggers.append(self)
+
+            def close(self):
+                super().close()
+                close_t.append(time.perf_counter())
+
+        cli.run_ensemble, cli._frame, cli.H5Logger = \
+            run_ensemble, timed_frame, Logger
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.run_ensemble, self.cli._frame, self.cli.H5Logger = \
+            self.saved
+
+
+def cli_flags(rounds, every, temps, out):
+    return [f"--duration={rounds * 3 * 0.009}",
+            f"--frame-interval={every * 3 * 0.009}",
+            f"--temperature={','.join(f'{t:.6f}' for t in temps)}",
+            "--thermostat-interval=0.135", "--log-level=detailed",
+            f"--output-dir={out}", "--device=cuda"]
+
+
+def read_frames(paths):
+    """{dataset: (n_slot, n_frame, ...)} of /output in each slot's file,
+    read with the port's reader; every value finite."""
+    import numpy as np
+    from upside_md_torch.io import h5
+    out = {}
+    for path in paths:
+        with h5.File(path) as f:
+            for k, ds in f["output"].items():
+                a = ds[()]
+                if a.dtype.kind == "f" and not np.isfinite(a).all():
+                    raise AssertionError(f"{path}: output/{k} not finite")
+                out.setdefault(k, []).append(a)
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def replay_appends(cli, values, tmp, n, frame_bytes):
+    """The append path on this host: CLI_APPEND_FRAMES frames, `values`
+    (a run's recorded (round, frame values)) taken in turn, logged through
+    `cli.log_values` into n fresh slot files, as `cli.main` logs them.
+    Every BUFFER_FRAMES frames each logger flushes: the first flush
+    creates the datasets, the later ones append BUFFER_FRAMES rows to
+    them.  For each flush: its ms a slot (the logger's own clock of its
+    writes) and the files' growth, which must be the new rows' chunks
+    (BUFFER_FRAMES frames of frame_bytes) and no more than 8 bytes of
+    padding a dataset, never a copy of earlier data.  The files are read
+    back with the port's reader: every frame, each position as logged."""
+    import numpy as np
+    from upside_md_torch.io import h5
+    from upside_md_torch.io.logger import BUFFER_FRAMES, H5Logger
+    label = "cli append"
+    d = os.path.join(tmp, "append")
+    os.makedirs(d)
+    paths = [os.path.join(d, f"slot_{i}.h5") for i in range(n)]
+    loggers = [H5Logger(p, input_pos=values[0][1]["pos"][i])
+               for i, p in enumerate(paths)]
+    size = [os.path.getsize(p) for p in paths]
+    flushes, buffer_s = [], []
+    for k in range(CLI_APPEND_FRAMES):
+        v = values[k % len(values)][1]
+        seen = [len(lg.flush_seconds) for lg in loggers]
+        t0 = time.perf_counter()
+        cli.log_values(loggers, 3 * 0.009 * (k + 1), v)
+        wall = time.perf_counter() - t0
+        if (k + 1) % BUFFER_FRAMES:
+            buffer_s.append(wall)
+            continue
+        ms = [1e3 * sum(lg.flush_seconds[j:]) for lg, j in zip(loggers, seen)]
+        n_ds = len(loggers[0].flush_seconds) - seen[0]  # one write each
+        new = [os.path.getsize(p) for p in paths]
+        grow = [b - a for a, b in zip(size, new)]
+        size = new
+        data = BUFFER_FRAMES * frame_bytes
+        if flushes and not all(data <= g <= data + 8 * n_ds for g in grow):
+            raise AssertionError(f"{label}: an append of {BUFFER_FRAMES} "
+                                 f"frames ({data:.0f} bytes of rows) grew "
+                                 f"the files by {min(grow)}-{max(grow)}")
+        flushes.append({"frame": k + 1, "ms_per_slot": statistics.median(ms),
+                        "ms_all_slots": sum(ms), "wall_s": wall,
+                        "growth_per_slot": statistics.median(grow),
+                        "datasets": n_ds})
+    for lg in loggers:
+        lg.close()
+    for i, p in enumerate(paths):
+        with h5.File(p) as f:
+            pos = f["output/pos"][()]
+            if {ds.shape[0] for _, ds in f["output"].items()} != {
+                    CLI_APPEND_FRAMES}:
+                raise AssertionError(f"{label}: {p} does not hold "
+                                     f"{CLI_APPEND_FRAMES} frames")
+        want = np.stack([values[k % len(values)][1]["pos"][i][None]
+                         for k in range(CLI_APPEND_FRAMES)])
+        if not np.array_equal(pos, want.astype(np.float32)):
+            raise AssertionError(f"{label}: {p} positions differ from "
+                                 "those logged")
+    res = {"frames": CLI_APPEND_FRAMES, "flushes": flushes,
+           "buffer_ms_a_frame": 1e3 * statistics.median(buffer_s),
+           "rows_bytes_a_flush_per_slot": BUFFER_FRAMES * frame_bytes}
+    create, rest = flushes[0], flushes[1:]
+    log(f"[{label}] {CLI_APPEND_FRAMES} frames of the run's values "
+        f"replayed through cli.log_values into {n} new files: a frame "
+        f"buffered in {res['buffer_ms_a_frame']:.3f} ms (all {n} slots, "
+        f"median); creating flush {create['ms_per_slot']:.3f} ms a slot "
+        f"(median; all {n} {create['ms_all_slots']:.1f} ms, the file +"
+        f"{create['growth_per_slot']:.0f} bytes); appending flushes of "
+        f"{BUFFER_FRAMES} frames "
+        + ", ".join(f"{f['ms_per_slot']:.3f} ms a slot (all {n} "
+                    f"{f['ms_all_slots']:.1f} ms, +{f['growth_per_slot']:.0f}"
+                    " bytes)" for f in rest)
+        + f" against {BUFFER_FRAMES * frame_bytes:.0f} bytes of rows a slot; "
+        f"{create['datasets']} datasets a file; every file read back")
+    return res
+
+
+def cli_ubiquitin(dev, path):
+    """`cli.main` on ubiquitin x CLI_SLOTS slots at the detailed level,
+    CLI_ROUNDS rounds, frames every CLI_EVERY, into a temporary directory,
+    beside a bare `run_ensemble` under the same schedule without logging;
+    launch counts set to 0 just before each and read just after.  Checks:
+    K1 fwd, K1 bwd and K2 launched as often as by the bare run, over as
+    many evaluations; every file read by the port's reader, every frame
+    finite; the logged potential equal to `System.energy` at the logged
+    positions (rel 1e-5); frame 1's streams of the first CLI_HOST_SLOTS
+    slots (from the files) equal to the port on the CPU in float64 (within
+    1e-4 of each stream's largest value, or of 1e-6 where that is smaller).
+    steps/s with logging counts from `run_ensemble`'s start to the last
+    file's close, so every file write is inside (with 6 frames all of them
+    happen at the close, each creating its datasets); the append path,
+    which a run of fewer than BUFFER_FRAMES frames does not reach, is
+    timed by `replay_appends` on the same frames' values."""
+    import tempfile
+    import numpy as np
+    import torch
+    from upside_md_torch import cli
+    from upside_md_torch.io.streams import make_frame_fn
+    from upside_md_torch.md.sim import Simulation
+    from upside_md_torch.ops import kernels
+    n, label = CLI_SLOTS, "cli ubiquitin"
+    temps = [1.0] * n
+    system, pos0 = load_system(path, dev)
+    sim = Simulation(system, dt=0.009, duration=CLI_ROUNDS * 3 * 0.009,
+                     thermostat_interval=0.135,
+                     frame_interval=CLI_EVERY * 3 * 0.009, seed=42)
+    state = sim.initial_state(pos0, n, temps)
+    kernels.reset_counts()
+    with _Recorded() as bare_rec:
+        bare, bare_out = cli.run_ensemble(sim, state, system.params,
+                                          frozenset(), sim.n_round)
+    bare_launches = dict(kernels.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_counts()
+        with _Recorded() as rec:
+            rc = cli.main(cli_flags(CLI_ROUNDS, CLI_EVERY, temps, tmp)
+                          + [path] * n)
+        launches = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"{label}: main returned {rc}")
+        state, out = rec.runs[0]
+        paths = [cli.output_path(tmp, path, i) for i in range(n)]
+        t0 = time.perf_counter()
+        frames = read_frames(paths)
+        read_s = time.perf_counter() - t0
+        n_frame = frames["pos"].shape[1]
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        frame_bytes = sum(a[0].nbytes for a in frames.values()) / n_frame
+        flush_ms = [1e3 * sum(lg.flush_seconds) for lg in rec.loggers]
+        appends = replay_appends(cli, rec.values, tmp, n, frame_bytes)
+    evals = state.n_evals + out["n_energy_evals"]
+    bare_evals = bare.n_evals + bare_out["n_energy_evals"]
+    for nm in FUSED_KERNELS:
+        if launches[nm] <= 0 or launches[nm] != bare_launches[nm]:
+            raise AssertionError(f"{label}: {nm} launched {launches[nm]} "
+                                 f"times, the bare run {bare_launches[nm]}")
+    if evals != bare_evals:
+        raise AssertionError(f"{label}: {evals} evaluations, the bare run "
+                             f"{bare_evals}")
+    per_eval = {nm: launches[nm] / evals for nm in FUSED_KERNELS}
+    # the logged potential against a fresh evaluation of the logged frame
+    worst = 0.0
+    for k in range(n_frame):
+        x = torch.as_tensor(frames["pos"][:, k, 0], device=dev)
+        e = system.energy(x).double().cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(
+            frames["potential"][:, k, 0] - e) / np.abs(e))))
+    check(f"{label}: logged potential against System.energy at the "
+          f"logged positions ({n} slots x {n_frame} frames)", worst, 1e-5)
+    # frame 1's streams against the port on the CPU in float64
+    host = load_system(path, "cpu", dtype="float64")[0]
+    frame_fn, _ = make_frame_fn(host, "detailed")
+    m = CLI_HOST_SLOTS
+    _, want, _ = frame_fn(torch.as_tensor(frames["pos"][:m, 0, 0],
+                                          dtype=torch.float64),
+                          n_deriv_evals=3 * CLI_EVERY)
+    stream_err = {}
+    for k, v in want.items():
+        # relative to the stream's largest value, floored at 1e-6 (a
+        # stream that is zero throughout is held to 1e-10 absolute)
+        d = rel_err(torch.as_tensor(frames[k][:m, 0]), v)[1]
+        stream_err[k] = d / max(v.abs().max().item(), 1e-6)
+        check(f"{label}: frame 1 stream {k}, card (its file) vs CPU "
+              f"float64 ({m} slots; abs {d:.3e})", stream_err[k], 1e-4)
+    steps = 3 * CLI_ROUNDS * n
+    rate, bare_rate = steps / out["seconds"], steps / bare_out["seconds"]
+    # through the files: run_ensemble's call to the last logger's close
+    files_s = max(rec.close_t) - rec.run_t[0][0]
+    bare_call_s = bare_rec.run_t[0][1] - bare_rec.run_t[0][0]
+    files_rate, bare_call_rate = steps / files_s, steps / bare_call_s
+    frame_ms = 1e3 * statistics.median(rec.frame_s)
+    bare_frame_ms = 1e3 * statistics.median(bare_rec.frame_s)
+    res = {"steps_per_s_with_files": files_rate,
+           "bare_steps_per_s_call": bare_call_rate,
+           "seconds_with_files": files_s, "bare_seconds_call": bare_call_s,
+           "loop_steps_per_s": rate, "bare_loop_steps_per_s": bare_rate,
+           "seconds": out["seconds"], "bare_seconds": bare_out["seconds"],
+           "frames": n_frame, "ms_per_frame": frame_ms,
+           "bare_ms_per_frame": bare_frame_ms,
+           "bytes_per_frame_per_slot": frame_bytes,
+           "file_bytes_per_slot": nbytes / n,
+           "create_flush_ms_per_slot": statistics.median(flush_ms),
+           "create_flush_ms_all_slots": sum(flush_ms), "read_s": read_s,
+           "appends": appends,
+           "launches": launches, "launches_per_eval": per_eval,
+           "evaluations": evals, "potential_rel": worst,
+           "stream_rel": stream_err}
+    log(f"[{label}] {n} slots, {CLI_ROUNDS} rounds, frames every "
+        f"{CLI_EVERY}: cli.main {files_rate:.1f} steps/s with logging, "
+        f"from run_ensemble's start to the last file's close "
+        f"({files_s:.3f} s; the loop alone {rate:.1f} steps/s, "
+        f"{out['seconds']:.3f} s), run_ensemble without logging "
+        f"{bare_call_rate:.1f} steps/s (its call {bare_call_s:.3f} s; the "
+        f"loop alone {bare_rate:.1f} steps/s, {bare_out['seconds']:.3f} s) "
+        "under the same schedule")
+    log(f"[{label}] {frame_ms:.2f} ms a frame (median of {n_frame}: "
+        f"evaluation with the streams + copies + buffering, no file write; "
+        f"the bare run's evaluation and copies {bare_frame_ms:.2f} ms), "
+        f"{frame_bytes:.0f} bytes a frame "
+        f"a slot ({nbytes / n:.0f} bytes a file), the close's flush of a "
+        f"slot's {n_frame} frames, creating its datasets, "
+        f"{res['create_flush_ms_per_slot']:.2f} ms (median; all {n} files "
+        f"{res['create_flush_ms_all_slots']:.1f} ms), reading all files "
+        f"{read_s:.2f} s")
+    log(f"[{label}] launches {launches}; per evaluation {per_eval} "
+        f"({evals} evaluations, as the bare run's)")
+    # K5 fwd too: the frames' rotamer streams build the unfused grid
+    return res, launches
+
+
+def cli_rex(dev, path, phase7):
+    """BASELINE config 4 through the command line: CLI_SLOTS ladder bundles
+    (the first spring node's spring_const scaled as `ladder` scales it)
+    written with `bundle.save`, temperatures 0.80 1.02^i, even/odd swap
+    sets every REX_EVERY rounds, CLI_REX_ROUNDS rounds, launch counts set
+    to 0 just before and read just after; K1 fwd, K1 bwd and K2 launched,
+    replica_index a permutation in every frame; swap acceptance and steps/s
+    beside phase 7's."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from upside_md_torch import cli
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import kernels
+    n, label = CLI_SLOTS, "cli rex cytochrome_c"
+    specs, pos0 = bundle.load(path)
+    aux = bundle.load_aux(path)
+    node = next(s for s in specs if "spring" in s.name
+                and "spring_const" in s.params)
+
+    def save(i, tmp):
+        f = 1.0 + 0.02 * (i / max(n - 1, 1) - 0.5)
+        recs = [dataclasses.replace(s, params={
+            **s.params, "spring_const": np.asarray(
+                s.params["spring_const"], np.float32) * np.float32(f)})
+            if s is node else s for s in specs]
+        return bundle.save(os.path.join(tmp, f"cytc_{i:02d}.npz"), recs,
+                           pos0, aux)
+
+    even = ",".join(f"{i}-{i + 1}" for i in range(0, n - 1, 2))
+    odd = ",".join(f"{i}-{i + 1}" for i in range(1, n - 1, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        with ThreadPoolExecutor(8) as pool:
+            paths = list(pool.map(lambda i: save(i, tmp), range(n)))
+        kernels.reset_counts()
+        with _Recorded() as rec:
+            rc = cli.main(cli_flags(CLI_REX_ROUNDS, REX_EVERY,
+                                    0.80 * 1.02 ** np.arange(n), tmp)
+                          + [f"--replica-interval={REX_EVERY * 3 * 0.009}",
+                             f"--swap-set={even}", f"--swap-set={odd}"]
+                          + paths)
+        launches = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"{label}: main returned {rc}")
+        frames = read_frames([cli.output_path(tmp, p, i)
+                              for i, p in enumerate(paths)])
+    state, out = rec.runs[0]
+    for k in range(frames["replica_index"].shape[1]):
+        if sorted(frames["replica_index"][:, k, 0].tolist()) != \
+                list(range(n)):
+            raise AssertionError(f"{label}: replica_index of frame {k} is "
+                                 "not a permutation")
+    for nm in FUSED_KERNELS:
+        if launches[nm] <= 0:
+            raise AssertionError(f"kernel {nm} was not launched by {label}")
+    stats = np.concatenate([s.cpu().numpy() for s in out["rex_stats"]]
+                           ).sum(0)
+    swap_acc = float(stats[0] / stats[1])
+    rate = 3 * CLI_REX_ROUNDS * n / out["seconds"]
+    evals = state.n_evals + out["n_energy_evals"]
+    per_eval = {nm: launches[nm] / evals for nm in FUSED_KERNELS}
+    res = {"steps_per_s": rate, "seconds": out["seconds"],
+           "swap_acceptance": swap_acc, "swaps": stats.tolist(),
+           "phase7_steps_per_s": phase7["steps_per_s"],
+           "phase7_swap_acceptance": phase7["swap_acceptance"],
+           "launches": launches, "launches_per_eval": per_eval}
+    log(f"[{label}] {n} ladder bundles, {CLI_REX_ROUNDS} rounds: "
+        f"{rate:.1f} steps/s with the swaps and logging "
+        f"({out['seconds']:.3f} s), swap acceptance {swap_acc:.4f} "
+        f"({stats[0]} of {stats[1]}); phase 7's run_ensemble "
+        f"{phase7['steps_per_s']:.1f} steps/s, acceptance "
+        f"{phase7['swap_acceptance']:.4f}; per evaluation {per_eval}")
+    return res, {nm: launches[nm] for nm in FUSED_KERNELS}
+
+
+def cli_pda(path):
+    """--potential-deriv-agreement through `cli.main` on ubiquitin on the
+    card (one round, one slot): the per-term energies and the relative
+    RMS deviation of the autograd forces from central differences (step
+    1e-3, float32, each shifted configuration's BP solved cold at the
+    bundle's tol), which must be finite."""
+    import contextlib
+    import io
+    import tempfile
+    from upside_md_torch import cli
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(cli_flags(1, 1, [1.0], tmp)
+                          + ["--potential-deriv-agreement", path])
+        seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli pda: main returned {rc}")
+    lines = buf.getvalue().splitlines()
+    rel = float(next(ln for ln in lines
+                     if "relative error" in ln).split()[-1])
+    if not math.isfinite(rel):
+        raise AssertionError(f"cli pda: relative error {rel}")
+    terms = lines[:lines.index(next(ln for ln in lines
+                                    if "relative error" in ln))]
+    log(f"[cli pda] ubiquitin: overall potential relative error {rel:.5f} "
+        f"({seconds:.1f} s the whole call); "
+        + "; ".join(t.strip() for t in terms))
+    return {"relative_error": rel, "seconds": seconds, "terms": terms}
+
+
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--out", default=None)
@@ -2806,6 +3240,17 @@ def main():
     rest["extras"], launches_x = extras_phase(
         dev, gen, os.path.join(DATA_DIR, BUNDLE_EXTRAS))
     results["phases"]["remaining_nodes"] = rest
+
+    # ---- 10. the command line and its trajectory files
+    t0 = time.perf_counter()
+    cli_res = {}
+    cli_res["ubiquitin"], launches_cli = cli_ubiquitin(dev, fused_path)
+    cli_res["rex"], launches_cli_rex = cli_rex(dev, rex_path,
+                                               rex["config4"])
+    cli_res["pda"] = cli_pda(fused_path)
+    cli_res["seconds"] = time.perf_counter() - t0
+    log(f"[cli] phase 10 took {cli_res['seconds']:.1f} s")
+    results["phases"]["cli"] = cli_res
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
@@ -2813,12 +3258,14 @@ def main():
                 "md t4_lysozyme": launches_t4, "md gfp": launches_gfp,
                 "md config2 ubiquitin_radial": launches_c2,
                 "chi1 ubiquitin": launches_chi1,
-                "md extras trp_cage": launches_x}
+                "md extras trp_cage": launches_x,
+                "cli ubiquitin": launches_cli,
+                "cli rex cytochrome_c": launches_cli_rex}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 10. report
+    # ---- 11. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

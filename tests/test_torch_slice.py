@@ -14,7 +14,9 @@ bundle, plus the bundle pin and the import isolation of the port.
   Hamiltonian ensemble and one pivot step, the engine and training
   modules, one parameter derivative; the extras slice's node modules, the
   hand-built graph on the extras bundle, a diagnostics channel and a chi1
-  prediction) with jax, h5py and upside_md_tpu blocked.
+  prediction; the command line writing two slots' HDF5 files, read back
+  by the trajectory and analysis tools) with jax, h5py and upside_md_tpu
+  blocked.
 """
 
 import importlib.util
@@ -272,6 +274,20 @@ diag = Upside(extras, initial_pos=torch.as_tensor(p0))
 assert diag.get_value_by_name("rotamer", "n_node")[0] == 20
 prob, seq, _ = chi1.predict_chi1_from_bundle(sys.argv[4], "cpu")
 assert prob.shape == (1, len(seq), 3)
+# the command line, its HDF5 files and the tools that read them
+import tempfile
+from upside_md_torch import analysis, cli, run
+from upside_md_torch.io import h5, logger, pdb, streams, trajectory
+with tempfile.TemporaryDirectory() as tmp:
+    assert cli.main(["--duration=0.054", "--frame-interval=0.027",
+                     "--device=cpu", "--log-level=extensive",
+                     f"--output-dir={tmp}", sys.argv[2], sys.argv[2]]) == 0
+    out = cli.output_path(tmp, sys.argv[2], 1)
+    seq, t, traj = trajectory.load_upside_traj(out)
+    assert seq is None and traj.shape == (2, len(pos), 3)
+    assert analysis.sim_timeseries(out)["potential"].shape == (2, 1)
+    with h5.File(out) as f:
+        assert "rotamer_free_energy" in f["output"]
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
 assert not bad, bad

@@ -373,7 +373,9 @@ def build_bundle(name, out_dir, lib_dir):
         add_extras(b, name, lib_dir)
     up = os.path.join(lib_dir, f"{name}.up")
     b.write(up)
-    path = export_up(up, os.path.join(out_dir, f"{name}.npz"), aux)
+    # the committed bundles carry no sequence section
+    path = export_up(up, os.path.join(out_dir, f"{name}.npz"), aux,
+                     sequence=False)
     if name in SIZES:
         got = (len(seq), rotamer_beads(path))
         if got != SIZES[name]:
@@ -415,10 +417,12 @@ def add_extras(b, name, lib_dir):
     b.add_torus_dbn(torus)
 
 
-def export_up(up, path, extra_aux=None):
+def export_up(up, path, extra_aux=None, sequence=True):
     """Convert the `.up` config `up` into the bundle `path`: the JAX
-    reader's specs, initial positions and Monte Carlo move tables, and the
-    aux sections `extra_aux` as they are."""
+    reader's specs, initial positions and Monte Carlo move tables, with
+    `sequence` the `.up`'s input/sequence (where it has one) as the aux
+    section `input` (the command line writes it to each trajectory file),
+    and the aux sections `extra_aux` as they are."""
     from upside_md_tpu.config.reader import load_system
     from upside_md_torch.config import bundle
     from upside_md_torch.convert import from_jax_specs
@@ -430,6 +434,8 @@ def export_up(up, path, extra_aux=None):
     tables = {sec: {k: v.astype(np.float32) if v.dtype.kind == "f" else v
                     for k, v in aux[sec].items()}
               for sec in AUX_SECTIONS if sec in aux}
+    if sequence and "sequence" in aux:
+        tables["input"] = {"sequence": np.asarray(aux["sequence"], "S")}
     if extra_aux:
         for sec, t in extra_aux.items():
             tables[sec] = dict(t)

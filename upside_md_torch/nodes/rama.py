@@ -15,14 +15,21 @@ def rama_to_grid(rama, n_grid):
     return (rama + math.pi) * (n_grid * (0.5 / math.pi - 1e-7))
 
 
-def _rama_map_pot(c, p, inputs, ctx):
+def rama_map_pot_per_residue(c, p, inputs, stacked=False):
+    """Per-residue map potential (B, n_res), the reference's
+    'rama_map_potential' logging stream (rama_map_pot.cpp:50-54); `stacked`
+    when the coefficients carry a leading replica axis."""
     rama = inputs[0][:, c["residue_id"]]               # (B, n_res, 2)
-    coeffs = rows(p["coeffs"], c["rama_map_id"],     # ([B,] n_res, nx, ny)
-                  "coeffs" in ctx.stacked)
-    x = rama_to_grid(rama[..., 0], coeffs.shape[-2])
+    coeffs = rows(p["coeffs"], c["rama_map_id"], stacked)
+    x = rama_to_grid(rama[..., 0], coeffs.shape[-2])   # ([B,] n_res, nx, ny)
     y = rama_to_grid(rama[..., 1], coeffs.shape[-1])
     val, _, _ = eval_periodic_bspline_2d(coeffs, x, y)
-    return val.sum(-1)
+    return val
+
+
+def _rama_map_pot(c, p, inputs, ctx):
+    return rama_map_pot_per_residue(c, p, inputs,
+                                    "coeffs" in ctx.stacked).sum(-1)
 
 
 def _no_raw_map(*args):
