@@ -34,7 +34,10 @@ checks them:
   writes (`config/extras_graph.py`; K1 fwd, K1 bwd, K2);
 * the command line and its trajectory files: `cli.main` on ubiquitin at
   64 slots and on config 4 (K1 fwd, K1 bwd, K2), through the per-node
-  streams and the numpy-only HDF5 writer.
+  streams and the numpy-only HDF5 writer;
+* `.up` configurations read without h5py (`config/reader.py`): the
+  committed ubiquitin `.up` against the bundle of the same build, and
+  `cli.main` on it at 64 slots (K1 fwd, K1 bwd, K2).
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -182,7 +185,19 @@ the bundle's seed.  Phases:
    swap sets every 10 rounds, 40 rounds (replica_index a permutation in
    every frame; swap acceptance and steps/s beside phase 7's); `[cli pda]`
    --potential-deriv-agreement on ubiquitin (its value, finite);
-11. prints the kernel table as one JSON line (launches summed over the
+11. `.up` configurations: `[up ubiquitin]` the committed
+   `ubiquitin_full_synth.up` through `reader.load_up` (host ms beside
+   `bundle.load` of the `.npz`, its HDF5 read of every dataset and its
+   float64 fits timed apart; the records equal to the bundle's, the
+   fitted coefficients within rel 1e-6; energy and force RMS of
+   `System.from_up` against `System.from_bundle` at 64 replicas, rel
+   1e-6); `[up rama]` `rama_map_pot`'s get_param on both systems (rel
+   1e-6) and set_param(get_param()) (energy rel 1e-6); `[cli up
+   ubiquitin]` `cli.main` on the `.up` at 64 slots, 60 rounds, frames
+   every 10, beside the bundle's run in the order npz, up, up, npz (K1
+   fwd, K1 bwd and K2 launched as by the bundle run; the frame-1
+   potential rel 1e-6; steps/s of each);
+12. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -279,6 +294,12 @@ PROFILE_ROUNDS = 1
 CLI_SLOTS, CLI_ROUNDS, CLI_EVERY, CLI_REX_ROUNDS = 64, 60, 10, 40
 CLI_HOST_SLOTS = 4
 CLI_APPEND_FRAMES = 300     # three flushes: one creating, two appending
+# phase 11: the committed .up of ubiquitin_full_synth's build; host calls
+# timed a load; fitted coefficients against the bundle's (one float32
+# rounding) and evaluations from the .up against the bundle's
+BUNDLE_UP = "ubiquitin_full_synth.up"
+UP_LOAD_REPS = 3
+UP_FIT_TOL, UP_EVAL_TOL = 1e-6, 1e-6
 SWEEPS_LO, SWEEPS_HI = 10, 50    # fixed sweep counts of the latency slope
 BP_TIME_REPLICAS = (64, 512)     # K2 and K6 are timed by pass at both
 ROW_TILE_REPLICAS = (64, 512)    # the row-tile kernels, by launch, at both
@@ -3094,6 +3115,262 @@ def cli_pda(path):
     return {"relative_error": rel, "seconds": seconds, "terms": terms}
 
 
+def host_ms(fn, reps):
+    """[ms of each of `reps` calls of fn()] on the host's clock, and the
+    last call's value."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times, out
+
+
+def same_records(label, got, want):
+    """A `.up`'s records (`config/reader.py`) against a bundle's: names,
+    types and args equal; Python scalars and every array that is read as
+    it is stored equal; the coefficients fitted at load time (float
+    arrays whose name is `coeffs`, `cb_coeff` or `uhb_coeff`) within rel
+    UP_FIT_TOL of their largest |value|, since `np.linalg.inv` may round
+    differently on another host.  Returns the worst fitted error."""
+    import numpy as np
+    want = {r.name: r for r in want}
+    if sorted(r.name for r in got) != sorted(want):
+        raise AssertionError(f"{label}: node names differ")
+    worst = 0.0
+    for g in got:
+        w = want[g.name]
+        if (g.type_name, g.args) != (w.type_name, w.args):
+            raise AssertionError(f"{label}: {g.name} type or args differ")
+        for part in ("consts", "params"):
+            a, b = getattr(g, part), getattr(w, part)
+            extra = set(a) - set(b)
+            if set(b) - set(a) or extra - {"raw_map"} or (
+                    extra and g.type_name != "rama_map_pot"):
+                raise AssertionError(f"{label}: {g.name} {part} keys differ")
+            for k, v in b.items():
+                x = a[k]
+                if not isinstance(v, np.ndarray):
+                    if type(x) is not type(v) or x != v:
+                        raise AssertionError(f"{label}: {g.name}/{k} differs")
+                    continue
+                if x.dtype != v.dtype or x.shape != v.shape:
+                    raise AssertionError(f"{label}: {g.name}/{k} dtype or "
+                                         "shape differs")
+                if k in ("coeffs", "cb_coeff", "uhb_coeff"):
+                    err = float(np.abs(x.astype(np.float64) - v).max()
+                                / max(np.abs(v).max(), 1e-30))
+                    worst = max(worst, err)
+                    check(f"{label}: fitted {g.name}/{k}", err, UP_FIT_TOL)
+                elif not np.array_equal(x, v):
+                    raise AssertionError(f"{label}: {g.name}/{k} differs")
+    return worst
+
+
+def up_ubiquitin(dev, up_path, npz_path):
+    """[up ubiquitin]: the committed `.up` read without h5py against the
+    committed bundle of the same build.  Host ms (UP_LOAD_REPS calls each)
+    of `reader.load_up` beside `bundle.load`, and load_up's two parts
+    timed apart: reading every dataset of the file through `io/h5.py`, and
+    the float64 spline fits it runs (the Rama maps and the Rama-dependent
+    placement).  Gates: the records as `same_records` holds them; energy
+    and force RMS of `System.from_up` against `System.from_bundle` at the
+    stored positions tiled to TIME_REPLICAS replicas, rel UP_EVAL_TOL."""
+    import numpy as np
+    import torch
+    from upside_md_torch.config import bundle, reader
+    from upside_md_torch.io import h5
+    from upside_md_torch.nodes.placement import make_rama_placement_params
+    from upside_md_torch.nodes.rama import make_rama_map_params
+    from upside_md_torch.system import System
+    label = "up ubiquitin"
+
+    def read_all():
+        arrays = {}
+        with h5.File(up_path) as f:
+            f.visititems(lambda k, o: arrays.__setitem__(k, o[()])
+                         if isinstance(o, h5.Dataset) else None)
+        return arrays
+
+    load_ms, (recs, pos, aux) = host_ms(lambda: reader.load_up(up_path),
+                                        UP_LOAD_REPS)
+    bundle_ms, (brecs, bpos) = host_ms(lambda: bundle.load(npz_path),
+                                       UP_LOAD_REPS)
+    read_ms, arrays = host_ms(read_all, UP_LOAD_REPS)
+    pot = "input/potential/"
+    fits = [(make_rama_map_params, arrays[pot + "rama_map_pot/rama_pot"]),
+            (make_rama_placement_params,
+             arrays[pot + "placement_scalar/placement_data"])]
+    fit_ms, _ = host_ms(lambda: [fn(a) for fn, a in fits], UP_LOAD_REPS)
+    fit_err = same_records(label, recs, brecs)
+    if not np.array_equal(pos, bpos):
+        raise AssertionError(f"{label}: positions differ from the bundle's")
+    n_bytes = os.path.getsize(up_path)
+    sys_u, pos_u = System.from_up(up_path, dev)
+    sys_b, pos_b = System.from_bundle(npz_path, dev)
+    x = tiled(pos_b[None], TIME_REPLICAS)
+    g_u, e_u, _ = sys_u.deriv(tiled(pos_u[None], TIME_REPLICAS))
+    g_b, e_b, _ = sys_b.deriv(x)
+    e_err = rel_err(e_u, e_b)[0]
+    f_err = ((g_u.double() - g_b.double()).pow(2).mean().sqrt()
+             / g_b.double().pow(2).mean().sqrt()).item()
+    check(f"{label}: energy, System.from_up vs from_bundle "
+          f"({TIME_REPLICAS} replicas)", e_err, UP_EVAL_TOL)
+    check(f"{label}: force RMS, System.from_up vs from_bundle", f_err,
+          UP_EVAL_TOL)
+    med = statistics.median
+    res = {"file_bytes": n_bytes, "datasets": len(arrays),
+           "load_up_ms": load_ms, "bundle_load_ms": bundle_ms,
+           "h5_read_ms": read_ms, "fit_ms": fit_ms,
+           "fit_max_rel": fit_err, "energy_rel": e_err, "force_rms_rel": f_err,
+           "aux": sorted(aux)}
+    log(f"[{label}] {os.path.basename(up_path)} ({n_bytes} bytes, "
+        f"{len(arrays)} datasets): load_up {med(load_ms):.1f} ms (median "
+        f"of {UP_LOAD_REPS}; {min(load_ms):.1f}-{max(load_ms):.1f}) = HDF5 "
+        f"read of every dataset {med(read_ms):.1f} ms + the float64 fits "
+        f"{med(fit_ms):.1f} ms (Rama maps and Rama placement, timed "
+        f"apart) + the rest; bundle.load of the .npz {med(bundle_ms):.1f} "
+        f"ms; fitted coefficients vs the bundle's max rel {fit_err:.2e}, "
+        f"every other array equal; energy rel {e_err:.2e}, force RMS rel "
+        f"{f_err:.2e} at {TIME_REPLICAS} replicas; aux {sorted(aux)}")
+    return res, sys_u, sys_b, pos_b
+
+
+def cli_up(dev, up_path, npz_path):
+    """[cli up ubiquitin]: `cli.main` on the committed `.up` at CLI_SLOTS
+    slots, CLI_ROUNDS rounds, frames every CLI_EVERY, beside the same run
+    from the bundle, in the order bundle, .up, .up, bundle; launch counts
+    set to 0 just before each run and read just after.  Gates: K1 fwd, K1
+    bwd and K2 launched as often by each `.up` run as by the bundle runs,
+    over as many evaluations; the logged potential at frame 1 equal to the
+    bundle run's within rel UP_EVAL_TOL.  Prints steps/s of each run (the
+    loop, and to the last file's close), `cli.main`'s whole wall time, the
+    `.up`'s load included, and for each later run the logged datasets not
+    bitwise equal to the first bundle run's."""
+    import tempfile
+    import numpy as np
+    from upside_md_torch import cli
+    from upside_md_torch.ops import kernels
+    label = "cli up ubiquitin"
+    n = CLI_SLOTS
+    runs = {"npz": [], "up": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (kind, path) in enumerate((("npz", npz_path), ("up", up_path),
+                                          ("up", up_path),
+                                          ("npz", npz_path))):
+            out_dir = os.path.join(tmp, f"run{k}")
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            with _Recorded() as rec:
+                rc = cli.main(cli_flags(CLI_ROUNDS, CLI_EVERY, [1.0] * n,
+                                        out_dir) + [path] * n)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"{label}: main returned {rc} on {path}")
+            state, out = rec.runs[0]
+            frames = read_frames([cli.output_path(out_dir, path, i)
+                                  for i in range(n)])
+            steps = 3 * CLI_ROUNDS * n
+            runs[kind].append({
+                "loop_steps_per_s": steps / out["seconds"],
+                "steps_per_s_with_files":
+                    steps / (max(rec.close_t) - rec.run_t[0][0]),
+                "main_wall_s": wall,
+                "evaluations": state.n_evals + out["n_energy_evals"],
+                "launches": launches, "frames": frames})
+    first = runs["npz"][0]
+    for r in runs["up"] + runs["npz"][1:]:
+        for nm in FUSED_KERNELS:
+            if r["launches"][nm] <= 0 or r["launches"][nm] != \
+                    first["launches"][nm]:
+                raise AssertionError(f"{label}: {nm} launched "
+                                     f"{r['launches'][nm]} times, the "
+                                     f"bundle run {first['launches'][nm]}")
+        if r["evaluations"] != first["evaluations"]:
+            raise AssertionError(f"{label}: {r['evaluations']} evaluations, "
+                                 f"the bundle run {first['evaluations']}")
+    want = first["frames"]["potential"][:, 0]
+    pot_err = max(float(np.max(np.abs(r["frames"]["potential"][:, 0] - want)
+                               / np.abs(want))) for r in runs["up"])
+    check(f"{label}: logged potential at frame 1, .up vs bundle ({n} "
+          "slots)", pot_err, UP_EVAL_TOL)
+    # every logged dataset of a run against the first bundle run's: the
+    # names of those not bitwise equal, and the last frame's largest
+    # position difference; the second bundle run shows the card's own
+    # run-to-run spread
+    def deviation(r):
+        return (sorted(k for k in first["frames"]
+                       if not np.array_equal(r["frames"][k],
+                                             first["frames"][k])),
+                float(np.abs(r["frames"]["pos"][:, -1]
+                             - first["frames"]["pos"][:, -1]).max()))
+    same = {kind: [deviation(r) for r in runs[kind][kind == "npz":]]
+            for kind in runs}
+    evals = first["evaluations"]
+    per_eval = {nm: first["launches"][nm] / evals for nm in FUSED_KERNELS}
+    res = {kind: [{k: v for k, v in r.items() if k != "frames"} for r in rs]
+           for kind, rs in runs.items()}
+    res.update(potential_rel=pot_err, frames_vs_first_bundle_run=same,
+               launches_per_eval=per_eval)
+    fmt = ", ".join
+    log(f"[{label}] {n} slots, {CLI_ROUNDS} rounds, frames every "
+        f"{CLI_EVERY}, order npz, up, up, npz: loop steps/s .up "
+        + fmt(f"{r['loop_steps_per_s']:.1f}" for r in runs["up"])
+        + " / .npz " + fmt(f"{r['loop_steps_per_s']:.1f}"
+                           for r in runs["npz"])
+        + "; to the last file's close .up "
+        + fmt(f"{r['steps_per_s_with_files']:.1f}" for r in runs["up"])
+        + " / .npz " + fmt(f"{r['steps_per_s_with_files']:.1f}"
+                           for r in runs["npz"])
+        + "; cli.main wall .up "
+        + fmt(f"{r['main_wall_s']:.2f} s" for r in runs["up"])
+        + " / .npz " + fmt(f"{r['main_wall_s']:.2f} s" for r in runs["npz"]))
+    log(f"[{label}] launches per evaluation {per_eval} in each run "
+        f"({evals} evaluations); frame-1 potential rel {pot_err:.2e}; "
+        "against the first bundle run, the logged datasets not bitwise "
+        "equal and the last frame's largest position difference (A): .up "
+        + fmt(f"{names} {d:.3e}" for names, d in same["up"])
+        + ", the second .npz run "
+        + fmt(f"{names} {d:.3e}" for names, d in same["npz"]))
+    return res, runs["up"][0]["launches"]
+
+
+def up_rama(sys_u, sys_b, pos):
+    """[up rama]: `rama_map_pot`'s get_param on the `.up` system (its
+    float64 raw map) against the bundle system (the knot values of its
+    coefficients), rel UP_EVAL_TOL of the largest |value|; then on each
+    system set_param(get_param()) must leave the energy at the stored
+    positions within rel UP_EVAL_TOL."""
+    import numpy as np
+    from upside_md_torch.engine import Upside
+    label, node = "up rama", "rama_map_pot"
+    eng_u = Upside(sys_u, initial_pos=pos)
+    eng_b = Upside(sys_b, initial_pos=pos)
+    raw_u, raw_b = eng_u.get_param(node), eng_b.get_param(node)
+    if raw_u.dtype != np.float64 or raw_u.shape != raw_b.shape:
+        raise AssertionError(f"{label}: get_param gave {raw_u.dtype} "
+                             f"{raw_u.shape}, {raw_b.shape}")
+    map_err = float(np.abs(raw_u - raw_b).max() / np.abs(raw_u).max())
+    check(f"{label}: get_param, .up raw map vs the bundle's knot values",
+          map_err, UP_EVAL_TOL)
+    x = pos.cpu().numpy()
+    res = {"map_rel": map_err, "map_values": int(raw_u.size)}
+    for kind, eng in (("up", eng_u), ("bundle", eng_b)):
+        e0 = eng.energy(x)
+        eng.set_param(eng.get_param(node), node)
+        e1 = eng.energy(x)
+        err = abs(e1 - e0) / abs(e0)
+        check(f"{label}: energy after set_param(get_param()), {kind}", err,
+              UP_EVAL_TOL)
+        res[f"{kind}_energy_rel"] = err
+    log(f"[{label}] get_param: {raw_u.size} float64 values, .up vs bundle "
+        f"max rel {map_err:.2e}; set_param(get_param()) energy rel "
+        f"{res['up_energy_rel']:.2e} (.up), {res['bundle_energy_rel']:.2e} "
+        "(bundle)")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--out", default=None)
@@ -3251,6 +3528,19 @@ def main():
     cli_res["seconds"] = time.perf_counter() - t0
     log(f"[cli] phase 10 took {cli_res['seconds']:.1f} s")
     results["phases"]["cli"] = cli_res
+
+    # ---- 11. .up configurations read without h5py
+    t0 = time.perf_counter()
+    up_path = os.path.join(DATA_DIR, BUNDLE_UP)
+    up_res = {}
+    up_res["load"], sys_u, sys_b, pos_b = up_ubiquitin(dev, up_path,
+                                                       fused_path)
+    up_res["rama"] = up_rama(sys_u, sys_b, pos_b)
+    del sys_u, sys_b
+    up_res["cli"], launches_up = cli_up(dev, up_path, fused_path)
+    up_res["seconds"] = time.perf_counter() - t0
+    log(f"[up] phase 11 took {up_res['seconds']:.1f} s")
+    results["phases"]["up"] = up_res
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
@@ -3260,12 +3550,13 @@ def main():
                 "chi1 ubiquitin": launches_chi1,
                 "md extras trp_cage": launches_x,
                 "cli ubiquitin": launches_cli,
-                "cli rex cytochrome_c": launches_cli_rex}
+                "cli rex cytochrome_c": launches_cli_rex,
+                "cli up ubiquitin": launches_up}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 11. report
+    # ---- 12. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

@@ -13,7 +13,7 @@ tests/test_cli_and_analysis.py builds one and exported to a bundle with
 * `main` and a bare `run_ensemble` of the same seed and schedule reach
   bitwise-equal final positions and potentials;
 * --set-param (a file written by h5py) gives the JAX engine's parameters,
-  and raises NotImplementedError for `rama_map_pot`;
+  `rama_map_pot`'s refitted coefficients too;
 * --potential-deriv-agreement prints the JAX package's per-term energies,
   and an error below 1e-2;
 * --initial-structures recycles structures as the JAX package does;
@@ -185,10 +185,14 @@ def test_set_param_gives_jax_parameters(runs, tmp_path):
             np.testing.assert_allclose(
                 params[name][k].numpy(), np.asarray(want, np.float32),
                 rtol=1e-6, err_msg=f"{name}/{k}")
+    # the bundle has no raw Rama map; the hook refits the new one as JAX's
     with h5py.File(path, "w") as f:
-        f["rama_map_pot"] = np.zeros(9 * 12 * 12)
-    with pytest.raises(NotImplementedError, match="raw Rama map"):
-        cli.load_ensemble(args)
+        f["rama_map_pot"] = 0.5 * eng.get_param("rama_map_pot")
+        eng.set_param(f["rama_map_pot"][()], "rama_map_pot")
+    _, params, _, _, _ = cli.load_ensemble(args)
+    np.testing.assert_array_equal(
+        params["rama_map_pot"]["coeffs"].numpy(),
+        np.asarray(eng.params["rama_map_pot"]["coeffs"]))
 
 
 def test_potential_deriv_agreement_matches_jax(runs, tmp_path, capsys):

@@ -145,8 +145,20 @@ def test_sens_outputs_and_param_roundtrip(engines):
         assert tu.energy(P) != e0, node
         tu.set_param(flat, node)
         assert abs(tu.energy(P) - e0) <= 1e-6 * abs(e0), node
-    with pytest.raises(NotImplementedError, match="raw Rama map"):
-        tu.get_param("rama_map_pot")
+    # a bundle has no raw Rama map: get_param rebuilds it from the
+    # coefficients, and set_param refits it as the JAX hook does
+    saved = dict(tu.params["rama_map_pot"]), dict(ju.params["rama_map_pot"])
+    raw = tu.get_param("rama_map_pot")
+    e0 = tu.energy(P)
+    tu.set_param(raw, "rama_map_pot")
+    ju.set_param(raw, "rama_map_pot")
+    np.testing.assert_array_equal(
+        tu.params["rama_map_pot"]["coeffs"].numpy(),
+        np.asarray(ju.params["rama_map_pot"]["coeffs"], np.float64))
+    np.testing.assert_array_equal(tu.get_param("rama_map_pot"),
+                                  ju.get_param("rama_map_pot"))
+    assert abs(tu.energy(P) - e0) <= 1e-6 * abs(e0)
+    tu.params["rama_map_pot"], ju.params["rama_map_pot"] = saved
     with pytest.raises(ValueError, match="bad param size"):
         tu.set_param(np.zeros(3), "dist_spring")
 

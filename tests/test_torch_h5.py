@@ -14,8 +14,10 @@ against h5py, the library the JAX package writes and reads through:
   chunked datasets with partial edge chunks, strings, scalar,
   variable-length string and numeric attributes) exactly as h5py does,
   in h5py's `visititems` order;
-* it refuses, naming the feature, a gzip dataset, a file written with
-  libver="latest" and a variable-length dataset.
+* it refuses, naming the feature, a gzip dataset whose filter pipeline
+  also holds scaleoffset (gzip, shuffle and fletcher32 it reads:
+  tests/test_torch_reader.py), a file written with libver="latest" and a
+  variable-length dataset.
 """
 
 import os
@@ -159,12 +161,13 @@ def test_reader_refuses_what_it_does_not_read(tmp_path, case):
         return
     with h5py.File(path, "w") as f:
         if case == "gzip":
-            f.create_dataset("x", data=np.arange(100.0), compression="gzip")
+            f.create_dataset("x", data=np.arange(100.0), compression="gzip",
+                             scaleoffset=2)
         else:
             f.create_dataset("x", data=np.array(["a", "bc"], dtype=object),
                              dtype=h5py.string_dtype())
     with h5.File(path) as g:
         with pytest.raises(h5.UnsupportedFeature,
-                           match="gzip" if case == "gzip"
+                           match="scaleoffset" if case == "gzip"
                            else "variable-length"):
             g["x"]

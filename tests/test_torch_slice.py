@@ -15,7 +15,9 @@ bundle, plus the bundle pin and the import isolation of the port.
   modules, one parameter derivative; the extras slice's node modules, the
   hand-built graph on the extras bundle, a diagnostics channel and a chi1
   prediction; the command line writing two slots' HDF5 files, read back
-  by the trajectory and analysis tools) with jax, h5py and upside_md_tpu
+  by the trajectory and analysis tools; the committed ubiquitin `.up`
+  read by `config.load` and the engine, and `rama_map_pot`'s
+  get_param/set_param round trip on it) with jax, h5py and upside_md_tpu
   blocked.
 """
 
@@ -288,6 +290,18 @@ with tempfile.TemporaryDirectory() as tmp:
     assert analysis.sim_timeseries(out)["potential"].shape == (2, 1)
     with h5.File(out) as f:
         assert "rotamer_free_energy" in f["output"]
+# a .up configuration read without h5py, and rama_map_pot's hooks on it
+import os
+from upside_md_torch import config
+from upside_md_torch.chi1 import Chi1Predict
+from upside_md_torch.config import reader
+up = os.path.join(upside_md_torch.DATA_DIR, "ubiquitin_full_synth.up")
+assert len(config.load(up)[0]) == 20
+eng = Upside(up, device="cpu")
+raw = eng.get_param("rama_map_pot")
+e0 = eng.energy(eng._pos.numpy())
+eng.set_param(raw, "rama_map_pot")
+assert abs(eng.energy(eng._pos.numpy()) - e0) <= 1e-5 * abs(e0)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
 assert not bad, bad

@@ -47,11 +47,16 @@ libraries are synthetic, made from a numpy seed in the real layout:
 Run from the repository root (needs jax and h5py):
 
     python tools/export_torch_bundle.py [--out DIR] [--only NAME ...]
+        [--keep-up]
     python tools/export_torch_bundle.py --up CONFIG.up [--name NAME] [--out DIR]
 
 The second form converts a `.up` config the user wrote (any system the
 JAX reader loads) into `NAME.npz`, the same chain the synthetic systems
 take: `load_system` -> `convert.from_jax_specs` -> `bundle.save`.
+`--keep-up` keeps each built system's `.up` beside its bundle as
+`NAME.up` (the committed `ubiquitin_full_synth.up` is that file of the
+build that wrote the committed bundle; the port reads it with
+`upside_md_torch/config/reader.py`, no h5py or jax needed).
 
 The first form writes `ubiquitin_full_synth.npz` (76 residues),
 `trp_cage_full_synth.npz` (20 residues), `rnase_a_full_synth.npz`
@@ -90,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import sys
 import tempfile
 
@@ -149,8 +155,6 @@ COMMITTED = ("ubiquitin_full_synth", "trp_cage_full_synth",
              "cytochrome_c_full_synth", "t4_lysozyme_full_synth",
              "gfp_full_synth", "ubiquitin_radial_synth",
              "ubiquitin_chi1_synth", "trp_cage_extras_synth")
-# the aux sections a bundle carries (config/reader.py:367-370)
-AUX_SECTIONS = ("pivot_moves", "jump_moves")
 # the seed of the libraries the older bundles do not read
 EXTRA_LIB_SEED = 2025
 MEMBRANE_THICKNESS = 30.0
@@ -328,8 +332,9 @@ def smooth_rama_maps(n_res, rng, n_grid=72):
     return maps
 
 
-def build_bundle(name, out_dir, lib_dir):
-    """Build one system the way build_full_system does; write its bundle."""
+def build_bundle(name, out_dir, lib_dir, keep_up=False):
+    """Build one system the way build_full_system does; write its bundle,
+    and with `keep_up` the `.up` it was exported from beside it."""
     from upside_md_tpu import bench_systems
     from upside_md_tpu.config.builder import ConfigBuilder
 
@@ -373,6 +378,8 @@ def build_bundle(name, out_dir, lib_dir):
         add_extras(b, name, lib_dir)
     up = os.path.join(lib_dir, f"{name}.up")
     b.write(up)
+    if keep_up:
+        shutil.copyfile(up, os.path.join(out_dir, f"{name}.up"))
     # the committed bundles carry no sequence section
     path = export_up(up, os.path.join(out_dir, f"{name}.npz"), aux,
                      sequence=False)
@@ -425,6 +432,7 @@ def export_up(up, path, extra_aux=None, sequence=True):
     and the aux sections `extra_aux` as they are."""
     from upside_md_tpu.config.reader import load_system
     from upside_md_torch.config import bundle
+    from upside_md_torch.config.reader import AUX_SECTIONS
     from upside_md_torch.convert import from_jax_specs
 
     system, _, pos, aux = load_system(up)
@@ -461,6 +469,9 @@ def main(argv=None):
                     "synthetic systems")
     ap.add_argument("--name", help="bundle name of --up (default: the "
                     ".up file's name)")
+    ap.add_argument("--keep-up", action="store_true",
+                    help="also write each built system's .up beside its "
+                    "bundle (NAME.up)")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     if args.up:
@@ -472,7 +483,7 @@ def main(argv=None):
         return
     with tempfile.TemporaryDirectory() as lib_dir:
         for name in args.only or COMMITTED:
-            path = build_bundle(name, args.out, lib_dir)
+            path = build_bundle(name, args.out, lib_dir, args.keep_up)
             print(f"{path}: {os.path.getsize(path)} bytes")
 
 

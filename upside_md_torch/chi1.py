@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .config import bundle
+from .io import h5
 from .system import System
 
 deg = np.pi / 180.0
@@ -56,6 +57,15 @@ class Chi1Predict:
     def from_aux(cls, aux):
         """From a bundle's `chi1` aux section."""
         return cls(aux["restype_order"], aux["restype_and_chi_and_state"])
+
+    @classmethod
+    def from_library(cls, path):
+        """From a sidechain library's HDF5 file, read without h5py, as the
+        JAX package's `Chi1Predictor(sidechain_file)` reads it
+        (chi1.py:35-56)."""
+        with h5.File(path) as f:
+            return cls(f["restype_order"][()],
+                       f["restype_and_chi_and_state"][()])
 
     def bead_bins(self, seq, residue):
         """Each bead's chi1 bin, its library state being its rank within

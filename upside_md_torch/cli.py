@@ -1,7 +1,7 @@
 """The `upside` command line (port of upside_md_tpu/cli.py; reference
 src/main.cpp:317-752).
 
-    python -m upside_md_torch.cli A.npz [B.npz ...] --duration T
+    python -m upside_md_torch.cli A.up|A.npz [B.up|B.npz ...] --duration T
         --frame-interval F [--temperature 0.8,0.9,...]
         [--replica-interval R --swap-set 0-1,2-3 ...]
         [--monte-carlo-interval M] [--anneal-factor A]
@@ -11,19 +11,23 @@ src/main.cpp:317-752).
 
 The JAX command line's flags and run semantics: durations and intervals
 in simulation time become whole rounds of 3 dt, one temperature a slot,
-sqrt-space annealing, pivot and jump MC from the bundle's aux tables,
-Hamiltonian or temperature replica exchange over swap sets, per-frame
-logging at the chosen level and the closing throughput, equipartition
-and acceptance report.  Every bundle named is one replica slot; a bundle
-named several times is loaded once, and slots whose parameters differ run
-as a Hamiltonian ensemble (`md.sim.stack_param_ensembles`).  The run is on
-the card unless `--device cpu`.
+sqrt-space annealing, pivot and jump MC from the first configuration's
+move tables, Hamiltonian or temperature replica exchange over swap sets,
+per-frame logging at the chosen level and the closing throughput,
+equipartition and acceptance report.  A configuration is a `.up` file
+(read by `config/reader.py`, no h5py needed) or a spec bundle (`.npz`),
+mixed as the user likes; every configuration named is one replica slot, a
+configuration named several times is loaded once, and slots whose
+parameters differ run as a Hamiltonian ensemble
+(`md.sim.stack_param_ensembles`).  The run is on the card unless
+`--device cpu`.
 
-One difference: the bundles are read-only `.npz` files, so each slot's
-frames go to a file of its own, `<output dir>/<bundle stem>_<slot>.h5`
-(`io/logger.py`), where the JAX command line writes into the `.up`
-configuration's /output.  The files are HDF5 written by `io/h5.py`, with
-the JAX logger's /output datasets, and need no h5py.
+One difference: each slot's frames go to a file of its own,
+`<output dir>/<config stem>_<slot>.h5` (`io/logger.py`), with the
+configuration's sequence in /input where it has one, where the JAX
+command line writes into the `.up` configuration's /output; the port
+never writes to a configuration.  The files are HDF5 written by
+`io/h5.py`, with the JAX logger's /output datasets, and need no h5py.
 
 `run_ensemble` is the loop: it advances the ensemble to each frame or
 exchange round, recentres and evaluates the frame's potential, streams
@@ -46,7 +50,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from .config import bundle
+from .config import load
 from .io.logger import LOG_LEVELS, H5Logger
 from .io.streams import make_frame_fn
 from .md.mc import JumpSampler, PivotSampler
@@ -247,7 +251,8 @@ def recycle_structures(path, n_replica, n_atom):
 
 
 def output_path(output_dir, config, slot):
-    """The frame file of replica slot `slot` run from bundle `config`."""
+    """The frame file of replica slot `slot` run from configuration
+    `config`."""
     stem = os.path.splitext(os.path.basename(config))[0]
     return os.path.join(output_dir, f"{stem}_{slot}.h5")
 
@@ -292,32 +297,44 @@ def parser():
     p.add_argument("--initial-structures", default="",
                    help="pickle of one or more (n_atom, 3) structures; "
                         "recycled over the replica slots, overriding the "
-                        "bundles' stored positions")
+                        "configurations' stored positions")
     p.add_argument("--output-dir", default=".",
                    help="directory of the per-slot frame files "
-                        "<bundle stem>_<slot>.h5")
+                        "<config stem>_<slot>.h5")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cpu: every kernel's "
                         "plain version)")
-    p.add_argument("configs", nargs="+", help=".npz spec bundles")
+    p.add_argument("configs", nargs="+",
+                   help=".up configurations or .npz spec bundles, one a "
+                        "replica slot")
     return p
 
 
-def load_ensemble(args):
+def load_configs(configs, device):
+    """{path: (System, initial positions (n_atom, 3) tensor, aux)}, each
+    distinct configuration (`.up` or `.npz`) loaded once."""
+    out = {}
+    for c in dict.fromkeys(configs):
+        records, pos, aux = load(c)
+        out[c] = System.from_records(records, pos, device) + (aux,)
+    return out
+
+
+def load_ensemble(args, loaded=None):
     """The slots' system, parameters (stacked where they differ: the
     Hamiltonian ensemble), stacked leaves, initial positions (B, n_atom,
-    3) and slot 0's own parameters, from the parsed command line: each
-    bundle loaded once, --initial-structures and --set-param applied
-    (cli.py:124-164)."""
-    loaded = {c: System.from_bundle(c, device=args.device)
-              for c in dict.fromkeys(args.configs)}
+    3) and slot 0's own parameters, from the parsed command line and
+    `load_configs`' result (loaded here when not given):
+    --initial-structures and --set-param applied (cli.py:124-164)."""
+    if loaded is None:
+        loaded = load_configs(args.configs, args.device)
     system = loaded[args.configs[0]][0]
     pos = torch.stack([loaded[c][1] for c in args.configs])
     if args.initial_structures:
         pos = torch.as_tensor(recycle_structures(
             args.initial_structures, len(args.configs), pos.shape[1]),
             dtype=system.dtype, device=system.device)
-    distinct = [s for s, _ in loaded.values()]
+    distinct = [s for s, _, _ in loaded.values()]
     hamiltonian = any(not _params_equal(system.params, s.params)
                       for s in distinct[1:])
     if args.set_param:
@@ -365,9 +382,10 @@ def main(argv=None):
         temps = temps * n_sys
     if len(temps) != n_sys:
         sys.exit(f"got {len(temps)} temperatures for {n_sys} systems")
-    system, params, spec, pos, p_first = load_ensemble(args)
+    loaded = load_configs(args.configs, args.device)
+    system, params, spec, pos, p_first = load_ensemble(args, loaded)
 
-    aux = bundle.load_aux(args.configs[0])
+    aux = loaded[args.configs[0]][2]
     pivot = jump = None
     if args.monte_carlo_interval > 0 and "pivot_moves" in aux:
         pm = aux["pivot_moves"]
@@ -417,7 +435,7 @@ def main(argv=None):
     pos_np = pos.cpu().numpy()
     loggers = []
     for i, c in enumerate(args.configs):
-        seq = bundle.load_aux(c).get("input", {}).get("sequence")
+        seq = loaded[c][2].get("input", {}).get("sequence")
         loggers.append(H5Logger(output_path(args.output_dir, c, i),
                                 invocation=invocation, input_pos=pos_np[i],
                                 sequence=seq))

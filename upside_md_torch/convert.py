@@ -18,8 +18,9 @@ import torch
 from .config.bundle import SpecRecord
 
 # entries the port's main path never reads: the raw Rama map only serves
-# get_param/set_param, the rotamer one-hots are rebuilt from `res`/`rot`,
-# and the bead-type names are strings the graph does not use
+# get_param/set_param, which rebuild it from the coefficients without it,
+# the rotamer one-hots are rebuilt from `res`/`rot`, and the bead-type
+# names are strings the graph does not use
 DROPPED = {
     "rama_map_pot": {"raw_map"},
     "rotamer": {"onehot", "onehot_res"},

@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .config import load
 from .nodes.base import type_pairs
 from .nodes.rotamer import rotamer_1body_energy, rotamer_diagnostics
 from .ops.pairs import quadspline_family, sequence_exclusion_mask
@@ -38,18 +39,22 @@ class Upside:
 
     Stateful like the reference: `energy(pos)` and `deriv(pos)` keep pos, so
     that later get_output / get_sens / get_param_deriv refer to the same
-    configuration (upside_engine.py:172-242).  `system_or_bundle_path` is a
-    `System` or the path of a spec bundle; a bundle's System runs on
-    `device` (the card unless the caller asks for the CPU)."""
+    configuration (upside_engine.py:172-242).  `system_or_config_path` is
+    a `System`, or the path of a `.up` configuration or a spec bundle
+    (`config.load`), whose System runs on `device` (the card unless the
+    caller asks for the CPU) and whose aux tables (Monte Carlo moves,
+    sequence) stay in `aux`, as the JAX engine keeps its reader's."""
 
-    def __init__(self, system_or_bundle_path, params=None, initial_pos=None,
+    def __init__(self, system_or_config_path, params=None, initial_pos=None,
                  device="cuda", dtype=torch.float32):
-        if isinstance(system_or_bundle_path, System):
-            self.system = system_or_bundle_path
+        self.aux = {}
+        if isinstance(system_or_config_path, System):
+            self.system = system_or_config_path
             self._pos = initial_pos
         else:
-            self.system, self._pos = System.from_bundle(
-                system_or_bundle_path, device, dtype)
+            records, pos, self.aux = load(system_or_config_path)
+            self.system, self._pos = System.from_records(records, pos,
+                                                         device, dtype)
         if params is not None:
             self.system.params = params
         self.n_atom = self.system.n_atom

@@ -16,11 +16,14 @@ levels, the ones h5py writes by default (`libver="earliest"`):
   with a version 1 B-tree of type 1) and attribute (versions 1-3).
 
 The reader reads all of that, which covers the writer's files and what
-h5py writes by default.  Anything else (a filter such as gzip, an
-external file, a shared or committed datatype, variable-length data in a
-dataset, new-style groups, a superblock above version 0 or a version 2
-object header) raises `UnsupportedFeature`, whose message names the
-feature: the reader never returns data it did not understand.
+h5py writes by default, and chunks filtered by deflate (gzip, through the
+standard library's zlib), shuffle and fletcher32 (the checksum is
+verified; a mismatch raises), each chunk's filter mask honoured.
+Anything else (another filter such as szip, an external file, a shared or
+committed datatype, variable-length data in a dataset, new-style groups,
+a superblock above version 0 or a version 2 object header) raises
+`UnsupportedFeature`, whose message names the feature: the reader never
+returns data it did not understand.
 
 The writer (`Writer`) makes groups, fixed-size contiguous datasets,
 extensible datasets (unlimited first axis, chunked along it only) and
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import os
 import struct
+import zlib
 
 import numpy as np
 
@@ -56,8 +60,10 @@ CONTINUATION, SYMBOL_TABLE = 16, 17
 TYPE_CLASSES = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound",
                 7: "reference", 8: "enumeration", 9: "variable-length",
                 10: "array"}
-FILTER_NAMES = {1: "gzip (deflate)", 2: "shuffle", 3: "fletcher32",
-                4: "szip", 5: "nbit", 6: "scaleoffset"}
+DEFLATE, SHUFFLE, FLETCHER32 = 1, 2, 3       # the filters the reader undoes
+FILTER_NAMES = {DEFLATE: "gzip (deflate)", SHUFFLE: "shuffle",
+                FLETCHER32: "fletcher32", 4: "szip", 5: "nbit",
+                6: "scaleoffset", 32000: "lzf"}
 
 
 class UnsupportedFeature(ValueError):
@@ -209,10 +215,84 @@ def _fill(msgs):
     return None
 
 
-def _filter_name(data):
-    """The first filter of a filter pipeline message, by name."""
-    fid = struct.unpack_from("<H", data, 8 if data[0] == 1 else 2)[0]
-    return FILTER_NAMES.get(fid, f"filter {fid}")
+def _filters(data, where):
+    """[(filter id, client data)] of a filter pipeline message (versions 1
+    and 2), in the order the writer applied them.  A filter the reader
+    cannot undo raises `UnsupportedFeature` with its name."""
+    version, n = data[0], data[1]
+    if version not in (1, 2):
+        raise UnsupportedFeature(f"{where}: filter pipeline message version "
+                                 f"{version}")
+    p, out = 8 if version == 1 else 2, []
+    for _ in range(n):
+        fid = struct.unpack_from("<H", data, p)[0]
+        p += 2
+        name_len = 0
+        if version == 1 or fid >= 256:
+            name_len = struct.unpack_from("<H", data, p)[0]
+            p += 2
+        nvals = struct.unpack_from("<HH", data, p)[1]
+        p += 4 + (_pad8(name_len) if version == 1 else name_len)
+        vals = struct.unpack_from(f"<{nvals}I", data, p)
+        p += 4 * nvals + (4 if version == 1 and nvals % 2 else 0)
+        if fid not in (DEFLATE, SHUFFLE, FLETCHER32):
+            raise UnsupportedFeature(
+                f"{where}: the filter {FILTER_NAMES.get(fid, f'filter {fid}')}")
+        out.append((fid, vals))
+    return out
+
+
+def _unshuffle(buf, size):
+    """Undo the shuffle filter: byte k of every element was stored in plane
+    k; bytes past the last whole element stay as they are."""
+    n = len(buf) // size
+    a = np.frombuffer(buf, np.uint8)
+    return a[:n * size].reshape(size, n).T.tobytes() + bytes(a[n * size:])
+
+
+def _fletcher32(buf):
+    """The HDF5 library's Fletcher-32 of `buf` (H5_checksum_fletcher32):
+    big-endian 16-bit words summed in blocks of 360, each sum folded to 16
+    bits after a block."""
+    words = np.frombuffer(buf, ">u2", len(buf) // 2).astype(np.int64)
+    blocks = -(-len(words) // 360)
+    w = np.zeros(blocks * 360, np.int64)
+    w[:len(words)] = words
+    w = w.reshape(blocks, 360)
+    lengths = [360] * blocks
+    if blocks and len(words) % 360:
+        lengths[-1] = len(words) % 360
+    sums = w.sum(1).tolist()
+    # a block's words in reverse rank: word k adds to t - k running sums
+    ranked = (w * np.arange(360, 0, -1)).sum(1).tolist()
+    s1 = s2 = 0
+    for t, b1, b2 in zip(lengths, sums, ranked):
+        s2 += t * s1 + b2 - (360 - t) * b1
+        s1 += b1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    if len(buf) % 2:
+        s1 += buf[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    s1 = (s1 & 0xFFFF) + (s1 >> 16)
+    s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    return ((s2 << 16) | s1) & 0xFFFFFFFF
+
+
+def _check_fletcher32(buf, where):
+    """`buf` without its trailing checksum, which must equal the data's
+    Fletcher-32 (or its 16-bit byte-swapped form, which the library also
+    accepts for files of its releases before 1.6.3)."""
+    stored = struct.unpack_from("<I", buf, len(buf) - 4)[0]
+    data = buf[:-4]
+    f = _fletcher32(data)
+    swapped = ((f & 0x00FF00FF) << 8) | ((f >> 8) & 0x00FF00FF)
+    if stored not in (f, swapped):
+        raise ValueError(f"{where}: Fletcher-32 checksum mismatch (stored "
+                         f"{stored:#010x}, computed {f:#010x})")
+    return data
 
 
 def _attribute(src, data, where):
@@ -368,9 +448,8 @@ class Dataset(_Node):
         by = {}
         for t, _, d in msgs:
             by.setdefault(t, d)
-        if FILTERS in by:
-            raise UnsupportedFeature(f"{name}: the filter "
-                                     f"{_filter_name(by[FILTERS])}")
+        self._filters = _filters(by[FILTERS], name) if FILTERS in by \
+            else []
         if EXTERNAL in by:
             raise UnsupportedFeature(f"{name}: external data files")
         self.shape, self.maxshape = _dataspace(by[DATASPACE])
@@ -437,13 +516,37 @@ class Dataset(_Node):
             if level:
                 self._chunks(child, out)
                 continue
-            if size != csize or mask:
-                raise UnsupportedFeature(f"{self.name}: filtered chunks")
-            chunk = np.frombuffer(self._src.read(child, csize),
-                                  self.dtype).reshape(c)
+            raw = self._src.read(child, size)
+            if self._filters:
+                raw = self._unfilter(raw, mask, offs)
+            elif mask:
+                raise ValueError(f"{self.name}: a filter mask without a "
+                                 "filter pipeline")
+            if len(raw) != csize:
+                raise ValueError(f"{self.name}: a chunk of {len(raw)} bytes, "
+                                 f"expected {csize}")
+            chunk = np.frombuffer(raw, self.dtype).reshape(c)
             dst = tuple(slice(o, min(o + k, s))
                         for o, k, s in zip(offs, c, self.shape))
             out[dst] = chunk[tuple(slice(0, d.stop - d.start) for d in dst)]
+
+    def _unfilter(self, raw, mask, offs):
+        """A stored chunk's bytes with the pipeline undone, last filter
+        first; bit i of the chunk's filter mask set means filter i was
+        skipped for it."""
+        where = f"{self.name} chunk at {offs[:-1]}"
+        for i in reversed(range(len(self._filters))):
+            if mask >> i & 1:
+                continue
+            fid, vals = self._filters[i]
+            if fid == DEFLATE:
+                raw = zlib.decompress(raw)
+            elif fid == SHUFFLE:
+                raw = _unshuffle(raw, vals[0] if vals
+                                 else self.dtype.itemsize)
+            else:
+                raw = _check_fletcher32(raw, where)
+        return raw
 
     def __getitem__(self, idx):
         if self._value is None:

@@ -11,10 +11,11 @@ the same output and cotangent path the burial coupling reads.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.sigmoid import compact_sigmoid
-from ..ops.spline import eval_clamped_interp
+from ..ops.spline import eval_clamped_interp, fit_clamped_interp_bspline
 from .base import register_node, rows
 
 
@@ -37,6 +38,14 @@ def _membrane_potential(c, p, inputs, ctx):
     uhb_en, _ = eval_clamped_interp(
         rows(p["uhb_coeff"], layer, "uhb_coeff" in ctx.stacked), uhb_coord)
     return pot + (uhb_en * (1.0 - hbond[..., 6]) ** 2).sum(-1)
+
+
+def make_membrane_params(cb_energy, uhb_energy):
+    """The raw cb and uhb z-profiles -> their clamped interpolating fits
+    in float32 (fitted in float64, membrane.py:43-53)."""
+    return {name: fit_clamped_interp_bspline(
+        np.asarray(raw, np.float64)).astype(np.float32)
+        for name, raw in (("cb_coeff", cb_energy), ("uhb_coeff", uhb_energy))}
 
 
 membrane_potential = register_node("membrane_potential", True,

@@ -8,10 +8,11 @@ periodic 2-D spline."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.geometry import quat_to_rot, rotate_vec
-from ..ops.spline import eval_periodic_bspline_2d
+from ..ops.spline import eval_periodic_bspline_2d, fit_periodic_bspline_2d
 from .base import flat_param, register_node, rows
 from .rama import rama_to_grid
 
@@ -58,6 +59,15 @@ def _rama_placement(signature):
             y.expand(y.shape[:-1] + (width,)))          # (B, n, w)
         return _transform(signature, affine, val)
     return compute
+
+
+def make_rama_placement_params(placement_data):
+    """Raw (n_layer, nx, ny, width) values -> {"coeffs": float32 fit}, one
+    periodic 2-D fit a width column (placement.py:72-77)."""
+    data = np.asarray(placement_data, np.float64)
+    coeffs = np.stack([fit_periodic_bspline_2d(data[..., d])
+                       for d in range(data.shape[-1])], axis=-1)
+    return {"coeffs": coeffs.astype(np.float32)}
 
 
 _get_data, _set_data = flat_param("placement_data")

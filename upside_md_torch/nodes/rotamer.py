@@ -211,6 +211,39 @@ def _init_cache(c, n_replica, dtype):
             "iters": zeros.to(torch.int32)}
 
 
+def decode_bead_ids(packed_ids, n_bit_rotamer=4):
+    """Packed bead id -> (rot, n_rot, residue) bit fields, int32
+    (rotamer.py:49-57; reference rotamer.cpp:565-577)."""
+    packed_ids = np.asarray(packed_ids, np.int64)
+    sel = (1 << n_bit_rotamer) - 1
+    rot = packed_ids & sel
+    n_rot = (packed_ids >> n_bit_rotamer) & sel
+    res = packed_ids >> (2 * n_bit_rotamer)
+    return rot.astype(np.int32), n_rot.astype(np.int32), res.astype(np.int32)
+
+
+def make_rotamer_consts(packed_ids, index, types, damping, max_iter, tol):
+    """The node's consts from its packed bead ids (rotamer.py:533-563),
+    without the one-hot tables the port rebuilds from `res` and `rot`.
+    The packed residue field counts within each rotamer-count class
+    (upside_config.py:973-983), so a BP residue is an (n_rot, count)
+    pair."""
+    rot, n_rot, res = decode_bead_ids(packed_ids)
+    key = res.astype(np.int64) * (1 << 4) + n_rot
+    uniq, res_c = np.unique(key, return_inverse=True)
+    res_c = res_c.astype(np.int32)
+    n_res = len(uniq)
+    n_rot_per_res = np.zeros(n_res, np.int32)
+    n_rot_per_res[res_c] = n_rot
+    valid = np.arange(NROT)[None, :] < n_rot_per_res[:, None]
+    return {"index": np.asarray(index, np.int32),
+            "type": np.asarray(types, np.int32),
+            "rot": rot, "res": res_c, "n_res": n_res,
+            "n_rot_per_res": n_rot_per_res, "valid": valid,
+            "damping": float(damping), "max_iter": int(max_iter),
+            "tol": float(tol)}
+
+
 _get_table, _set_table = flat_param("interaction_param")
 rotamer = register_node("rotamer", True, _rotamer, prepare=_prepare,
                         init_cache=_init_cache, get_param=_get_table,

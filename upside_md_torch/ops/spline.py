@@ -4,12 +4,14 @@ Knots sit on the integer grid and the coefficient with index k is centered
 at k-1, so an evaluation at x touches coefficients floor(x)-1 .. floor(x)+2
 (reference src/spline.h:97-310).  The JAX package evaluates with dense
 window weights over the whole knot axis because gathers are slow on a TPU;
-here the four coefficients are gathered directly.  Fitting stays with the
-bundle generator: bundles carry fitted coefficients.
+here the four coefficients are gathered directly.  The host-side fits a
+`.up` reader runs at load time (float64 numpy, ops/spline.py:207-269 of
+the JAX package, in the same order of operations) close the module.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -126,3 +128,65 @@ def eval_clamped_interp(coeffs, x):
     slope outside it (ops/spline.py:272; reference LayeredClampedSpline1D,
     src/spline.h:454-516)."""
     return eval_clamped_bspline(coeffs, x + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# host-side fitting (float64 numpy; load time only)
+# ---------------------------------------------------------------------------
+
+def _cyclic(n):
+    """The periodic interpolation matrix (2/3 on the diagonal, 1/6 on the
+    cyclic off-diagonals): knot values = A @ coefficients."""
+    A = np.zeros((n, n))
+    idx = np.arange(n)
+    A[idx, idx] = 2.0 / 3.0
+    A[idx, (idx + 1) % n] = 1.0 / 6.0
+    A[idx, (idx - 1) % n] = 1.0 / 6.0
+    return A
+
+
+def fit_periodic_bspline_1d(data):
+    """B-spline coefficients of the periodic interpolating cubic spline of
+    `data` (..., n) (reference solve_periodic_1d_spline,
+    src/spline.cpp:121-156); A is symmetric, so right-multiplying by its
+    inverse solves along the last axis."""
+    data = np.asarray(data, dtype=np.float64)
+    return data @ np.linalg.inv(_cyclic(data.shape[-1]))
+
+
+def fit_periodic_bspline_2d(data):
+    """Coefficients (..., nx, ny) of the periodic bicubic B-spline surface
+    that interpolates `data` (..., nx, ny) at the integer grid."""
+    data = np.asarray(data, dtype=np.float64)
+    Ax = np.linalg.inv(_cyclic(data.shape[-2]))
+    Ay = np.linalg.inv(_cyclic(data.shape[-1]))
+    return np.einsum('ij,...jk,lk->...il', Ax, data, Ay)
+
+
+def periodic_bspline_2d_knot_values(coeffs):
+    """The inverse of `fit_periodic_bspline_2d`: the surface's values at
+    the integer grid, in float64.  Along each axis the value at knot i is
+    (c[i-1] + 4 c[i] + c[i+1]) / 6, indices wrapping."""
+    c = np.asarray(coeffs, dtype=np.float64)
+    return np.einsum('ij,...jk,lk->...il', _cyclic(c.shape[-2]), c,
+                     _cyclic(c.shape[-1]))
+
+
+def fit_clamped_interp_bspline(data):
+    """Coefficients (..., n+2) of the zero-slope-clamped interpolating
+    cubic spline of `data` (..., n) at the integer grid, for
+    `eval_clamped_interp` (c[0] == c[2] and c[-1] == c[-3]; reference
+    solve_clamped_1d_spline, src/spline.cpp:192-259)."""
+    data = np.asarray(data, dtype=np.float64)
+    n = data.shape[-1]
+    # unknowns c[1..n]; conditions: c0 == c2, c[n+1] == c[n-1]
+    A = np.zeros((n, n))
+    idx = np.arange(n)
+    A[idx, idx] = 2.0 / 3.0
+    A[idx[:-1], idx[:-1] + 1] = 1.0 / 6.0
+    A[idx[1:], idx[1:] - 1] = 1.0 / 6.0
+    A[0, 1] += 1.0 / 6.0           # c0 -> c2 fold
+    A[n - 1, n - 2] += 1.0 / 6.0   # c[n+1] -> c[n-1] fold
+    inner = np.einsum('ij,...j->...i', np.linalg.inv(A), data)
+    return np.concatenate([inner[..., 1:2], inner, inner[..., -2:-1]],
+                          axis=-1)

@@ -2,10 +2,10 @@
 py/run_upside.py): launching the command line in process or as a
 subprocess, continuing interrupted runs, and replica-ladder swap sets.
 
-The JAX package's `upside_config` builds a `.up` file through
-`config/builder.py`, which the port does not carry (it writes HDF5
-configurations through h5py); the port runs bundles exported from such a
-file (`tools/export_torch_bundle.py --up`).
+The configurations are `.up` files, which the port reads without h5py
+(`config/reader.py`), or spec bundles (`.npz`).  The JAX package's
+`upside_config`, which builds a `.up` through `config/builder.py`, is not
+ported yet, so the `.up` comes from that package or the reference.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ from .io import h5
 def run_upside(config_paths: List[str], duration, frame_interval,
                temperature="1.0", extra_args: Optional[List[str]] = None,
                in_process=True, **kw):
-    """Launch a simulation over one or more bundles, one replica slot
-    each.  Keywords become flags (`output_dir="out"` -> `--output-dir=out`,
+    """Launch a simulation over one or more configurations (`.up` or
+    `.npz`, passed on as they are), one replica slot each.  Keywords become flags (`output_dir="out"` -> `--output-dir=out`,
     True -> a bare flag).  in_process=True calls `cli.main` directly (the
     reference's `in_process_upside`, upside_engine.py:67-91); otherwise
     `python -m upside_md_torch.cli` runs as a subprocess, and its exit

@@ -104,12 +104,32 @@ class System:
         self._prep_memo = None
 
     @classmethod
+    def from_records(cls, specs, pos, device="cuda", dtype=torch.float32,
+                     kernels=True):
+        """(System, initial positions (n_atom, 3) tensor) from SpecRecords
+        and numpy positions."""
+        system = cls(len(pos), specs, device, dtype, kernels)
+        return system, torch.as_tensor(pos, dtype=dtype, device=device)
+
+    @classmethod
     def from_bundle(cls, path, device="cuda", dtype=torch.float32,
                     kernels=True):
         """(System, initial positions (n_atom, 3) tensor) from a bundle."""
-        specs, pos = bundle.load(path)
-        system = cls(len(pos), specs, device, dtype, kernels)
-        return system, torch.as_tensor(pos, dtype=dtype, device=device)
+        return cls.from_records(*bundle.load(path), device, dtype, kernels)
+
+    @classmethod
+    def from_up(cls, path, device="cuda", dtype=torch.float32, kernels=True):
+        """(System, initial positions (n_atom, 3) tensor) from a `.up`
+        configuration, read without h5py (`config/reader.py`)."""
+        from .config.reader import load_up
+        return cls.from_records(*load_up(path)[:2], device, dtype, kernels)
+
+    @classmethod
+    def from_config(cls, path, device="cuda", dtype=torch.float32,
+                    kernels=True):
+        """`from_bundle` for a `.npz`, `from_up` for a `.up` or `.h5`."""
+        from .config import load
+        return cls.from_records(*load(path)[:2], device, dtype, kernels)
 
     # -- parameter-only operands ----------------------------------------------
 
