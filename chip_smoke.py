@@ -37,7 +37,13 @@ checks them:
   streams and the numpy-only HDF5 writer;
 * `.up` configurations read without h5py (`config/reader.py`): the
   committed ubiquitin `.up` against the bundle of the same build, and
-  `cli.main` on it at 64 slots (K1 fwd, K1 bwd, K2).
+  `cli.main` on it at 64 slots (K1 fwd, K1 bwd, K2);
+* `.up` configurations built without jax or h5py (`config/builder.py`,
+  `config/cli.py`, `chi1.predict_chi1_from_pdb`): ubiquitin and config 2
+  rebuilt from the committed synthetic libraries
+  (`upside_md_torch/data/libs`), Upside's PDB -> `upside_config` ->
+  `upside` chain as subprocesses, and chi1 from a PDB (K1 fwd, K1 bwd,
+  K2).
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -196,8 +202,32 @@ the bundle's seed.  Phases:
    ubiquitin]` `cli.main` on the `.up` at 64 slots, 60 rounds, frames
    every 10, beside the bundle's run in the order npz, up, up, npz (K1
    fwd, K1 bwd and K2 launched as by the bundle run; the frame-1
-   potential rel 1e-6; steps/s of each);
-12. prints the kernel table as one JSON line (launches summed over the
+   potential rel 1e-6; steps/s of each; every logged dataset of each run
+   bitwise equal to the first bundle run's); `[up streams]` the rotamer
+   node's bead marginals, the per-residue sum by `index_add` and
+   `rotamer_1body_energy` each called 20 times on the same inputs at 64
+   replicas (the calls not bitwise equal to the first, printed; the
+   marginals and `rotamer_1body_energy` must never differ);
+12. `.up` configurations built on this machine: `[build ubiquitin]` the
+   port's `ConfigBuilder` in the export tool's order on the committed
+   libraries, the committed `.up`'s Rama maps passed uncentred (every
+   dataset and attribute equal to the committed `.up`'s as the port's
+   reader reads them; host ms of building and writing), then `cli.main`
+   at 64 slots, 60 rounds, frames every 10 on the committed and the built
+   file (frame-1 potential rel 0, every logged position equal, K1 fwd, K1
+   bwd and K2 launched as often); `[build radial]` the same plus
+   `add_sidechain_radial` (its `load_up` records equal to
+   `ubiquitin_radial_synth.npz`'s as phase 11 holds them); `[upside_config
+   pdb]` a PDB of ubiquitin through `python -m upside_md_torch.io.pdb`,
+   `python -m upside_md_torch.config.cli` (sidechain and environment
+   libraries, hbond -2.1119) and `python -m upside_md_torch.cli` at 64
+   slots, 30 rounds (/input/args present; the card's float32 evaluation
+   against the port on the CPU in float64 at BP tol 1e-6, energy and force
+   RMS rel 1e-4; K1 fwd, K1 bwd and K2 launched; 64 files); `[chi1 pdb]`
+   `predict_chi1_from_pdb` on that PDB within 1e-6 of
+   `predict_chi1_from_bundle` at the PDB's coordinates (K1 fwd and K2
+   twice; the wall time of a prediction);
+13. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -319,6 +349,17 @@ MAX_MEAN_SWEEPS = 3.99
 # schedule, which is printed beside it); checked on two decimals, as
 # MAX_MEAN_SWEEPS
 CONFIG2_MAX_SWEEPS = 4.01
+# phase 11: calls of the rotamer streams' operations on the same inputs
+STREAM_REPS = 20
+# phase 12: .up files built on this machine (slots, rounds, frame interval
+# of each cli.main run; the PDB chain's slots and rounds); card float32
+# against the CPU in float64 (phase 8's form); chi1 from the PDB against
+# the chi1 bundle at the same coordinates
+UBIQUITIN = ("MQIFVKTLTGKTITLEVEPSDTIENVKAKIQDKEGIPPDQQRLIFAGKQLEDGRTLSDYNIQ"
+             "KESTLHLVLRLRGG")
+BUILD_SLOTS, BUILD_ROUNDS, BUILD_EVERY = 64, 60, 10
+PDB_SLOTS, PDB_ROUNDS = 64, 30
+BUILD_EVAL_TOL, CHI1_PDB_TOL = 1e-4, 1e-6
 
 
 def log(msg):
@@ -3307,6 +3348,14 @@ def cli_up(dev, up_path, npz_path):
                              - first["frames"]["pos"][:, -1]).max()))
     same = {kind: [deviation(r) for r in runs[kind][kind == "npz":]]
             for kind in runs}
+    # two runs of one configuration log bitwise-equal streams (an
+    # index_add in the rotamer_1body_energy streams once made them vary)
+    for kind, devs in same.items():
+        for names, _ in devs:
+            if names:
+                raise AssertionError(f"{label}: a {kind} run's logged "
+                                     f"{names} not bitwise equal to the "
+                                     "first bundle run's")
     evals = first["evaluations"]
     per_eval = {nm: first["launches"][nm] / evals for nm in FUSED_KERNELS}
     res = {kind: [{k: v for k, v in r.items() if k != "frames"} for r in rs]
@@ -3369,6 +3418,388 @@ def up_rama(sys_u, sys_b, pos):
         f"{res['up_energy_rel']:.2e} (.up), {res['bundle_energy_rel']:.2e} "
         "(bundle)")
     return res
+
+
+def stream_repeats(system, pos):
+    """[up streams]: which operation makes the per-residue
+    `rotamer_1body_energy{i}` streams vary between runs of one
+    configuration.  On the same inputs (the `.up` system's evaluation at
+    TIME_REPLICAS replicas), STREAM_REPS calls each of: the rotamer node's
+    bead marginals (the plain BP solve of the diagnostics), the per-residue
+    sum by `index_add` (what the streams took before; float atomics on the
+    card) and `rotamer_1body_energy` as it is now (a gather of each
+    slot's beads, summed in a fixed order).  Counts the calls whose result
+    is not bitwise equal to the first call's, and their largest
+    difference.  Gate: the marginals and `rotamer_1body_energy` never
+    differ."""
+    import torch
+    from upside_md_torch.nodes.rotamer import (rotamer_1body_energy,
+                                               rotamer_diagnostics)
+    label = "up streams"
+    spec = next(s for s in system.specs if s.node_type.name == "rotamer")
+    c, p = system.consts[spec.name], system.params.get(spec.name, {})
+
+    def spread(fn):
+        first, n_diff, worst = fn(), 0, 0.0
+        for _ in range(STREAM_REPS - 1):
+            y = fn()
+            if not torch.equal(y, first):
+                n_diff += 1
+                worst = max(worst, (y - first).abs().max().item())
+        return {"differ": n_diff, "max_abs": worst,
+                "max_value": first.abs().max().item()}
+
+    with torch.no_grad():
+        outputs = system.evaluate(tiled(pos[None], TIME_REPLICAS))[1]
+        inputs = [outputs[a] for a in spec.args]
+        w = rotamer_diagnostics(c, p, inputs)["bead_marginal"]
+        res = {"bead_marginal": spread(
+            lambda: rotamer_diagnostics(c, p, inputs)["bead_marginal"])}
+        for i in range(len(spec.args) - 1):
+            e = inputs[1 + i][:, c["index"], 0]
+            res[f"index_add{i}"] = spread(
+                lambda e=e: e.new_zeros((e.shape[0], c["bp"].n_res))
+                .index_add(1, c["res"], w * e))
+            res[f"rotamer_1body_energy{i}"] = spread(
+                lambda i=i: rotamer_1body_energy(c, p, inputs, i))
+    log(f"[{label}] {STREAM_REPS} calls on the same inputs at "
+        f"{TIME_REPLICAS} replicas, calls not bitwise equal to the first "
+        "(largest difference, largest |value|): " + "; ".join(
+            f"{k} {v['differ']} ({v['max_abs']:.3e}, {v['max_value']:.3e})"
+            for k, v in res.items()))
+    for k, v in res.items():
+        if not k.startswith("index_add") and v["differ"]:
+            raise AssertionError(f"{label}: {k} varies between calls")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# .up configurations built on the card's machine
+# ---------------------------------------------------------------------------
+
+def up_contents(path):
+    """{member: (kind, dtype, shape, bytes, attributes)} of an HDF5 file as
+    the port's reader reads it back, each attribute by type and value."""
+    import numpy as np
+    from upside_md_torch.io import h5
+
+    def norm(v):
+        if isinstance(v, np.ndarray):
+            return ("array", v.dtype.str, v.shape, v.tolist()
+                    if v.dtype == object else v.tobytes())
+        return (type(v).__name__, repr(v))
+
+    out = {}
+    with h5.File(path) as f:
+        out["/"] = ("group", {k: norm(v) for k, v in f.attrs.items()})
+
+        def visit(name, obj):
+            attrs = {k: norm(v) for k, v in obj.attrs.items()}
+            if isinstance(obj, h5.Dataset):
+                a = obj[()]
+                out[name] = ("dataset", a.dtype.str, a.shape, a.tobytes(),
+                             attrs)
+            else:
+                out[name] = ("group", attrs)
+        f.visititems(visit)
+    return out
+
+
+def build_ubiquitin(path, rama, radial=False):
+    """The port's ConfigBuilder in `tools/export_torch_bundle.build_bundle`'s
+    order on the committed synthetic libraries (seed 1, rotamer damping
+    0.1, dynamic 1-body, hbond -2.1119 with coverage, the environment, the
+    rotamer node; `radial`: `add_sidechain_radial`, BASELINE config 2),
+    the Rama maps passed as they are (`center_maps=False`).  Returns the
+    host ms of building and of writing `path`."""
+    from upside_md_torch import LIB_DIR
+    from upside_md_torch.config.builder import ConfigBuilder
+    sc = os.path.join(LIB_DIR, "sidechain_synth.h5")
+    t0 = time.perf_counter()
+    b = ConfigBuilder(f">x\n{UBIQUITIN}\n", seed=1)
+    b.add_backbone_springs()
+    b.add_rama_map_pot(rama, center_maps=False)
+    b.add_backbone_pairs()
+    b.add_rotamer_sidechains(sc, sc, damping=0.1, dynamic_1body=True)
+    b.add_hbond(hbond_energy=-2.1119, coverage_library=sc)
+    b.add_environment(os.path.join(LIB_DIR, "environment_synth.h5"))
+    b.add_rotamer_node()
+    if radial:
+        b.add_sidechain_radial(os.path.join(LIB_DIR, "radial_synth.h5"))
+    t1 = time.perf_counter()
+    b.write(path)
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)
+
+
+def cli_run(path, n, rounds, every, out_dir):
+    """`cli.main` on `path` x n slots in process, launch counts set to 0
+    just before and read just after: its rc, launches, evaluations, the
+    frames of every slot's file and steps/s (the loop, and to the last
+    file's close)."""
+    from upside_md_torch import cli
+    from upside_md_torch.ops import kernels
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with _Recorded() as rec:
+        rc = cli.main(cli_flags(rounds, every, [1.0] * n, out_dir)
+                      + [path] * n)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc} on {path}")
+    state, out = rec.runs[0]
+    steps = 3 * rounds * n
+    return {"loop_steps_per_s": steps / out["seconds"],
+            "steps_per_s_with_files":
+                steps / (max(rec.close_t) - rec.run_t[0][0]),
+            "main_wall_s": wall, "launches": launches,
+            "evaluations": state.n_evals + out["n_energy_evals"],
+            "frames": read_frames([cli.output_path(out_dir, path, i)
+                                   for i in range(n)])}
+
+
+def build_up(dev, up_path, tmp):
+    """[build ubiquitin]: the port's builder on the card's machine against
+    the committed `.up` of the JAX builder's run: every dataset and
+    attribute equal as the port's reader reads them back (gate); host ms
+    of building and writing (median of UP_LOAD_REPS); then `cli.main` at
+    BUILD_SLOTS slots, BUILD_ROUNDS rounds, frames every BUILD_EVERY on
+    the committed file and on the built one, counts set to 0 before each:
+    frame 1's logged potential equal (rel 0), every logged frame's
+    positions equal, K1 fwd, K1 bwd and K2 launched as often (and > 0)."""
+    import numpy as np
+    from upside_md_torch.io import h5
+    label = "build ubiquitin"
+    with h5.File(up_path) as f:
+        rama = f["input/potential/rama_map_pot/rama_pot"][()]
+    built = os.path.join(tmp, "ubiquitin_built.up")
+    times = [build_ubiquitin(built, rama) for _ in range(UP_LOAD_REPS)]
+    got, want = up_contents(built), up_contents(up_path)
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    if differ:
+        raise AssertionError(f"{label}: members differ from the committed "
+                             f".up: {differ[:8]}")
+    build_ms = statistics.median(t[0] for t in times)
+    write_ms = statistics.median(t[1] for t in times)
+    log(f"[{label}] the port's builder on the committed libraries: "
+        f"{len(got)} members, every dataset and attribute equal to "
+        f"{os.path.basename(up_path)}'s (bitwise, as read back); host "
+        f"{build_ms:.1f} ms building, {write_ms:.1f} ms writing "
+        f"{os.path.getsize(built)} bytes (median of {UP_LOAD_REPS})")
+    runs = {kind: cli_run(path, BUILD_SLOTS, BUILD_ROUNDS, BUILD_EVERY,
+                          os.path.join(tmp, f"run_{kind}"))
+            for kind, path in (("committed", up_path), ("built", built))}
+    a, b = runs["committed"], runs["built"]
+    pot_err = float(np.max(np.abs(b["frames"]["potential"][:, 0]
+                                  - a["frames"]["potential"][:, 0])
+                           / np.abs(a["frames"]["potential"][:, 0])))
+    if pot_err != 0.0:
+        raise AssertionError(f"{label}: frame-1 potential rel {pot_err}")
+    if not np.array_equal(a["frames"]["pos"], b["frames"]["pos"]):
+        raise AssertionError(f"{label}: logged positions differ")
+    for nm in FUSED_KERNELS:
+        if not 0 < b["launches"][nm] == a["launches"][nm]:
+            raise AssertionError(f"{label}: {nm} launched "
+                                 f"{b['launches'][nm]} times, the committed "
+                                 f"file's run {a['launches'][nm]}")
+    log(f"[{label}] cli.main at {BUILD_SLOTS} slots, {BUILD_ROUNDS} rounds, "
+        f"frames every {BUILD_EVERY}: frame-1 potential rel {pot_err:.1e}, "
+        "every logged position equal; loop steps/s committed "
+        f"{a['loop_steps_per_s']:.1f} / built {b['loop_steps_per_s']:.1f}, "
+        f"to the last file's close {a['steps_per_s_with_files']:.1f} / "
+        f"{b['steps_per_s_with_files']:.1f}; launches "
+        + ", ".join(f"{nm} {b['launches'][nm]}" for nm in FUSED_KERNELS)
+        + f" over {b['evaluations']} evaluations in each")
+    res = {"members": len(got), "build_ms": build_ms, "write_ms": write_ms,
+           "bytes": os.path.getsize(built), "potential_rel": pot_err,
+           **{kind: {k: v for k, v in r.items() if k != "frames"}
+              for kind, r in runs.items()}}
+    return res, rama, b["launches"]
+
+
+def build_radial(rama, tmp):
+    """[build radial]: the same build plus `add_sidechain_radial` on the
+    committed radial library (BASELINE config 2): its `load_up` records
+    against `ubiquitin_radial_synth.npz`'s as phase 11 holds them
+    (`same_records`), positions equal."""
+    import numpy as np
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.config import bundle, reader
+    label = "build radial"
+    path = os.path.join(tmp, "ubiquitin_radial_built.up")
+    build_ms, write_ms = build_ubiquitin(path, rama, radial=True)
+    recs, pos, _ = reader.load_up(path)
+    brecs, bpos = bundle.load(os.path.join(DATA_DIR, BUNDLE_RADIAL))
+    fit_err = same_records(label, recs, brecs)
+    if not np.array_equal(pos, bpos):
+        raise AssertionError(f"{label}: positions differ from the bundle's")
+    log(f"[{label}] built in {build_ms:.1f} ms, written in {write_ms:.1f} "
+        f"ms; load_up records equal to {BUNDLE_RADIAL}'s ({len(recs)} "
+        f"nodes; fitted coefficients max rel {fit_err:.2e}), positions "
+        "equal")
+    return {"nodes": len(recs), "fit_max_rel": fit_err,
+            "build_ms": build_ms, "write_ms": write_ms}
+
+
+def _run_module(args, label, timeout=600):
+    """`python -m args...` from the repository root; raises on a non-zero
+    exit.  Returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{label}: python -m {args[0]} exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+# the command line run as `python -m upside_md_torch.cli` in a child that
+# prints its kernel launch counts after it
+CLI_CHILD = """import json, runpy, sys
+from upside_md_torch.ops import kernels
+sys.argv = ["upside_md_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("upside_md_torch.cli", run_name="__main__")
+finally:
+    print("LAUNCHES " + json.dumps(kernels.LAUNCHES), flush=True)
+"""
+
+
+def upside_config_pdb(dev, gen, npz_path, tmp):
+    """[upside_config pdb]: Upside's workflow on the card's machine, each
+    step a subprocess: a PDB (`io/trajectory.write_pdb` of ubiquitin's
+    positions) -> `python -m upside_md_torch.io.pdb` (.fasta,
+    .initial.pkl) -> `python -m upside_md_torch.config.cli` on the
+    committed sidechain and environment libraries -> `python -m
+    upside_md_torch.cli` at PDB_SLOTS slots, PDB_ROUNDS rounds (run through
+    `runpy` in a child that prints its launch counts).  Gates: /input/args
+    in the `.up`; the card's float32 evaluation against the port on the
+    CPU in float64 at BP tol 1e-6 (4 perturbed configurations) within rel
+    BUILD_EVAL_TOL in energy and force RMS; K1 fwd, K1 bwd and K2
+    launched; PDB_SLOTS files written."""
+    import json
+    import torch
+    from upside_md_torch import LIB_DIR, cli
+    from upside_md_torch.config import bundle, reader
+    from upside_md_torch.config.builder import THREE_LETTER_AA
+    from upside_md_torch.io import h5
+    from upside_md_torch.io.trajectory import write_pdb
+    from upside_md_torch.system import System
+    label = "upside_config pdb"
+    sc = os.path.join(LIB_DIR, "sidechain_synth.h5")
+    pdb = os.path.join(tmp, "ubiquitin.pdb")
+    write_pdb(pdb, [THREE_LETTER_AA[a] for a in UBIQUITIN],
+              bundle.load(npz_path)[1][None])
+    base = os.path.join(tmp, "ubiquitin")
+    secs = {"pdb": _run_module(["upside_md_torch.io.pdb", pdb, base],
+                               label)[1]}
+    up = base + ".up"
+    secs["config"] = _run_module([
+        "upside_md_torch.config.cli", "--fasta", base + ".fasta",
+        "--initial-structure", base + ".initial.pkl", "--output", up,
+        "--rotamer-placement", sc, "--rotamer-interaction", sc,
+        "--dynamic-rotamer-1body", "--rotamer-solve-damping", "0.1",
+        "--hbond-energy", "-2.1119", "--environment-potential",
+        os.path.join(LIB_DIR, "environment_synth.h5")], label)[1]
+    with h5.File(up) as f:
+        if "args" not in f["input"] or \
+                "invocation" not in f["input/args"].attrs:
+            raise AssertionError(f"{label}: no /input/args in the .up")
+        n_args = len(f["input/args"].attrs)
+    out_dir = os.path.join(tmp, "run_pdb")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD,
+         *cli_flags(PDB_ROUNDS, BUILD_EVERY, [1.0] * PDB_SLOTS, out_dir),
+         *[up] * PDB_SLOTS], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    secs["cli"] = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"{label}: python -m upside_md_torch.cli "
+                             f"exited {r.returncode}:\n{r.stderr[-3000:]}")
+    launches = json.loads(lines[-1][len("LAUNCHES "):])
+    for nm in FUSED_KERNELS:
+        if launches[nm] <= 0:
+            raise AssertionError(f"{label}: {nm} not launched")
+    missing = [i for i in range(PDB_SLOTS)
+               if not os.path.exists(cli.output_path(out_dir, up, i))]
+    if missing:
+        raise AssertionError(f"{label}: no output file for slots {missing}")
+    frames = read_frames([cli.output_path(out_dir, up, i)
+                          for i in range(PDB_SLOTS)])
+    recs, pos0, _ = reader.load_up(up)
+    for s in recs:
+        if s.type_name == "rotamer":
+            s.consts["tol"] = 1e-6
+    sys_d = System(len(pos0), recs, dev, torch.float32)
+    sys_h = System(len(pos0), recs, "cpu", torch.float64)
+    pos = perturbed(torch.as_tensor(pos0, device=dev, dtype=torch.float32),
+                    4, gen, dev)
+    errs = card_vs_host(label, sys_d, sys_h, pos, gate=False)[0]
+    check(f"[{label}] whole evaluation energy, card float32 against host "
+          "float64", errs["energy_rel"], BUILD_EVAL_TOL)
+    check(f"[{label}] whole evaluation force RMS, card float32 against host "
+          "float64", errs["force_rms_rel"], BUILD_EVAL_TOL)
+    log(f"[{label}] {len(UBIQUITIN)} residues: io.pdb {secs['pdb']:.1f} s, "
+        f"config.cli {secs['config']:.1f} s ({n_args} /input/args "
+        f"attributes), cli {secs['cli']:.1f} s at {PDB_SLOTS} slots x "
+        f"{PDB_ROUNDS} rounds ({frames['pos'].shape[1]} frames a file, "
+        f"{PDB_SLOTS} files; process start and kernel load included); "
+        "launches " + ", ".join(f"{nm} {launches[nm]}"
+                                for nm in FUSED_KERNELS))
+    del sys_d, sys_h
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "args_attrs": n_args, **errs,
+            "launches": launches}, pdb, {k: v for k, v in launches.items()
+                                         if v}
+
+
+def chi1_pdb(dev, pdb, chi1_path):
+    """[chi1 pdb]: `predict_chi1_from_pdb` on the card on that PDB's text
+    with the committed sidechain library, counts set to 0 just before and
+    read just after (K1 fwd and K2 twice, as phase 9), against
+    `predict_chi1_from_bundle` on the chi1 bundle (built by the JAX
+    builder from the same library) at the PDB's parsed coordinates: within
+    CHI1_PDB_TOL.  Prints the wall time of one prediction."""
+    import numpy as np
+    import torch
+    from upside_md_torch import LIB_DIR
+    from upside_md_torch.chi1 import (predict_chi1_from_bundle,
+                                      predict_chi1_from_pdb)
+    from upside_md_torch.ops import kernels
+    label = "chi1 pdb"
+    sc = os.path.join(LIB_DIR, "sidechain_synth.h5")
+    with open(pdb) as f:
+        text = f.read()
+    predict_chi1_from_pdb(text, sc, device=dev)                # warm-up
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    prob, info, elapsed = predict_chi1_from_pdb(text, sc, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for nm in ("fused_pair_fwd", "bp_bethe_pairs"):
+        if launches[nm] != 2:
+            raise AssertionError(f"{label}: {nm} launched {launches[nm]} "
+                                 "times, not twice")
+    want, seq, _ = predict_chi1_from_bundle(chi1_path, dev,
+                                            pos=info["coords"])
+    err = float(np.abs(prob - want[0].cpu().numpy()).max())
+    if seq != [("PRO" if s == "CPR" else s) for s in info["sequence"]]:
+        raise AssertionError(f"{label}: sequences differ")
+    log(f"  [{label}] chi1 probabilities' largest absolute difference "
+        f"from predict_chi1_from_bundle at the PDB's coordinates {err:.3e} "
+        f"(tol {CHI1_PDB_TOL:g})")
+    if not err <= CHI1_PDB_TOL or not np.isfinite(prob).all():
+        raise AssertionError(f"{label}: probabilities differ by {err}")
+    log(f"[{label}] one prediction {wall * 1e3:.1f} ms wall (PDB parse, "
+        f"config build and write, load_up with its fits, System), the "
+        f"evaluation {elapsed * 1e3:.1f} ms; launches " + ", ".join(
+            f"{nm} {launches[nm]}" for nm in FUSED_KERNELS))
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": err, "wall_s": wall, "evaluation_s": elapsed,
+            "launches": launches}, {k: v for k, v in launches.items() if v}
 
 
 def main():
@@ -3536,11 +3967,28 @@ def main():
     up_res["load"], sys_u, sys_b, pos_b = up_ubiquitin(dev, up_path,
                                                        fused_path)
     up_res["rama"] = up_rama(sys_u, sys_b, pos_b)
+    up_res["streams"] = stream_repeats(sys_u, pos_b)
     del sys_u, sys_b
     up_res["cli"], launches_up = cli_up(dev, up_path, fused_path)
     up_res["seconds"] = time.perf_counter() - t0
     log(f"[up] phase 11 took {up_res['seconds']:.1f} s")
     results["phases"]["up"] = up_res
+
+    # ---- 12. .up configurations built on this machine
+    import tempfile
+    t0 = time.perf_counter()
+    build = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        build["ubiquitin"], rama, launches_build = build_up(dev, up_path,
+                                                            tmp)
+        build["radial"] = build_radial(rama, tmp)
+        build["pdb"], pdb, launches_pdb = upside_config_pdb(
+            dev, gen, fused_path, tmp)
+        build["chi1"], launches_chi1_pdb = chi1_pdb(
+            dev, pdb, os.path.join(DATA_DIR, BUNDLE_CHI1))
+    build["seconds"] = time.perf_counter() - t0
+    log(f"[build] phase 12 took {build['seconds']:.1f} s")
+    results["phases"]["build"] = build
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
@@ -3551,12 +3999,15 @@ def main():
                 "md extras trp_cage": launches_x,
                 "cli ubiquitin": launches_cli,
                 "cli rex cytochrome_c": launches_cli_rex,
-                "cli up ubiquitin": launches_up}
+                "cli up ubiquitin": launches_up,
+                "cli built ubiquitin": launches_build,
+                "cli upside_config pdb": launches_pdb,
+                "chi1 pdb": launches_chi1_pdb}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 12. report
+    # ---- 13. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

@@ -3,8 +3,9 @@ against h5py, the library the JAX package writes and reads through:
 
 * what the writer writes, h5py reads back exactly (float32/64,
   int32/64, fixed-length strings, 0-d and (n, 1, n_atom, 3) rows, string
-  and numeric attributes, scalar and fixed-size datasets), and so does
-  the port's own reader;
+  and numeric attributes, scalar and fixed-size datasets; a str attribute
+  as h5py's variable-length string, a bool as h5py's enumeration), and so
+  does the port's own reader;
 * the file is valid after every append and flush: h5py opens it with
   every flushed row; each append grows the file by its new chunks and at
   most one new B-tree node (a leaf, once every 64 chunks, crossed here
@@ -14,6 +15,13 @@ against h5py, the library the JAX package writes and reads through:
   chunked datasets with partial edge chunks, strings, scalar,
   variable-length string and numeric attributes) exactly as h5py does,
   in h5py's `visititems` order;
+* the types a `.up` builder, `upside_config`'s /input/args and an edit
+  of an h5py-written file need, each written by the port and by h5py and
+  read back by both alike: numpy bools (h5py's int8 enumeration, as
+  attributes and as datasets), str attributes (variable-length strings,
+  the empty one included, one global heap for many), arrays of str, and
+  string-array attributes on a group and on a dataset (`arguments`, a
+  dataset's "dset:attr");
 * it refuses, naming the feature, a gzip dataset whose filter pipeline
   also holds scaleoffset (gzip, shuffle and fletcher32 it reads:
   tests/test_torch_reader.py), a file written with libver="latest" and a
@@ -61,10 +69,9 @@ def test_writer_files_read_back_exactly(tmp_path):
             "output/ri": np.arange(1, 6)[:, None]}
     want.update({f"input/{k}": np.asarray(v) for k, v in arrays.items()})
     with h5py.File(path, "r") as f, h5.File(path) as g:
-        assert f.attrs["top"] == b"root" and g.attrs["top"] == b"root"
+        assert f.attrs["top"] == "root" and g.attrs["top"] == "root"
         for k, v in attrs.items():
-            _same(f["output"].attrs[k], np.asarray(
-                v.encode() if isinstance(v, str) else v))
+            _same(f["output"].attrs[k], np.asarray(v))
             _same(g["output"].attrs[k], f["output"].attrs[k])
         for k, v in want.items():
             _same(f[k][()], v)
@@ -170,4 +177,60 @@ def test_reader_refuses_what_it_does_not_read(tmp_path, case):
         with pytest.raises(h5.UnsupportedFeature,
                            match="scaleoffset" if case == "gzip"
                            else "variable-length"):
+            g["x"]
+
+
+UP_ATTRS = {
+    "bool": {"flag": True, "off": np.False_},
+    "bool_array": {"mask": np.array([True, False, True])},
+    "vlen": {"fasta": "seq.fasta", "empty": "", "unicode": "\u00c5 r\u00e9s",
+             **{f"s{i}": "x" * i for i in range(40)}},
+    "str_array": {"names": ["ab", "c", ""]},
+    "group_string_array": {"arguments": np.asarray(["pos", "rama_coord"],
+                                                   dtype="S")},
+    "mixed": {"arguments": np.asarray(["pos"], dtype="S"), "max_iter": 1000,
+              "tol": 1e-3, "seg": np.array([2, 3], np.int32), "flag": False,
+              "note": "text"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(UP_ATTRS))
+def test_up_attribute_types_round_trip(tmp_path, case):
+    attrs = UP_ATTRS[case]
+    mine, theirs = str(tmp_path / "mine.h5"), str(tmp_path / "theirs.h5")
+    with h5.Writer(mine) as w:
+        w.create_group("g", attrs)
+        w.create_dataset("g/d", np.arange(3.0), attrs)
+        w.create_dataset("g/b", np.array([[True], [False]]))
+    with h5py.File(theirs, "w") as f:
+        g = f.create_group("g")
+        d = g.create_dataset("d", data=np.arange(3.0))
+        g.create_dataset("b", data=np.array([[True], [False]]))
+        for k, v in attrs.items():
+            g.attrs[k] = v
+            d.attrs[k] = v
+    for path in (mine, theirs):
+        with h5py.File(path, "r") as f, h5.File(path) as g:
+            for name in ("g", "g/d"):
+                assert sorted(f[name].attrs) == sorted(g[name].attrs)
+                for k in f[name].attrs:
+                    a, b = f[name].attrs[k], g[name].attrs[k]
+                    assert type(a) is type(b) and repr(a) == repr(b), k
+            _same(g["g/b"][()], f["g/b"][()])
+            assert f["g/b"].dtype == np.bool_
+    with h5py.File(mine, "r") as f, h5py.File(theirs, "r") as g:
+        for name in ("g", "g/d"):
+            for k in g[name].attrs:
+                a, b = f[name].attrs[k], g[name].attrs[k]
+                assert type(a) is type(b) and repr(a) == repr(b), k
+
+
+def test_reader_refuses_other_enumerations(tmp_path):
+    path = str(tmp_path / "enum.h5")
+    with h5py.File(path, "w") as f:
+        f.create_dataset("x", data=np.array([0, 1], np.int8),
+                         dtype=h5py.enum_dtype({"RED": 0, "BLUE": 1},
+                                               basetype="i1"))
+    with h5.File(path) as g:
+        with pytest.raises(h5.UnsupportedFeature, match="enumeration"):
             g["x"]

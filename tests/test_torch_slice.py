@@ -17,8 +17,10 @@ bundle, plus the bundle pin and the import isolation of the port.
   prediction; the command line writing two slots' HDF5 files, read back
   by the trajectory and analysis tools; the committed ubiquitin `.up`
   read by `config.load` and the engine, and `rama_map_pot`'s
-  get_param/set_param round trip on it) with jax, h5py and upside_md_tpu
-  blocked.
+  get_param/set_param round trip on it; a trp-cage `.up` built by
+  `upside_config` from the committed libraries and evaluated, the edit,
+  merge and library tools, `run.upside_config` and chi1 from a PDB) with
+  jax, h5py and upside_md_tpu blocked.
 """
 
 import importlib.util
@@ -302,6 +304,45 @@ raw = eng.get_param("rama_map_pot")
 e0 = eng.energy(eng._pos.numpy())
 eng.set_param(raw, "rama_map_pot")
 assert abs(eng.energy(eng._pos.numpy()) - e0) <= 1e-5 * abs(e0)
+# building a .up: upside_config on the committed libraries, the edit and
+# merge tools, run.upside_config, param_gen, chi1 from a PDB
+import numpy as np
+from upside_md_torch import LIB_DIR, param_gen, sidechain_topology
+from upside_md_torch.config import builder, cli as config_cli, edit, merge
+sc = os.path.join(LIB_DIR, "sidechain_synth.h5")
+seq = "NLYIQWLKDGGPSSGRPPPS"
+with tempfile.TemporaryDirectory() as tmp:
+    fasta, out = os.path.join(tmp, "trp.fasta"), os.path.join(tmp, "trp.up")
+    with open(fasta, "w") as f:
+        f.write(">trp\n" + seq + "\n")
+    assert config_cli.main([
+        "--fasta", fasta, "--output", out, "--rotamer-placement", sc,
+        "--rotamer-interaction", sc, "--dynamic-rotamer-1body",
+        "--rotamer-solve-damping", "0.1", "--hbond-energy", "-2.1119",
+        "--environment-potential",
+        os.path.join(LIB_DIR, "environment_synth.h5")]) == out
+    built, p = System.from_up(out, device="cpu")
+    assert bool(torch.isfinite(built.energy(p[None])).all())
+    with h5.File(out) as f:
+        assert f["input/args"].attrs["dynamic_rotamer_1body"]
+    two = run.upside_config(fasta, os.path.join(tmp, "two.up"),
+                            rama_maps=np.zeros((20, 12, 12)))
+    edit.break_chains(two, [10])
+    edit.add_target_information(two, p.numpy())
+    merge.merge_configs(two, [two], os.path.join(tmp, "merged.up"))
+    assert len(config.load(os.path.join(tmp, "merged.up"))[0]) >= 6
+    rng = np.random.default_rng(0)
+    param_gen.generate_sidechain_library(os.path.join(tmp, "lib.h5"), {
+        rt: dict(chi=rng.uniform(-3, 3, (9, 4)), phi=rng.uniform(-3, 3, 9),
+                 psi=rng.uniform(-3, 3, 9), rotamer=np.arange(9) % 3)
+        for rt in ("ALA", "LEU")}, n_bin=6)
+    pdb_path = os.path.join(tmp, "trp.pdb")
+    trajectory.write_pdb(pdb_path, [builder.THREE_LETTER_AA[a] for a in seq],
+                         p.numpy()[None])
+    with open(pdb_path) as f:
+        prob, info, _ = chi1.predict_chi1_from_pdb(f.read(), sc,
+                                                   device="cpu")
+    assert prob.shape == (20, 3) and info["fasta"] == seq
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
 assert not bad, bad

@@ -49,6 +49,14 @@ Run from the repository root (needs jax and h5py):
     python tools/export_torch_bundle.py [--out DIR] [--only NAME ...]
         [--keep-up]
     python tools/export_torch_bundle.py --up CONFIG.up [--name NAME] [--out DIR]
+    python tools/export_torch_bundle.py --libs [--out DIR]
+
+The third form writes the synthetic libraries themselves,
+`sidechain_synth.h5`, `environment_synth.h5` (seed LIB_SEED, in the
+order `build_bundle` draws them) and `radial_synth.h5` (EXTRA_LIB_SEED),
+into DIR/libs: the committed `upside_md_torch/data/libs/`, from which the
+port's own builder (`upside_md_torch/config/builder.py`) builds the same
+configurations on a machine without jax or h5py.
 
 The second form converts a `.up` config the user wrote (any system the
 JAX reader loads) into `NAME.npz`, the same chain the synthetic systems
@@ -332,6 +340,22 @@ def smooth_rama_maps(n_res, rng, n_grid=72):
     return maps
 
 
+def write_libs(lib_dir):
+    """The synthetic libraries the bundles are built from, from the rng
+    streams `build_bundle` and `add_extras` draw them from (the sidechain
+    and environment libraries from LIB_SEED, then the radial one from
+    EXTRA_LIB_SEED); returns their paths."""
+    rng = np.random.default_rng(LIB_SEED)
+    paths = [write_sidechain_library(
+                 os.path.join(lib_dir, "sidechain_synth.h5"), rng),
+             write_environment_library(
+                 os.path.join(lib_dir, "environment_synth.h5"), rng)]
+    rng = np.random.default_rng(EXTRA_LIB_SEED)
+    paths.append(write_radial_library(
+        os.path.join(lib_dir, "radial_synth.h5"), rng))
+    return paths
+
+
 def build_bundle(name, out_dir, lib_dir, keep_up=False):
     """Build one system the way build_full_system does; write its bundle,
     and with `keep_up` the `.up` it was exported from beside it."""
@@ -472,8 +496,19 @@ def main(argv=None):
     ap.add_argument("--keep-up", action="store_true",
                     help="also write each built system's .up beside its "
                     "bundle (NAME.up)")
+    ap.add_argument("--libs", action="store_true",
+                    help="write the synthetic sidechain, environment and "
+                    "radial libraries into OUT/libs instead")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    if args.libs:
+        if args.up or args.only:
+            ap.error("--libs excludes --up and --only")
+        lib_dir = os.path.join(args.out, "libs")
+        os.makedirs(lib_dir, exist_ok=True)
+        for path in write_libs(lib_dir):
+            print(f"{path}: {os.path.getsize(path)} bytes")
+        return
     if args.up:
         if args.only:
             ap.error("--up and --only exclude each other")

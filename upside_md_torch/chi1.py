@@ -1,15 +1,16 @@
 """Chi1 rotamer-state prediction (port of upside_md_tpu/chi1.py; reference
 py/predict_chi1.py): BASELINE config 5.
 
-The prediction config (loose hbond criteria, dynamic rotamer 1-body, no
-backbone sterics or springs, hbond energy -1e-5) is built on the machine
-with jax and exported as a bundle whose aux section `chi1` carries the
-sidechain library's `restype_order` and `restype_and_chi_and_state`
-table and the sequence (`tools/export_torch_bundle.py`).  Here one
-evaluation over a batch of configurations gives the sensitivities of the
-`hbond_coverage` output, which are the posterior bead marginals by the
-envelope theorem, and the library table maps them to chi1-bin
-probabilities per residue.
+Pipeline: PDB -> config (loose hbond criteria, dynamic rotamer 1-body, no
+backbone sterics or springs, hbond energy -1e-5), built by the port's
+`config/builder.py` -> one evaluation over a batch of configurations ->
+the sensitivities of the `hbond_coverage` output, which are the posterior
+bead marginals by the envelope theorem -> the sidechain library's
+`restype_and_chi_and_state` table maps them to chi1-bin probabilities per
+residue (`predict_chi1_from_pdb`, the `predict_chi1` command line).  The
+same config exported as a bundle carries the library's `restype_order`
+and that table and the sequence in its aux section `chi1`
+(`predict_chi1_from_bundle`; `tools/export_torch_bundle.py`).
 """
 
 from __future__ import annotations
@@ -83,17 +84,22 @@ class Chi1Predict:
         """seq: 3-letter sequence; residue: per-bead residue index;
         posterior (n_bead,) or (B, n_bead), numpy or a tensor on any
         device.  Returns float32 chi1-bin probabilities (n_res, 3) or (B,
-        n_res, 3) of the same kind."""
+        n_res, 3) of the same kind.  Each (residue, bin) cell sums its
+        beads by a gather in bead order, the same on every run (an
+        index_add would sum with float atomics on the card)."""
         is_tensor = isinstance(rotamer_posterior_prob, torch.Tensor)
         prob = torch.as_tensor(rotamer_posterior_prob).to(torch.float32)
         one = prob.dim() == 1
         prob = prob.reshape(-1, prob.shape[-1])
-        n_res = len(seq)
-        cell = torch.as_tensor(np.asarray(residue) * 3
-                               + self.bead_bins(seq, residue),
-                               device=prob.device)
-        out = prob.new_zeros((prob.shape[0], n_res * 3)).index_add_(
-            1, cell, prob).reshape(-1, n_res, 3)
+        n_res, n_bead = len(seq), prob.shape[-1]
+        cell = np.asarray(residue) * 3 + self.bead_bins(seq, residue)
+        beads = [np.flatnonzero(cell == k) for k in range(n_res * 3)]
+        table = np.full((n_res * 3, max(map(len, beads))), n_bead)
+        for k, b in enumerate(beads):
+            table[k, :len(b)] = b
+        out = torch.nn.functional.pad(prob, (0, 1))[
+            :, torch.as_tensor(table, device=prob.device)].sum(-1).reshape(
+            -1, n_res, 3)
         fixed = torch.as_tensor(np.isin(np.asarray(seq), FIXED),
                                 device=prob.device)
         out[:, fixed] = torch.tensor([1.0, 0.0, 0.0], device=prob.device)
@@ -137,3 +143,91 @@ def predict_chi1_from_bundle(path, device="cuda", pos=None,
         torch.cuda.synchronize(sens.device)
     elapsed = time.perf_counter() - t0
     return predictor.predict_chi1(seq, residue, sens), seq, elapsed
+
+
+def predict_chi1_from_pdb(pdb_text, sidechain_param, chains=None,
+                          device="cuda", dtype=torch.float32):
+    """Chi1 prediction from PDB text, as the JAX package's
+    `predict_chi1_from_pdb` (chi1.py:85-121): the prediction config built
+    by the port's builder into a temporary `.up` (the reference's flags,
+    predict_chi1.py:83-94: no basic springs or backbone sterics, loose
+    hbond criteria, dynamic rotamer 1-body, hbond energy -1e-5), then as
+    `predict_chi1_from_bundle` one `get_sens(pos, "hbond_coverage")` at
+    the structure's coordinates.  Runs on the card unless `device` says
+    otherwise.  Returns (chi1 probabilities (n_res, 3) numpy float32, the
+    `extract_initial_structure` dict, seconds of the evaluation)."""
+    import os
+    import tempfile
+
+    from .config.builder import ConfigBuilder
+    from .io.pdb import extract_initial_structure
+
+    info = extract_initial_structure(pdb_text, chains=chains,
+                                     allow_unexpected_breaks=True)
+    b = ConfigBuilder(f">x\n{info['fasta']}\n", initial_pos=info['coords'])
+    b.add_rotamer_sidechains(sidechain_param, sidechain_param, damping=0.4,
+                             dynamic_1body=True)
+    b.add_hbond(hbond_energy=-1e-5, loose=True,
+                coverage_library=sidechain_param)
+    b.add_rotamer_node()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = b.write(os.path.join(tmp, "predict_chi1.up"))
+        system, pos = System.from_up(path, device, dtype)
+    residue = system.consts["placement_fixed_point_vector_only"][
+        "affine_residue"].cpu().numpy()
+    t0 = time.perf_counter()
+    sens = system.get_sens(pos[None], "hbond_coverage")[0, :, 0]
+    if sens.is_cuda:
+        torch.cuda.synchronize(sens.device)
+    elapsed = time.perf_counter() - t0
+    predictor = Chi1Predict.from_library(sidechain_param)
+    chi1_prob = predictor.predict_chi1(info['sequence'], residue,
+                                       sens.cpu().numpy())
+    return chi1_prob, info, elapsed
+
+
+def main(argv=None):
+    """predict_chi1 command line (reference py/predict_chi1.py:60-130, the
+    JAX package's chi1.main): reads a PDB, evaluates the loose-hbond
+    prediction config once, and writes the per-residue chi1 rotamer-well
+    probability table in the reference's column layout, printing the
+    paper's evaluation-time metric."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="predict_chi1",
+        description="chi1 rotamer-state prediction from a PDB structure")
+    p.add_argument("pdb_input")
+    p.add_argument("sidechain_param", help="sidechain parameter .h5")
+    p.add_argument("chi_output", help="output table path")
+    p.add_argument("--chains", default=None,
+                   help="comma-separated chain ids to include")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the evaluation (default cuda)")
+    args = p.parse_args(argv)
+
+    chains = args.chains.split(",") if args.chains else None
+    with open(args.pdb_input) as f:
+        pdb_text = f.read()
+    chi1_prob, info, elapsed = predict_chi1_from_pdb(
+        pdb_text, args.sidechain_param, chains=chains, device=args.device)
+
+    seq = info["sequence"]
+    print("Time to compute %.5f seconds for %i residues"
+          % (elapsed, len(seq)))
+    chi_true = np.asarray(info["chi"])
+    chain_resnum = info["chain_resnum"]
+    with open(args.chi_output, "w") as f:
+        f.write("residue restype chain resnum chi1_prob0 chi1_prob1 "
+                "chi1_prob2 chi1_from_input_file\n")
+        for i in range(len(seq)):
+            chain, resnum = chain_resnum[i]
+            f.write("%i %s %s %s %.4f %.4f %.4f %.1f\n" % (
+                i, ("PRO" if seq[i] == "CPR" else seq[i]), chain, resnum,
+                chi1_prob[i, 0], chi1_prob[i, 1], chi1_prob[i, 2],
+                chi_true[i, 0] / deg if np.isfinite(chi_true[i, 0])
+                else -1.0))
+
+
+if __name__ == "__main__":
+    main()

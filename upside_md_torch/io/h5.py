@@ -11,9 +11,10 @@ levels, the ones h5py writes by default (`libver="earliest"`):
 * old-style groups: a symbol-table message naming a version 1 B-tree of
   type 0, a local heap of link names and symbol-table nodes (SNOD);
 * messages: dataspace (versions 1 and 2), datatype (fixed-point, IEEE
-  float, fixed-length string; variable-length strings in attributes
-  only), fill value, data layout version 3 (compact, contiguous, chunked
-  with a version 1 B-tree of type 1) and attribute (versions 1-3).
+  float, fixed-length string, h5py's bool enumeration; variable-length
+  strings in attributes only), fill value, data layout version 3
+  (compact, contiguous, chunked with a version 1 B-tree of type 1) and
+  attribute (versions 1-3).
 
 The reader reads all of that, which covers the writer's files and what
 h5py writes by default, and chunks filtered by deflate (gzip, through the
@@ -27,8 +28,11 @@ returns data it did not understand.
 
 The writer (`Writer`) makes groups, fixed-size contiguous datasets,
 extensible datasets (unlimited first axis, chunked along it only) and
-attributes.  `Writer.append` adds rows to an extensible dataset without
-rewriting anything: it fills the last chunk in place, puts new chunks at
+attributes, storing each type as h5py does: numpy bools as h5py's int8
+enumeration, a str attribute (or an array of str) as variable-length
+UTF-8 strings in a global heap, bytes as fixed-length strings.
+`Writer.append` adds rows to an extensible dataset without rewriting
+anything: it fills the last chunk in place, puts new chunks at
 the end of the file, moves the superblock's end-of-file address past
 them, then patches a fixed number of metadata bytes in place (the chunk
 B-tree's new entries and the dataspace's current size).  A file is thus
@@ -189,10 +193,31 @@ def _datatype(data, where):
         return np.dtype(f"{order}f{size}"), 20
     if cls == 3:
         return np.dtype(f"S{size}"), 8
+    if cls == 8:
+        return _enum(data, bits & 0xFFFF, size, where)
     if cls == 9 and bits & 0x0F == 1:
         return "vlen-str", 8 + _datatype(data[8:], where)[1]
     raise UnsupportedFeature(f"{where}: {TYPE_CLASSES.get(cls, cls)} "
                              f"datatype (class {cls}, version {version})")
+
+
+def _enum(data, n, size, where):
+    """An enumeration datatype: h5py's bool (an int8 enumeration of FALSE
+    = 0 and TRUE = 1) is read as numpy's bool; any other enumeration
+    raises.  Returns (dtype, bytes the message used)."""
+    base, p = _datatype(data[8:], where)
+    p += 8
+    names = []
+    for _ in range(n):
+        end = bytes(data[p:]).index(b"\0")
+        names.append(bytes(data[p:p + end]).decode())
+        p += _pad8(end + 1)
+    values = bytes(data[p:p + n * size])
+    if (base != np.dtype("i1") or names != ["FALSE", "TRUE"]
+            or values != b"\0\1"):
+        raise UnsupportedFeature(f"{where}: an enumeration datatype other "
+                                 "than h5py's bool")
+    return np.dtype(bool), p + n * size
 
 
 def _fill(msgs):
@@ -609,14 +634,25 @@ def _le(dtype):
     dtype = np.dtype(dtype)
     if dtype.kind == "U":
         raise TypeError("unicode arrays: encode them to bytes ('S') first")
-    if dtype.kind not in "iufS" or (dtype.kind == "f"
-                                    and dtype.itemsize not in (4, 8)):
+    if dtype.kind not in "biufS" or (dtype.kind == "f"
+                                     and dtype.itemsize not in (4, 8)):
         raise TypeError(f"cannot write dtype {dtype}")
-    return dtype.newbyteorder("<") if dtype.kind != "S" else dtype
+    return dtype.newbyteorder("<") if dtype.kind in "iuf" else dtype
+
+
+# h5py's bool: an int8 enumeration, FALSE = 0 and TRUE = 1
+BOOL_MSG = (struct.pack("<B3BI", 0x18, 2, 0, 0, 1)
+            + struct.pack("<B3BIHH", 0x10, 0x08, 0, 0, 1, 0, 8)
+            + b"FALSE\0\0\0TRUE\0\0\0\0\0\1")
+# a variable-length UTF-8 string of unsigned bytes, as h5py writes a str
+VLEN_STR_MSG = (struct.pack("<B3BI", 0x19, 0x01, 0x01, 0, 16)
+                + struct.pack("<B3BIHH", 0x10, 0, 0, 0, 1, 0, 8))
 
 
 def _datatype_msg(dtype):
     size = dtype.itemsize
+    if dtype.kind == "b":
+        return BOOL_MSG
     if dtype.kind in "iu":
         return struct.pack("<B3BIHH", 0x10, 8 if dtype.kind == "i" else 0,
                            0, 0, size, 0, 8 * size)
@@ -643,7 +679,8 @@ def _fill_msg(alloc_time):
 
 
 def _as_array(value):
-    """An attribute or dataset value as an array the writer can store."""
+    """A dataset value as an array the writer can store (text as
+    fixed-length bytes)."""
     if isinstance(value, str):
         value = value.encode()
     a = np.asarray(value)
@@ -652,19 +689,32 @@ def _as_array(value):
                       for s in a.ravel()]).reshape(a.shape)
     if a.dtype.kind == "U":
         a = np.char.encode(a)
-    if a.dtype.kind == "b":
-        raise TypeError("boolean arrays: store them as integers")
     return np.asarray(a, _le(a.dtype), order="C")
 
 
-def _attribute_msg(name, value):
-    a = _as_array(value)
+def _vlen_strings(value):
+    """An attribute value that h5py stores as variable-length strings (a
+    str, a unicode array, an object array of str, as read back) as an
+    object array of their UTF-8 bytes; None for any other value."""
+    if isinstance(value, str):
+        return np.array(value.encode(), dtype=object)
+    a = np.asarray(value) if isinstance(value, (list, tuple, np.ndarray)) \
+        else None
+    if a is None or a.dtype.kind not in "UO" or (
+            a.dtype == object and not all(isinstance(s, str)
+                                          for s in a.ravel())):
+        return None
+    return np.array([s.encode() for s in a.ravel().tolist()],
+                    dtype=object).reshape(a.shape)
+
+
+def _attribute_msg(name, dt, shape, data):
     name_b = name.encode() + b"\0"
-    dt, ds = _datatype_msg(a.dtype), _dataspace_msg(a.shape)
+    ds = _dataspace_msg(shape)
     return (struct.pack("<BBHHH", 1, 0, len(name_b), len(dt), len(ds))
             + name_b.ljust(_pad8(len(name_b)), b"\0")
             + dt.ljust(_pad8(len(dt)), b"\0")
-            + ds.ljust(_pad8(len(ds)), b"\0") + a.tobytes())
+            + ds.ljust(_pad8(len(ds)), b"\0") + data)
 
 
 class _Extensible:
@@ -749,9 +799,44 @@ class Writer:
                                       len(body)) + body)
         return addr, [addr + a for a in at]
 
+    def _global_heap(self, objects):
+        """Write a global heap collection of `objects` (bytes), numbered
+        from 1, at the end of the file; returns its address.  It takes at
+        least the library's 4 KiB, the rest an object 0 of free space."""
+        body = b"".join(struct.pack("<HH4xQ", i, 1, len(b))
+                        + b.ljust(_pad8(len(b)), b"\0")
+                        for i, b in enumerate(objects, 1))
+        size = max(4096, 16 + len(body) + 16)
+        addr = self._alloc(size)
+        free = size - 16 - len(body)
+        self._write(addr, b"GCOL" + struct.pack("<B3xQ", 1, size) + body
+                    + struct.pack("<HH4xQ", 0, 0, free)
+                    + b"\0" * (free - 16))
+        return addr
+
     def _attrs(self, attrs):
-        return [(ATTRIBUTE, 0, _attribute_msg(k, v))
-                for k, v in (attrs or {}).items()]
+        """Attribute messages of `attrs`, as h5py writes them: a str (or
+        an array of str) as variable-length strings, in one global heap
+        collection for all of them."""
+        attrs = dict(attrs or {})
+        vlen = {k: _vlen_strings(v) for k, v in attrs.items()}
+        flat = [b for v in vlen.values() if v is not None
+                for b in v.ravel()]
+        heap = self._global_heap(flat) if flat else None
+        out, index = [], 1
+        for k, v in attrs.items():
+            if vlen[k] is None:
+                a = _as_array(v)
+                msg = _attribute_msg(k, _datatype_msg(a.dtype), a.shape,
+                                     a.tobytes())
+            else:
+                s = vlen[k]
+                data = b"".join(struct.pack("<IQI", len(b), heap, index + i)
+                                for i, b in enumerate(s.ravel()))
+                index += s.size
+                msg = _attribute_msg(k, VLEN_STR_MSG, s.shape, data)
+            out.append((ATTRIBUTE, 0, msg))
+        return out
 
     def _link(self, path, addr):
         parent, _, name = path.strip("/").rpartition("/")

@@ -317,11 +317,15 @@ def rotamer_diagnostics(consts, params, inputs, plain=False):
 def rotamer_1body_energy(consts, params, inputs, prob_node_index,
                          plain=False):
     """Marginal-weighted 1-body energy (B, R) of one energy input
-    (rotamer.cpp:904-926)."""
+    (rotamer.cpp:904-926), summed per residue by gathering each slot's
+    beads (`slot_beads`), in a fixed order: an index_add would sum with
+    float atomics on the card, in an order that varies run to run."""
     w = rotamer_diagnostics(consts, params, inputs, plain)["bead_marginal"]
     e_bead = inputs[1 + prob_node_index][:, consts["index"], 0]
-    out = e_bead.new_zeros((e_bead.shape[0], consts["bp"].n_res))
-    return out.index_add(1, consts["res"], w * e_bead)
+    st = consts["bp"]
+    v = torch.nn.functional.pad(w * e_bead, (0, st.n2p + 1 - st.n_bead))
+    return v[:, st.slot_beads].sum(-1).reshape(
+        v.shape[0], st.n_res, NROT).sum(-1)
 
 
 def rotamer_marginals(consts, params, inputs, plain=False):

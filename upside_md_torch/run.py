@@ -1,11 +1,11 @@
 """Job orchestration (port of upside_md_tpu/run.py; reference
-py/run_upside.py): launching the command line in process or as a
-subprocess, continuing interrupted runs, and replica-ladder swap sets.
+py/run_upside.py): building a `.up` from a FASTA and parameter libraries,
+launching the command line in process or as a subprocess, continuing
+interrupted runs, and replica-ladder swap sets.
 
-The configurations are `.up` files, which the port reads without h5py
-(`config/reader.py`), or spec bundles (`.npz`).  The JAX package's
-`upside_config`, which builds a `.up` through `config/builder.py`, is not
-ported yet, so the `.up` comes from that package or the reference.
+The configurations are `.up` files, which the port builds and reads
+without h5py (`config/builder.py`, `config/reader.py`), or spec bundles
+(`.npz`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,53 @@ import numpy as np
 
 from .cli import output_path
 from .io import h5
+
+
+def upside_config(fasta, output_path, initial_structure=None,
+                  rama_maps=None, rama_library=None, sheet_mixing=None,
+                  hbond_energy=0.0, backbone=True,
+                  rotamer_placement=None, rotamer_interaction=None,
+                  dynamic_rotamer_1body=True, rotamer_damping=0.4,
+                  environment_potential=None, cavity_radius=0.0,
+                  fix_rotamer=None, seed=0):
+    """Programmatic equivalent of the upside_config.py CLI: assemble a
+    `.up` file from a FASTA (text starting with '>' or a path) plus
+    parameter libraries, in the JAX package's order (run.py:22-66)."""
+    from .config.builder import ConfigBuilder
+
+    init = None
+    if initial_structure is not None:
+        if isinstance(initial_structure, (str, os.PathLike)):
+            init = pickle.load(open(initial_structure, 'rb'),
+                               encoding='latin1')
+            init = np.asarray(init)[..., 0] if init.ndim == 3 else init
+        else:
+            init = np.asarray(initial_structure)
+
+    b = ConfigBuilder(fasta if fasta.startswith('>') else open(fasta).read(),
+                      initial_pos=init, seed=seed)
+    b.add_backbone_springs()
+    if rama_library:
+        b.add_rama_map_pot_from_library(rama_library, sheet_mixing)
+    elif rama_maps is not None:
+        b.add_rama_map_pot(rama_maps)
+    if rotamer_placement and rotamer_interaction:
+        b.add_rotamer_sidechains(rotamer_placement, rotamer_interaction,
+                                 damping=rotamer_damping,
+                                 dynamic_1body=dynamic_rotamer_1body,
+                                 fix_rotamer=fix_rotamer)
+    if hbond_energy:
+        b.add_hbond(hbond_energy=hbond_energy,
+                    coverage_library=rotamer_interaction)
+    if environment_potential:
+        b.add_environment(environment_potential)
+    if rotamer_placement and rotamer_interaction:
+        b.add_rotamer_node()
+    if backbone:
+        b.add_backbone_pairs()
+    if cavity_radius:
+        b.add_cavity_radial(cavity_radius)
+    return b.write(output_path)
 
 
 def run_upside(config_paths: List[str], duration, frame_interval,
