@@ -43,7 +43,13 @@ checks them:
   rebuilt from the committed synthetic libraries
   (`upside_md_torch/data/libs`), Upside's PDB -> `upside_config` ->
   `upside` chain as subprocesses, and chi1 from a PDB (K1 fwd, K1 bwd,
-  K2).
+  K2);
+* replica ensembles over ranks (`parallel/mesh.py`): ubiquitin sharded
+  over 1 NCCL rank and over 2 and 4 ranks sharing the card, config 4's
+  exchange and a training step across 4 ranks, the multi-rank dry run
+  (K1 fwd, K1 bwd, K2 on every rank); BASELINE configs 1 (trp-cage,
+  backbone only, no kernel) and 3 (protein G, the 10 Å family: K1 fwd, K1
+  bwd, K2 at k = 12) built on this machine by `bench_systems`.
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -227,7 +233,38 @@ the bundle's seed.  Phases:
    `predict_chi1_from_pdb` on that PDB within 1e-6 of
    `predict_chi1_from_bundle` at the PDB's coordinates (K1 fwd and K2
    twice; the wall time of a prediction);
-13. prints the kernel table as one JSON line (launches summed over the
+13. replica sharding over ranks (`upside_md_torch/parallel/mesh.py`)
+   and BASELINE configs 1 and 3 built by the port's `bench_systems`:
+   `[mesh nccl 1]` world size 1 over NCCL in this process, ubiquitin at 64
+   replicas, 3 rounds with a thermostat step each round: positions against
+   one process's `Simulation.advance` on the same draws, rel 1e-6, no
+   collective counted and no nccl or gloo event profiled inside the
+   advance, K1 fwd, K1 bwd and K2 launched as often; `[mesh gloo 2]`,
+   `[mesh gloo 4]` the same on 2 and 4 spawned ranks sharing the card over
+   Gloo, rel 1e-5, every rank's launches equal to one process's, steps/s
+   summed over the ranks beside one process's (5 timed rounds; card
+   sharing, not a claim); `[mesh rex cytochrome_c]` BASELINE config 4 (64
+   slots, the ladder, swaps every 10 rounds, 40 rounds) on the 4 ranks,
+   `sharded_attempt_swaps` between sharded Hamiltonian advances, against
+   `cli.run_ensemble` in one process from the same seed: replica_index and
+   swap stats equal, carried energies rel 1e-6, swap acceptance printed;
+   `[mesh train]` one data-parallel step over the 4 ranks (16 positions):
+   every gradient leaf and the loss rel 1e-5 against one process's;
+   `[mesh dryrun gloo 2]` the dry run's five steps
+   (`upside_md_torch.parallel.dryrun.dryrun_rank`) on the two ranks of
+   `[mesh gloo 2]`, full ubiquitin built by `bench_systems`, every
+   rank's audit clean; `[mesh nccl multi]` the dry
+   run over NCCL on every card where there is more than one, otherwise a
+   line saying it did not run; `[bench config1 trp_cage]` (backbone only:
+   no hand-written kernel on its path, none launched) card float32
+   against the CPU in float64, energy and force RMS rel 1e-4, MD at 64
+   and 512 replicas; `[bench config3 protein_g]` (the 10 Å family on a
+   library written at run time) K1 fwd and bwd and K2 against their plain
+   versions as phase 3 holds them, the whole evaluation against
+   `kernels=False` at BP tol 1e-6 (energy and force RMS rel < 1e-3), live
+   pairs a walked tile beside ubiquitin's, the three kernels' ms a call at
+   64 replicas, MD at 64 and 512 replicas with its mean BP sweeps;
+14. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -360,6 +397,21 @@ UBIQUITIN = ("MQIFVKTLTGKTITLEVEPSDTIENVKAKIQDKEGIPPDQQRLIFAGKQLEDGRTLSDYNIQ"
 BUILD_SLOTS, BUILD_ROUNDS, BUILD_EVERY = 64, 60, 10
 PDB_SLOTS, PDB_ROUNDS = 64, 30
 BUILD_EVAL_TOL, CHI1_PDB_TOL = 1e-4, 1e-6
+# phase 13: replica sharding over ranks.  Ubiquitin at 64 replicas, 3
+# compared rounds with a thermostat step every round (so each draws the
+# whole ensemble's noise), then 5 timed rounds; sharded positions against
+# the unsharded run: rel 1e-6 at world size 1 over NCCL, 1e-5 on ranks
+# sharing the card over Gloo; config 4 over 4 ranks for 40 rounds
+# (energies rel 1e-6); one training step over 4 ranks on 16 positions
+# (each gradient leaf rel 1e-5 against one process's)
+MESH_REPLICAS, MESH_ROUNDS, MESH_TIMED_ROUNDS = 64, 3, 5
+MESH_THERMOSTAT, MESH_SEED = 0.027, 11
+MESH_NCCL_TOL, MESH_GLOO_TOL = 1e-6, 1e-5
+MESH_REX_RANKS, MESH_REX_ROUNDS, MESH_REX_TOL = 4, 40, 1e-6
+MESH_TRAIN_BATCH, MESH_TRAIN_TOL = 16, 1e-5
+# BASELINE configs 1 and 3 built by the port's bench_systems: replicas,
+# timed rounds (3 x), and config 1's card float32 against the CPU float64
+BENCH_REPLICAS, BENCH_ROUNDS, BENCH_HOST_TOL = (64, 512), 3, 1e-4
 
 
 def log(msg):
@@ -3802,6 +3854,594 @@ def chi1_pdb(dev, pdb, chi1_path):
             "launches": launches}, {k: v for k, v in launches.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: replica sharding over ranks, BASELINE configs 1 and 3
+# ---------------------------------------------------------------------------
+
+def mesh_sim(system, seed=MESH_SEED, thermostat=MESH_THERMOSTAT):
+    from upside_md_torch.md.sim import Simulation
+    return Simulation(system, dt=0.009, thermostat_interval=thermostat,
+                      do_recenter=False, seed=seed)
+
+
+def mesh_temps(n):
+    import numpy as np
+    return 0.80 * 1.02 ** np.arange(n)
+
+
+def mesh_state(sim, pos0, n):
+    return sim.initial_state(pos0, n, mesh_temps(n))
+
+
+def mesh_reference(path, dev):
+    """The one-process run the sharded ones are held to: ubiquitin at
+    MESH_REPLICAS from its initial state, MESH_ROUNDS rounds (positions,
+    launches), then MESH_TIMED_ROUNDS timed rounds (steps/s)."""
+    import torch
+    from upside_md_torch.ops import kernels
+    system, pos0 = load_system(path, dev)
+    sim = mesh_sim(system)
+    state = mesh_state(sim, pos0, MESH_REPLICAS)
+    kernels.reset_counts()
+    state = sim.advance(state, MESH_ROUNDS)
+    torch.cuda.synchronize()
+    launches = {nm: kernels.LAUNCHES[nm] for nm in FUSED_KERNELS}
+    pos = state.pos.clone()
+    t0 = time.perf_counter()
+    state = sim.advance(state, MESH_TIMED_ROUNDS)
+    torch.cuda.synchronize()
+    rate = 3 * MESH_TIMED_ROUNDS * MESH_REPLICAS / (time.perf_counter() - t0)
+    log(f"[mesh reference] one process, {MESH_REPLICAS} replicas: launches "
+        f"in {MESH_ROUNDS} rounds {launches}; {rate:.1f} steps/s over "
+        f"{MESH_TIMED_ROUNDS} rounds")
+    return pos, launches, rate
+
+
+def sharded_run(mesh, path, timed=True):
+    """On one rank: ubiquitin's sharded advance of MESH_ROUNDS rounds with
+    its launches and collectives counted and its window profiled
+    (`dryrun.audited`), the gathered positions, then MESH_TIMED_ROUNDS
+    rounds timed between a barrier and the card's synchronize."""
+    import torch
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.parallel import dryrun
+    from upside_md_torch.parallel import mesh as M
+    system, pos0 = load_system(path, mesh.device)
+    sim = mesh_sim(system)
+    state = M.shard_replica_state(mesh_state(sim, pos0, MESH_REPLICAS), mesh)
+    advance = M.sharded_advance(sim, mesh, MESH_ROUNDS)
+    audit = []
+    kernels.reset_counts()
+    with dryrun.audited("sharded advance", mesh, audit):
+        state = advance(state)
+    launches = {nm: kernels.LAUNCHES[nm] for nm in FUSED_KERNELS}
+    whole = M.gather_replica_state(state, mesh)
+    out = {"pos": whole.pos.cpu(), "launches": launches, "audit": audit[0],
+           "local_replicas": state.pos.shape[0]}
+    if timed:
+        more = M.sharded_advance(sim, mesh, MESH_TIMED_ROUNDS)
+        mesh.barrier()
+        t0 = time.perf_counter()
+        state = more(state)
+        torch.cuda.synchronize(mesh.device)
+        out["wall_s"] = time.perf_counter() - t0
+    if not torch.isfinite(state.pos).all():
+        raise AssertionError(f"rank {mesh.rank}: positions not finite")
+    return out
+
+
+def rank_rex(mesh, path):
+    """On one rank: BASELINE config 4 (phase 7's ladder, temperatures and
+    swap sets, no MC) for MESH_REX_ROUNDS rounds, the sharded Hamiltonian
+    advance between exchanges every REX_EVERY rounds across the ranks, as
+    `cli.run_ensemble` schedules them; launches and collectives counted."""
+    import torch
+    from upside_md_torch.cli import event_rounds
+    from upside_md_torch.md.replica import (ReplicaExchange,
+                                            even_odd_swap_sets)
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.parallel import mesh as M
+    n = REX_REPLICAS
+    system, pos0 = load_system(path, mesh.device)
+    mixed, spec = ladder(system, n)
+    sim = mesh_sim(system, seed=4, thermostat=0.135)
+    whole = mesh_state(sim, pos0, n)
+    beta = 1.0 / whole.initial_temperature
+    state = M.shard_replica_state(whole, mesh)
+    advance, local = M.sharded_hamiltonian_advance(sim, mesh, REX_EVERY,
+                                                   mixed, spec)
+    energy_of = sim.energy_fn(local)
+    rex = ReplicaExchange(even_odd_swap_sets(n), n)
+    idx, stats, energies = torch.arange(n, device=mesh.device), None, None
+    kernels.reset_counts()
+    M.reset_counts()
+    in_advances = 0
+    t0 = time.perf_counter()
+    for target, _, exchange in event_rounds(0, MESH_REX_ROUNDS, REX_EVERY,
+                                            REX_EVERY):
+        before = sum(M.COLLECTIVES.values())
+        state = advance(state)
+        in_advances += sum(M.COLLECTIVES.values()) - before
+        if exchange:
+            state, idx, stats, energies = M.sharded_attempt_swaps(
+                mesh, rex, state, idx, beta, energy_of, stats,
+                generator=sim.generator)
+    torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - t0
+    return {"index": idx.cpu(), "stats": [s.cpu() for s in stats],
+            "energies": energies.cpu(), "wall_s": wall,
+            "pos": M.gather_replica_state(state, mesh).pos.cpu(),
+            "launches": {nm: kernels.LAUNCHES[nm] for nm in FUSED_KERNELS},
+            "collectives": dict(M.COLLECTIVES),
+            "collectives_in_advances": in_advances}
+
+
+def rank_train(mesh, path, batch):
+    """On one rank: one data-parallel training step of the energy loss on
+    its rows of `batch` (targets 0); the optimizer hands the averaged
+    gradients back as its state."""
+    import torch
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.parallel import mesh as M
+    system, _ = load_system(path, mesh.device)
+    x = torch.as_tensor(batch, device=mesh.device)
+    step = M.sharded_training_step(system, lambda p, g, s: (p, g), mesh)
+    kernels.reset_counts()
+    _, grads, loss = step(system.params, None, x,
+                          torch.zeros(x.shape[0], device=mesh.device))
+    torch.cuda.synchronize(mesh.device)
+    return {"grads": {n: {k: g.cpu() for k, g in leaves.items()}
+                      for n, leaves in grads.items()},
+            "loss": loss.item(),
+            "launches": {nm: kernels.LAUNCHES[nm] for nm in FUSED_KERNELS}}
+
+
+def rank_dryrun(mesh):
+    """On one rank: the dry run's five steps (`dryrun.dryrun_rank`) on full
+    ubiquitin built by `bench_systems`, two replicas a rank."""
+    from upside_md_torch import bench_systems
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.parallel import dryrun
+    system, params, pos, _ = bench_systems.build_full_system(
+        device=mesh.device)
+    kernels.reset_counts()
+    out = dryrun.dryrun_rank(mesh, system, params, pos, 2 * mesh.size)
+    out["launches"] = {nm: kernels.LAUNCHES[nm] for nm in FUSED_KERNELS}
+    return out
+
+
+MESH_JOBS = {"advance": sharded_run, "rex": rank_rex, "train": rank_train,
+             "dryrun": rank_dryrun}
+
+
+def mesh_rank(rank, world, init, out_dir, jobs):
+    """A spawned rank sharing cuda:0 over Gloo: each job of `jobs` ((name,
+    args) of MESH_JOBS) in turn, the results saved for the parent."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from upside_md_torch.parallel import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = M.make_replica_mesh(world, rank, "cuda:0", "gloo", init)
+    try:
+        out = {job: MESH_JOBS[job](mesh, *args) for job, args in jobs}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def spawn_ranks(world, jobs):
+    """Run `jobs` on `world` spawned ranks sharing the card; their results
+    by rank and the wall time of the spawn."""
+    import tempfile
+    import torch
+    from upside_md_torch.parallel.dryrun import free_port
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(
+            mesh_rank, (world, f"tcp://localhost:{free_port()}", tmp, jobs),
+            nprocs=world)
+        out = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(world)]
+    return out, time.perf_counter() - t0
+
+
+def check_audit(label, audit):
+    if audit["collectives"] or audit["comm_events"]:
+        raise AssertionError(f"{label}: {audit['collectives']} collectives, "
+                             f"events {audit['comm_events']} inside the "
+                             "advance")
+
+
+def mesh_nccl_one(dev, path, ref_pos, ref_launches):
+    """`[mesh nccl 1]`: world size 1 over NCCL in this process; the sharded
+    advance against the one-process run (rel MESH_NCCL_TOL), no collective
+    and no NCCL or Gloo event inside it, launches as the reference's."""
+    from upside_md_torch.parallel import mesh as M
+    from upside_md_torch.parallel.dryrun import free_port
+    mesh = M.make_replica_mesh(1, 0, dev, "nccl",
+                               f"tcp://localhost:{free_port()}")
+    try:
+        run = sharded_run(mesh, path, timed=False)
+    finally:
+        mesh.close()
+    err = rel_err(run["pos"].to(ref_pos.device), ref_pos)[0]
+    check(f"[mesh nccl 1] {MESH_REPLICAS} replicas, {MESH_ROUNDS} rounds: "
+          "sharded positions against one process's", err, MESH_NCCL_TOL)
+    check_audit("[mesh nccl 1]", run["audit"])
+    if run["launches"] != ref_launches:
+        raise AssertionError(f"[mesh nccl 1] launches {run['launches']} != "
+                             f"{ref_launches}")
+    log(f"[mesh nccl 1] backend nccl, world size 1: no collective and no "
+        f"nccl or gloo event inside the advance; launches {run['launches']}")
+    return {"pos_rel": err, "launches": run["launches"],
+            "audit": run["audit"]}, run["launches"]
+
+
+def mesh_gloo(world, ranks, ref_pos, ref_launches, one_rate):
+    """`[mesh gloo W]`: every rank's gathered positions against the
+    one-process run (rel MESH_GLOO_TOL), each rank's launches equal to it,
+    no collective and no NCCL or Gloo event inside the advance; steps/s
+    summed over the ranks (each rank's replicas over its own wall) and of
+    the whole ensemble over the slowest rank's wall, beside one
+    process's."""
+    label = f"[mesh gloo {world}]"
+    runs = [r["advance"] for r in ranks]
+    err = max(rel_err(r["pos"].to(ref_pos.device), ref_pos)[0]
+              for r in runs)
+    check(f"{label} {MESH_REPLICAS} replicas over {world} ranks sharing the "
+          f"card, {MESH_ROUNDS} rounds: sharded positions against one "
+          "process's", err, MESH_GLOO_TOL)
+    for r in runs:
+        check_audit(label, r["audit"])
+        if r["launches"] != ref_launches:
+            raise AssertionError(f"{label} rank launches {r['launches']} != "
+                                 f"one process's {ref_launches}")
+    steps = 3 * MESH_TIMED_ROUNDS
+    summed = sum(steps * r["local_replicas"] / r["wall_s"] for r in runs)
+    whole = steps * MESH_REPLICAS / max(r["wall_s"] for r in runs)
+    log(f"{label} every rank: no collective and no nccl or gloo event "
+        f"inside the advance; launches {runs[0]['launches']} a rank, as one "
+        f"process's; steps/s summed over ranks {summed:.1f}, whole ensemble "
+        f"over the slowest rank {whole:.1f}, one process {one_rate:.1f} "
+        f"({card_line()}; card sharing, not a claim)")
+    return {"pos_rel": err, "steps_per_s_summed": summed,
+            "steps_per_s_whole": whole, "steps_per_s_one_process": one_rate,
+            "walls_s": [r["wall_s"] for r in runs],
+            "launches_per_rank": runs[0]["launches"]}, \
+        {nm: sum(r["launches"][nm] for r in runs) for nm in FUSED_KERNELS}
+
+
+def mesh_rex(ranks, path, dev):
+    """`[mesh rex cytochrome_c]`: the ranks' config 4 against
+    `cli.run_ensemble` in one process from the same seed (so the same
+    uniforms and thermostat draws): replica_index and swap stats equal,
+    the carried energies rel MESH_REX_TOL, no collective inside an
+    advance."""
+    import torch
+    from upside_md_torch.cli import run_ensemble
+    from upside_md_torch.md.replica import (ReplicaExchange,
+                                            even_odd_swap_sets)
+    from upside_md_torch.md.sim import Simulation
+    n = REX_REPLICAS
+    system, pos0 = load_system(path, dev)
+    mixed, spec = ladder(system, n)
+    sim = Simulation(system, dt=0.009, thermostat_interval=0.135,
+                     frame_interval=REX_EVERY * 3 * 0.009, do_recenter=False,
+                     seed=4)
+    state, out = run_ensemble(sim, mesh_state(sim, pos0, n), mixed, spec,
+                              MESH_REX_ROUNDS,
+                              ReplicaExchange(even_odd_swap_sets(n), n),
+                              REX_EVERY)
+    runs = [r["rex"] for r in ranks]
+    for r in runs:
+        if not torch.equal(r["index"], out["replica_index"].cpu()):
+            raise AssertionError("[mesh rex] replica_index differs from "
+                                 "run_ensemble's")
+        if not all(torch.equal(a, b.cpu()) for a, b in
+                   zip(r["stats"], out["rex_stats"])):
+            raise AssertionError("[mesh rex] swap stats differ from "
+                                 "run_ensemble's")
+        if r["collectives_in_advances"]:
+            raise AssertionError("[mesh rex] collectives inside an advance")
+    err = max(rel_err(r["energies"].to(dev), out["energies"])[0]
+              for r in runs)
+    check(f"[mesh rex cytochrome_c] {n} slots over {MESH_REX_RANKS} ranks, "
+          f"{MESH_REX_ROUNDS} rounds: carried energies against "
+          "run_ensemble's", err, MESH_REX_TOL)
+    pos_err = rel_err(runs[0]["pos"].to(dev), state.pos)[0]
+    stats = torch.cat(runs[0]["stats"]).sum(0)
+    acc = stats[0].item() / stats[1].item()
+    steps = 3 * MESH_REX_ROUNDS * n
+    log(f"[mesh rex cytochrome_c] replica_index and swap stats equal to "
+        f"run_ensemble's; swap acceptance {acc:.4f} ({stats[0].item()} of "
+        f"{stats[1].item()}); positions rel {pos_err:.3e}; collectives a "
+        f"rank {runs[0]['collectives']}, none inside an advance; "
+        f"{steps / max(r['wall_s'] for r in runs):.1f} steps/s over the "
+        f"slowest rank, run_ensemble {steps / out['seconds']:.1f}")
+    return {"energies_rel": err, "pos_rel": pos_err, "swap_acceptance": acc,
+            "swaps": stats.tolist(), "collectives": runs[0]["collectives"],
+            "walls_s": [r["wall_s"] for r in runs],
+            "run_ensemble_s": out["seconds"]}, \
+        {nm: sum(r["launches"][nm] for r in runs) for nm in FUSED_KERNELS}
+
+
+def mesh_train(ranks, path, dev, batch):
+    """`[mesh train]`: the ranks' averaged gradient of each leaf against
+    the one-process gradient of the same loss on the whole batch (rel
+    MESH_TRAIN_TOL), and the loss."""
+    import torch
+    system, _ = load_system(path, dev)
+    leaves = {(n, k): v.detach().requires_grad_(True)
+              for n, g in system.params.items() for k, v in g.items()
+              if v.is_floating_point()}
+    params = {n: {k: leaves.get((n, k), v) for k, v in g.items()}
+              for n, g in system.params.items()}
+    with torch.enable_grad():
+        loss = system.energy(batch, params).pow(2).mean()
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    worst, moved = 0.0, 0
+    for (n, k), g in zip(leaves, grads):
+        want = torch.zeros_like(leaves[n, k]) if g is None else g
+        for r in ranks:
+            e = rel_err(r["train"]["grads"][n][k].to(dev), want)[0]
+            worst = max(worst, e)
+        moved += int(want.abs().max().item() > 0)
+    check(f"[mesh train] {MESH_TRAIN_BATCH} positions over "
+          f"{len(ranks)} ranks: every gradient leaf against one process's",
+          worst, MESH_TRAIN_TOL)
+    lerr = max(abs(r["train"]["loss"] - loss.item()) / loss.item()
+               for r in ranks)
+    check("[mesh train] loss against one process's", lerr, MESH_TRAIN_TOL)
+    log(f"[mesh train] {len(leaves)} leaves, {moved} with a nonzero "
+        f"gradient; launches a rank {ranks[0]['train']['launches']}")
+    return {"grad_rel": worst, "loss_rel": lerr, "leaves": len(leaves),
+            "nonzero_leaves": moved}, \
+        {nm: sum(r["train"]["launches"][nm] for r in ranks)
+         for nm in FUSED_KERNELS}
+
+
+def mesh_dryrun(ranks):
+    """`[mesh dryrun gloo 2]`: the dry run's five steps
+    (`upside_md_torch.parallel.dryrun`) on the ranks sharing the card,
+    each rank's audit clean; `[mesh nccl multi]`: `python -m
+    upside_md_torch.parallel.dryrun` over NCCL on every card, run only
+    where there is more than one.  Returns (results, launches summed over
+    the ranks)."""
+    import torch
+    from upside_md_torch.parallel import dryrun
+    runs = [r["dryrun"] for r in ranks]
+    for r in runs:
+        for a in r["audit"]:
+            check_audit(f"[mesh dryrun gloo {len(runs)}] rank {r['rank']} "
+                        f"{a['advance']}", a)
+    log(f"[mesh dryrun gloo {len(runs)}] {runs[0]['replicas']} replicas of "
+        "full ubiquitin built by bench_systems: one sharded round, an "
+        f"exchange (swaps {runs[0]['swaps']}), a training step (loss "
+        f"{runs[0]['loss']:.6g}), a Hamiltonian round; no collective and no "
+        "nccl or gloo event inside either advance on any rank; "
+        f"{max(r['seconds'] for r in runs):.1f} s on the slowest rank")
+    res = {"gloo": runs, "nccl_multi": None}
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[mesh nccl multi] not run: this machine has {cards} card; the "
+            "dry run across cards over NCCL needs more than one")
+    else:
+        t0 = time.perf_counter()
+        out = dryrun.run(cards, "cuda", "nccl")
+        for r in out:
+            for a in r["audit"]:
+                check_audit(f"[mesh nccl multi] rank {r['rank']} "
+                            f"{a['advance']}", a)
+        log(f"[mesh nccl multi] {cards} ranks on "
+            f"{[r['device'] for r in out]}: the dry run's five steps, no "
+            "collective and no nccl or gloo event inside either advance; "
+            f"{time.perf_counter() - t0:.1f} s with the spawn")
+        res["nccl_multi"] = out
+    return res, {nm: sum(r["launches"][nm] for r in runs)
+                 for nm in FUSED_KERNELS}
+
+
+def tol_specs(specs, tol):
+    """The rotamer node's BP tolerance set to `tol` in a copy of specs."""
+    return [dataclasses.replace(s, consts={**s.consts, "tol": tol})
+            if s.node_type.name == "rotamer" else s for s in specs]
+
+
+def bench_md(system, pos0, label, names):
+    """MD at BENCH_REPLICAS with the launch counts set to 0 just before and
+    read just after: steps/s and mean BP sweeps; each of `names` launched,
+    the other kernels not."""
+    import torch
+    from upside_md_torch.ops import kernels
+    md = {}
+    kernels.reset_counts()
+    for n in BENCH_REPLICAS:
+        rate, times, sweeps, state = md_rate(system, pos0, n, BENCH_ROUNDS)
+        md[n] = {"steps_per_s": rate, "times_s": times,
+                 "mean_bp_sweeps": sweeps}
+        log(f"[bench {label}] {n} replicas: {rate:.1f} steps/s (median of "
+            f"{[round(t, 4) for t in times]} s per {BENCH_ROUNDS} rounds)"
+            + (f", mean BP sweeps {sweeps:.2f}" if names else "")
+            + ", positions finite")
+        del state
+        torch.cuda.empty_cache()
+    launches = dict(kernels.LAUNCHES)
+    for nm, v in launches.items():
+        if (v > 0) != (nm in names):
+            raise AssertionError(f"[bench {label}] kernel {nm} launched {v} "
+                                 f"times, expected {'some' if v == 0 else 0}")
+    log(f"[bench {label}] kernel launches: {launches}")
+    return md, {nm: launches[nm] for nm in names}
+
+
+def bench_config1(dev, gen):
+    """`[bench config1 trp_cage]`: BASELINE config 1 built by the port's
+    bench_systems on this machine (trp-cage, backbone only: springs, Rama
+    map, backbone pairs, hbond without coverage; no hand-written kernel
+    lies on its path); the card in float32 against the port on the CPU in
+    float64 (energy and force RMS rel BENCH_HOST_TOL); MD with no kernel
+    launched."""
+    import torch
+    from upside_md_torch import bench_systems
+    from upside_md_torch.system import System
+    t0 = time.perf_counter()
+    system, _, pos0, _ = bench_systems.build_backbone_system(device=dev)
+    build = time.perf_counter() - t0
+    if system.pair_fusion is not None or "rotamer" in {
+            s.node_type.name for s in system.specs}:
+        raise AssertionError("config 1 is backbone only")
+    host = System(system.n_atom, system.specs, "cpu", torch.float64)
+    errs, _, _ = card_vs_host("bench config1 trp_cage", system, host,
+                              perturbed(pos0, COMPARE_REPLICAS, gen, dev),
+                              gate=False)
+    check("[bench config1 trp_cage] energy, card f32 against CPU f64",
+          errs["energy_rel"], BENCH_HOST_TOL)
+    check("[bench config1 trp_cage] force RMS, card f32 against CPU f64",
+          errs["force_rms_rel"], BENCH_HOST_TOL)
+    log(f"[bench config1 trp_cage] built in {build:.2f} s: "
+        f"{len(system.specs)} nodes "
+        f"{sorted(s.node_type.name for s in system.specs)}")
+    md, _ = bench_md(system, pos0, "config1 trp_cage", ())
+    return {"build_s": build, **errs, "md": md}
+
+
+def live_per_tile(system, pos0, n, gen, dev):
+    """Live pairs of the fused block a tile that K1's cull walks, and the
+    most in one tile, at n perturbed replicas."""
+    import torch
+    from upside_md_torch.ops.fused_pair import _to_tiles, cull_tiles, n_tiles
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(perturbed(pos0, n, gen, dev))
+    o = fused_operands(system, outs, gen, dev)
+    prep, x = o["prep"], o["x"]
+    keep = cull_tiles(prep, x[0], x[2])
+    live = fused_live(prep, x[0], x[2])[1]
+    tiles = _to_tiles(live, n_tiles(prep.n1), n_tiles(prep.n2)).sum(-1)
+    return {"live_per_walked_tile": live.sum().item() / keep.sum().item(),
+            "max_live_in_a_tile": tiles.max().item(),
+            "tiles_walked_share": keep.float().mean().item()}, o
+
+
+def bench_config3(dev, gen, ubq_path):
+    """`[bench config3 protein_g]`: BASELINE config 3 built by the port's
+    bench_systems on this machine (protein G, 56 residues, the synthetic
+    10 Å library written at run time: the (8, 12, 1.0) family); K1 fwd,
+    K1 bwd (`compare_k1`) and K2 (`check_k2`) against their plain versions
+    at 4 replicas; the whole evaluation with kernels against
+    `kernels=False` at BP tol 1e-6 (energy and force RMS rel < 1e-3); the
+    live pairs a walked tile beside ubiquitin's; K1 fwd, K1 bwd and K2 ms
+    a call at 64 replicas; MD."""
+    import torch
+    from upside_md_torch import bench_systems
+    from upside_md_torch.ops.bp_pairs import bp_bethe_pairs_fwd, scatter_pairs
+    from upside_md_torch.ops.fused_pair import fused_pair_bwd, fused_pair_fwd
+    from upside_md_torch.ops.pairs import quadspline_family
+    from upside_md_torch.system import System
+    label = "config3 protein_g"
+    t0 = time.perf_counter()
+    system, params, pos0, _ = bench_systems.build_10A_system(device=dev)
+    build = time.perf_counter() - t0
+    fams = {n: quadspline_family(params[n]["interaction_param"].shape[-1])
+            for n in ("rotamer", "hbond_coverage",
+                      "hbond_coverage_hydrophobe")}
+    if set(fams.values()) != {bench_systems.FAMILY_10A}:
+        raise AssertionError(f"[bench {label}] families {fams}")
+    specs = tol_specs(system.specs, 1e-6)
+    sys_k = System(system.n_atom, specs, dev)
+    sys_p = System(system.n_atom, specs, dev, kernels=False)
+    pos = perturbed(pos0, COMPARE_REPLICAS, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = sys_p.evaluate(pos)
+    o = fused_operands(sys_k, outs, gen, dev)
+    prep, x, st, E1 = o["prep"], o["x"], o["st"], o["E1"]
+    log(f"[bench {label}] built in {build:.2f} s: families {fams}; fused "
+        f"block k {prep.k}, rows {prep.n1} x {prep.n2} columns, "
+        f"{st.n_res} rotamer residues")
+    if prep.k != 12:
+        raise AssertionError(f"[bench {label}] fused block k {prep.k}")
+    errs = {}
+    errs["fused_pair_fwd"], errs["fused_pair_bwd"], cull, _, _ = \
+        compare_k1(label, prep, x, o["randn"])
+    E_pair = fused_pair_fwd(prep, *x, plain=True)[1]
+    eye = torch.eye(st.n_res, dtype=torch.bool, device=dev)
+    adj = (scatter_pairs(st, E_pair) != 0).any(-1).any(-1) & ~eye
+    errs["bp_bethe_pairs"], _ = check_k2(f"K2 {label}", st, E1, E_pair, adj)
+    whole = compare_whole(sys_k, sys_p, pos, label)
+    del sys_p, outs, o, x
+    live, o = live_per_tile(system, pos0, TIME_REPLICAS, gen, dev)
+    ubq_sys, ubq_pos = load_system(ubq_path, dev)
+    ubq, _ = live_per_tile(ubq_sys, torch.as_tensor(ubq_pos, device=dev),
+                           TIME_REPLICAS, gen, dev)
+    del ubq_sys
+    log(f"[bench {label}] live pairs a walked tile "
+        f"{live['live_per_walked_tile']:.1f} (most in a tile "
+        f"{live['max_live_in_a_tile']}, tiles walked "
+        f"{live['tiles_walked_share']:.3f}); ubiquitin "
+        f"{ubq['live_per_walked_tile']:.1f} ({ubq['max_live_in_a_tile']}, "
+        f"{ubq['tiles_walked_share']:.3f}); {TIME_REPLICAS} replicas")
+    prep, x, st, E1 = o["prep"], o["x"], o["st"], o["E1"]
+    fk = fused_pair_fwd(prep, *x)
+    fpl = fused_pair_fwd(prep, *x, plain=True)
+    g = [o["randn"](t) for t in fk[:3]]
+    cold = bp_bethe_pairs_fwd(st, E1, fk[1])
+    warm = (cold[3], cold[4])
+    ms = {"fused_pair_fwd": timed(
+        lambda: fused_pair_fwd(prep, *x),
+        lambda: fused_pair_fwd(prep, *x, plain=True)),
+        "fused_pair_bwd": timed(
+        lambda: fused_pair_bwd(prep, *x, fk[3], *g),
+        lambda: fused_pair_bwd(prep, *x, fpl[3], *g, plain=True)),
+        "bp_bethe_pairs": timed(
+        lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm),
+        lambda: bp_bethe_pairs_fwd(st, E1, fk[1], warm, plain=True))}
+    for nm, (k_ms, p_ms, d_ms) in ms.items():
+        dms = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        log(f"[bench {label}] {nm}: {k_ms:.4f} ms a call, device {dms}, "
+            f"plain {p_ms:.4f} ms, {TIME_REPLICAS} replicas")
+    del fk, fpl, g, cold, warm, o, x
+    torch.cuda.empty_cache()
+    md, launches = bench_md(system, pos0, label, FUSED_KERNELS)
+    return {"build_s": build, "families": {k: list(v) for k, v in
+                                           fams.items()},
+            "max_abs_err": errs, "cull": cull, "whole": whole,
+            "live": live, "live_ubiquitin": ubq, "ms": ms, "md": md}, \
+        launches
+
+
+def phase13(dev, gen, base_f, fused_path, rex_path):
+    """Replica sharding over ranks and BASELINE configs 1 and 3.  Returns
+    (results, launches by path)."""
+    t0 = time.perf_counter()
+    res, per_path = {}, {}
+    ref_pos, ref_launches, one_rate = mesh_reference(fused_path, dev)
+    res["nccl_1"], per_path["mesh nccl 1"] = mesh_nccl_one(
+        dev, fused_path, ref_pos, ref_launches)
+    ranks, res["spawn2_s"] = spawn_ranks(2, [("advance", (fused_path,)),
+                                             ("dryrun", ())])
+    res["gloo_2"], per_path["mesh gloo 2"] = mesh_gloo(
+        2, ranks, ref_pos, ref_launches, one_rate)
+    res["dryrun"], per_path["mesh dryrun gloo 2"] = mesh_dryrun(ranks)
+    batch = perturbed(base_f, MESH_TRAIN_BATCH, gen, dev)
+    ranks, res["spawn4_s"] = spawn_ranks(MESH_REX_RANKS, [
+        ("advance", (fused_path,)), ("rex", (rex_path,)),
+        ("train", (fused_path, batch.cpu()))])
+    res["gloo_4"], per_path["mesh gloo 4"] = mesh_gloo(
+        MESH_REX_RANKS, ranks, ref_pos, ref_launches, one_rate)
+    res["rex"], per_path["mesh rex cytochrome_c"] = mesh_rex(ranks, rex_path,
+                                                             dev)
+    res["train"], per_path["mesh train"] = mesh_train(ranks, fused_path, dev,
+                                                      batch)
+    res["config1"] = bench_config1(dev, gen)
+    res["config3"], per_path["bench config3 protein_g"] = bench_config3(
+        dev, gen, fused_path)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase 13 took {res['seconds']:.1f} s")
+    return res, per_path
+
+
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--out", default=None)
@@ -3989,6 +4629,10 @@ def main():
     build["seconds"] = time.perf_counter() - t0
     log(f"[build] phase 12 took {build['seconds']:.1f} s")
     results["phases"]["build"] = build
+
+    # ---- 13. replica sharding over ranks; BASELINE configs 1 and 3
+    results["phases"]["mesh"], launches_mesh = phase13(
+        dev, gen, base_f, fused_path, rex_path)
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
@@ -4002,12 +4646,12 @@ def main():
                 "cli up ubiquitin": launches_up,
                 "cli built ubiquitin": launches_build,
                 "cli upside_config pdb": launches_pdb,
-                "chi1 pdb": launches_chi1_pdb}
+                "chi1 pdb": launches_chi1_pdb, **launches_mesh}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 13. report
+    # ---- 14. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

@@ -19,8 +19,9 @@ bundle, plus the bundle pin and the import isolation of the port.
   read by `config.load` and the engine, and `rama_map_pot`'s
   get_param/set_param round trip on it; a trp-cage `.up` built by
   `upside_config` from the committed libraries and evaluated, the edit,
-  merge and library tools, `run.upside_config` and chi1 from a PDB) with
-  jax, h5py and upside_md_tpu blocked.
+  merge and library tools, `run.upside_config` and chi1 from a PDB; the
+  replica mesh and dry-run modules and config 1 built by `bench_systems`)
+  with jax, h5py and upside_md_tpu blocked.
 """
 
 import importlib.util
@@ -343,6 +344,12 @@ with tempfile.TemporaryDirectory() as tmp:
         prob, info, _ = chi1.predict_chi1_from_pdb(f.read(), sc,
                                                    device="cpu")
     assert prob.shape == (20, 3) and info["fasta"] == seq
+# the replica mesh, the multi-rank dry run and the BASELINE builders
+from upside_md_torch import bench_systems
+from upside_md_torch.parallel import dryrun, mesh
+s1, p1, x1, _ = bench_systems.build_backbone_system(device="cpu")
+assert bool(torch.isfinite(s1.energy(x1)))
+assert mesh.ReplicaMesh(1, 2, "cpu", "gloo").rows(8) == slice(4, 8)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
 assert not bad, bad

@@ -6,7 +6,10 @@ objects are linked into one shared library under `upside_md_torch/_build/
 <hash of the sources>/`, and the library is loaded with ctypes.  Every
 pointer and the stream pass as `c_void_p`; a C function returns
 `cudaGetLastError()` after its launches, and `launch` raises when that is
-not 0.
+not 0.  `launch` runs a call on its tensor operands' device, whatever the
+thread's current device, with that device's current stream.  Ranks that
+start together build once: `parallel.mesh.make_replica_mesh` has rank 0
+call `library()` while the others wait at a barrier.
 
 `LAUNCHES` counts, per kernel, the calls that launched it; nothing else
 changes the counts.
@@ -125,15 +128,26 @@ def _carg(a):
 
 
 def launch(name, *args):
-    """Call C function `name` with args + the current stream; raise if the
-    launch failed; count it."""
+    """Call C function `name` with args + the stream of its operands' device
+    (the current stream there), on that device whatever the thread's
+    current one; raise if the tensor operands lie on more than one device
+    or the launch failed; count it."""
+    # CUDA device indices of the tensor operands (-1: the CPU)
+    devices = {a.get_device() for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1 or min(devices) < 0:
+        raise ValueError(f"{name}: tensor operands on devices "
+                         f"{sorted(devices)} (-1: the CPU), expected one "
+                         "CUDA device")
+    (index,) = devices
     fn = getattr(library(), name)
     cargs = [_carg(a) for a in args]
-    cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if fn.argtypes is None:         # the kinds of a function's arguments
-        fn.argtypes = [type(c) for c in cargs]      # are the same each call
-        fn.restype = ctypes.c_int
-    rc = fn(*cargs)
+    with torch.cuda.device(index):
+        cargs.append(ctypes.c_void_p(
+            torch.cuda.current_stream(index).cuda_stream))
+        if fn.argtypes is None:     # the kinds of a function's arguments
+            fn.argtypes = [type(c) for c in cargs]  # are the same each call
+            fn.restype = ctypes.c_int
+        rc = fn(*cargs)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
