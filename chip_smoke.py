@@ -49,7 +49,13 @@ checks them:
   exchange and a training step across 4 ranks, the multi-rank dry run
   (K1 fwd, K1 bwd, K2 on every rank); BASELINE configs 1 (trp-cage,
   backbone only, no kernel) and 3 (protein G, the 10 Å family: K1 fwd, K1
-  bwd, K2 at k = 12) built on this machine by `bench_systems`.
+  bwd, K2 at k = 12) built on this machine by `bench_systems`;
+* the repo-level scripts: the flagship forward step
+  (`upside_md_torch.entry`), `bench_torch.py` (the counterpart of
+  bench.py) as a subprocess, every row of `tools/bench_all_torch.py` but
+  its ubiquitin curve, and the three examples (K1 fwd, K1 bwd, K2); and
+  the fixed-order sums that replaced three float scatters and a
+  batch-dependent reduction.
 
 All use synthetic parameter libraries and a random initial structure from
 the bundle's seed.  Phases:
@@ -264,7 +270,30 @@ the bundle's seed.  Phases:
    `kernels=False` at BP tol 1e-6 (energy and force RMS rel < 1e-3), live
    pairs a walked tile beside ubiquitin's, the three kernels' ms a call at
    64 replicas, MD at 64 and 512 replicas with its mean BP sweeps;
-14. prints the kernel table as one JSON line (launches summed over the
+14. the repo-level scripts and the fixed-order sums: `[entry ubiquitin]`
+   the flagship's forward step, `entry.entry()` (K1 fwd, K1 bwd and K2
+   once each, energy and forces finite) and the bench's gate at its
+   example positions (kernels against `kernels=False` at BP tol 1e-6, rel
+   < 1e-3); `[bench_torch default]`, `[bench_torch 64]` `python3
+   bench_torch.py` as a subprocess at its defaults and with
+   BENCH_REPLICAS=64, its line printed (bench.py's keys, value finite and
+   > 0, kernel_plain_rel_err < 1e-3, the card's name); `[bench_all]`
+   every row of `tools/bench_all_torch.py` but the ubiquitin curve at 3
+   rounds a timed call (no row may fail; K1 fwd, K1 bwd and K2
+   launched); `[examples fold_trp_cage]`, `[examples replica_exchange]`,
+   `[examples train_rotamer]` the examples at small size (files written,
+   replica_index a permutation, the training loss falling; the fused
+   kernels launched where the path has them, none on the backbone-only
+   exchange); `[repeat gfp coverage]`, `[repeat extras contact]`,
+   `[repeat train]` 20 calls on the same inputs of GFP's coverages past
+   1,024 columns, the contact_energy stream and the rotamer table's
+   cotangent, each as it is (fixed-order sums; must never vary) and in
+   its former scatter (printed), with the coverage's gradient and a
+   training step's gradient (10 calls; printed); `[batch cytochrome_c]`
+   every energy term of 64 replicas in one batch against 4 x 16
+   (`backbone_pairs` bitwise equal; its former whole-grid sum and the
+   other terms printed);
+15. prints the kernel table as one JSON line (launches summed over the
    paths that ran each kernel), the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -412,6 +441,19 @@ MESH_TRAIN_BATCH, MESH_TRAIN_TOL = 16, 1e-5
 # BASELINE configs 1 and 3 built by the port's bench_systems: replicas,
 # timed rounds (3 x), and config 1's card float32 against the CPU float64
 BENCH_REPLICAS, BENCH_ROUNDS, BENCH_HOST_TOL = (64, 512), 3, 1e-4
+# phase 14: the repo-level scripts.  bench_torch.py as a subprocess at its
+# defaults (512 replicas, 20 rounds) and at 64 replicas; every row of
+# tools/bench_all_torch.py but its ubiquitin curve, at 3 rounds a timed
+# call (the exchange rows 20, an exchange every 10; 2 chained training
+# steps); the examples at small size (fold: 20 rounds; replica exchange: 8
+# slots, 20 rounds, 2 exchange rounds; training: 6 frames, 5 steps); the
+# gate of bench.py (kernels against kernels=False at BP tol 1e-6); a
+# training step's gradient repeated SCRIPT_STEP_REPS times
+SCRIPT_BENCH_REPLICAS, SCRIPT_BENCH_TIMEOUT = (None, 64), 300
+SCRIPT_ROUNDS, SCRIPT_REX_ROUNDS, SCRIPT_TRAIN_STEPS = 3, 20, 2
+SCRIPT_FOLD_DURATION, SCRIPT_REX_SLOTS, SCRIPT_REX_DURATION = 0.54, 8, 0.54
+SCRIPT_TRAIN_FRAMES, SCRIPT_TRAIN_FIT = 6, 5
+SCRIPT_GATE_TOL, SCRIPT_STEP_REPS = 1e-3, 10
 
 
 def log(msg):
@@ -4442,6 +4484,480 @@ def phase13(dev, gen, base_f, fused_path, rex_path):
     return res, per_path
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the repo-level scripts; the fixed-order sums
+# ---------------------------------------------------------------------------
+
+def load_script(name, *path):
+    """A script of the repository (`bench_torch.py`, `tools/...`,
+    `examples/...`) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def path_launches(label, names, must=None):
+    """The launch counts since the last reset; each of `must` (default
+    `names`) launched, no kernel outside `names`."""
+    from upside_md_torch.ops import kernels
+    launches = dict(kernels.LAUNCHES)
+    for nm, v in launches.items():
+        if nm not in names and v:
+            raise AssertionError(f"[{label}] kernel {nm} launched {v} times")
+    for nm in (names if must is None else must):
+        if not launches[nm]:
+            raise AssertionError(f"[{label}] kernel {nm} was not launched")
+    log(f"[{label}] kernel launches: {launches}")
+    return {nm: launches[nm] for nm in names}
+
+
+def scripts_entry(dev):
+    """`[entry ubiquitin]`: the flagship forward step (`entry.entry()`, full
+    ubiquitin on the card), the launch counts set to 0 just before and
+    read just after (K1 fwd, K1 bwd and K2 once each); energy and forces
+    finite; the gate of `bench_torch.kernel_plain_rel_err` at its example
+    positions (BP tol 1e-6, kernels against `kernels=False`)."""
+    import torch
+    from upside_md_torch import entry
+    from upside_md_torch.ops import kernels
+    bench = load_script("bench_torch", "bench_torch.py")
+    label = "entry ubiquitin"
+    forward, (pos, params) = entry.entry(device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    energy, forces = forward(pos, params)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = path_launches(label, FUSED_KERNELS)
+    t0 = time.perf_counter()
+    forward(pos, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(v != 1 for v in launches.values()):
+        raise AssertionError(f"[{label}] launches {launches}, expected 1")
+    if not (torch.isfinite(energy) and torch.isfinite(forces).all()):
+        raise AssertionError(f"[{label}] energy or forces not finite")
+    system = entry._flagship(device=dev)[0]
+    worst, err_e, err_g = bench.kernel_plain_rel_err(system, pos[None])
+    check(f"[{label}] kernels vs kernels=False at BP tol 1e-6 (energy "
+          f"{err_e:.2e}, force RMS {err_g:.2e})", worst, SCRIPT_GATE_TOL)
+    log(f"[{label}] energy {energy.item():.4f}, forces {tuple(forces.shape)}"
+        f" finite; the first call {first * 1e3:.2f} ms (the host-built "
+        f"operands included), the next {wall * 1e3:.2f} ms")
+    return {"energy": energy.item(), "first_ms": first * 1e3,
+            "ms": wall * 1e3, "gate": worst,
+            "energy_rel": err_e, "force_rms_rel": err_g}, launches
+
+
+def scripts_bench(replicas):
+    """`[bench_torch N]`: `python3 bench_torch.py` as a subprocess, at its
+    defaults (replicas None) or with BENCH_REPLICAS; its last line parsed:
+    bench.py's keys, value finite and > 0, kernel_plain_rel_err below
+    SCRIPT_GATE_TOL, device the card's name.  Prints the line."""
+    import torch
+    env = dict(os.environ)
+    if replicas is not None:
+        env["BENCH_REPLICAS"] = str(replicas)
+    label = f"bench_torch {replicas or 'default'}"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+                       env=env, capture_output=True, text=True,
+                       timeout=SCRIPT_BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[{label}] exit {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"[{label}] {json.dumps(line)}")
+    keys = {"metric", "value", "unit", "vs_baseline", "kernel_plain_rel_err",
+            "bp_sweeps_mean", "bp_n_bad_solve", "device"}
+    if set(line) != keys:
+        raise AssertionError(f"[{label}] keys {sorted(line)}")
+    if not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"[{label}] value {line['value']}")
+    check(f"[{label}] kernel_plain_rel_err", line["kernel_plain_rel_err"],
+          SCRIPT_GATE_TOL)
+    if line["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"[{label}] device {line['device']}")
+    log(f"[{label}] {wall:.1f} s with the process's start")
+    return {"line": line, "wall_s": wall}
+
+
+def scripts_bench_all(dev):
+    """`[bench_all]`: every row of `tools/bench_all_torch.py` but the
+    ubiquitin curve, at SCRIPT_ROUNDS rounds a timed call (exchange rows
+    SCRIPT_REX_ROUNDS, training SCRIPT_TRAIN_STEPS chained steps); the
+    counts set to 0 just before and read just after (K1 fwd, K1 bwd and
+    K2 launched); any row's failure fails the phase."""
+    from upside_md_torch.ops import kernels
+    table = load_script("bench_all_torch", "tools", "bench_all_torch.py")
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    rows = table.run_rows(dev, SCRIPT_ROUNDS, SCRIPT_REX_ROUNDS,
+                          TIME_REPLICAS, SCRIPT_TRAIN_STEPS, curve=())
+    launches = path_launches("bench_all", FUSED_KERNELS)
+    failed = [r["row"] for r in rows if "error" in r]
+    if failed:
+        raise AssertionError(f"[bench_all] rows failed: {failed}")
+    wall = time.perf_counter() - t0
+    log(f"[bench_all] {len(rows)} rows in {wall:.1f} s")
+    return {"rows": rows, "wall_s": wall}, launches
+
+
+def scripts_examples(dev):
+    """`[examples ...]`: the three examples on the card at small size in a
+    temporary directory, each with the counts set to 0 just before and
+    read just after: fold_trp_cage_torch (full force field; K1 fwd, K1
+    bwd, K2), replica_exchange_torch (backbone only, 8 slots, one
+    exchange; no kernel), train_rotamer_torch (the loss falls; K1 fwd, K1
+    bwd, K2)."""
+    import tempfile
+    import numpy as np
+    from upside_md_torch.ops import kernels
+    res, per_path = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fold = load_script("fold_trp_cage_torch", "examples",
+                           "fold_trp_cage_torch.py")
+        t0 = time.perf_counter()
+        kernels.reset_counts()
+        pos = fold.main([os.path.join(tmp, "fold"), "--duration",
+                         str(SCRIPT_FOLD_DURATION), "--device", str(dev)])
+        # the rotamer streams of the detailed log level evaluate the
+        # rotamer grid through K5's forward
+        per_path["examples fold_trp_cage"] = path_launches(
+            "examples fold_trp_cage", FUSED_KERNELS + ("quadspline_fwd",),
+            FUSED_KERNELS)
+        if not np.isfinite(pos).all():
+            raise AssertionError("[examples fold_trp_cage] positions")
+        res["fold_trp_cage"] = {"frames": len(pos),
+                                "wall_s": time.perf_counter() - t0}
+        rex = load_script("replica_exchange_torch", "examples",
+                          "replica_exchange_torch.py")
+        t0 = time.perf_counter()
+        kernels.reset_counts()
+        work = os.path.join(tmp, "rex")
+        configs = rex.main([work, "--n-replica", str(SCRIPT_REX_SLOTS),
+                            "--duration", str(SCRIPT_REX_DURATION),
+                            "--device", str(dev)])
+        path_launches("examples replica_exchange", ())
+        from upside_md_torch.cli import output_path
+        from upside_md_torch.io import h5
+        idx = []
+        for i, c in enumerate(configs):
+            with h5.File(output_path(work, c, i)) as f:
+                idx.append(np.asarray(f["output/replica_index"]).reshape(-1))
+        idx = np.stack(idx)
+        if any(sorted(col) != list(range(len(configs))) for col in idx.T):
+            raise AssertionError("[examples replica_exchange] replica_index "
+                                 "is not a permutation")
+        res["replica_exchange"] = {"frames": idx.shape[1],
+                                   "moved": int((idx[:, -1] != np.arange(
+                                       len(configs))).sum()),
+                                   "wall_s": time.perf_counter() - t0}
+        train = load_script("train_rotamer_torch", "examples",
+                            "train_rotamer_torch.py")
+        t0 = time.perf_counter()
+        kernels.reset_counts()
+        hist, acc0, acc1 = train.main(n_frames=SCRIPT_TRAIN_FRAMES,
+                                      n_train_steps=SCRIPT_TRAIN_FIT,
+                                      device=dev)
+        per_path["examples train_rotamer"] = path_launches(
+            "examples train_rotamer", FUSED_KERNELS)
+        if not (all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]):
+            raise AssertionError(f"[examples train_rotamer] loss {hist}")
+        res["train_rotamer"] = {"loss": hist, "accuracy": [acc0, acc1],
+                                "wall_s": time.perf_counter() - t0}
+    for k, v in res.items():
+        log(f"[examples {k}] " + ", ".join(
+            f"{a} {b if not isinstance(b, float) else round(b, 4)}"
+            for a, b in v.items()))
+    return res, per_path
+
+
+def spread(fn, reps=STREAM_REPS):
+    """Calls of fn() not bitwise equal to the first of `reps`, their
+    largest difference and the largest |value|."""
+    import torch
+    first, n_diff, worst = fn(), 0, 0.0
+    for _ in range(reps - 1):
+        y = fn()
+        if not torch.equal(y, first):
+            n_diff += 1
+            worst = max(worst, (y - first).abs().max().item())
+    return {"calls": reps, "differ": n_diff, "max_abs": worst,
+            "max_value": first.abs().max().item()}
+
+
+def log_spread(label, res):
+    log(f"[{label}] calls on the same inputs not bitwise equal to the "
+        "first, of all calls (largest difference, largest |value|): "
+        + "; ".join(f"{k} {v['differ']}/{v['calls']} ({v['max_abs']:.3e}, "
+                    f"{v['max_value']:.3e})" for k, v in res.items()))
+
+
+def repeat_coverage_nl(dev):
+    """`[repeat gfp coverage]`: both coverages of GFP (past 1,024 columns:
+    the neighbour list) at TIME_REPLICAS replicas, `coverage_nl` as it is
+    (a dense grid summed by column) and the former `scatter_add` into the
+    columns, and the coverage's gradient to its inputs (printed).  Gate:
+    `coverage_nl` never varies."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.nodes import hbond
+    from upside_md_torch.ops.pairs import (quadspline_coverage_nl,
+                                           quadspline_family)
+    system, pos0 = load_system(os.path.join(DATA_DIR, BUNDLE_GFP), dev)
+    x = tiled(torch.as_tensor(pos0, device=dev)[None], TIME_REPLICAS)
+    with torch.no_grad():
+        outs = system.evaluate(x)[1]
+    res = {}
+    for name in ("hbond_coverage", "hbond_coverage_hydrophobe"):
+        spec, c = system.by_name[name], system.consts[name]
+        table = system.params[name]["interaction_param"]
+        x1 = outs[spec.args[0]][:, c["index1"]]
+        x2 = outs[spec.args[1]][:, c["index2"]]
+        w1 = (1.0 - x1[..., 6]) ** 2
+        args = (c, table, x1[..., :6], x2[..., :6], w1)
+
+        def old():
+            ka, k, dx = quadspline_family(table.shape[-1])
+            cov, idx, mask = quadspline_coverage_nl(
+                table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
+                x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
+                c["spline"].mask.bool(), hbond.COVERAGE_NEIGHBOR_K)
+            B, n2 = x2.shape[:2]
+            val = torch.where(mask, w1[..., None] * cov,
+                              torch.zeros_like(cov))
+            safe = torch.where(mask, idx, torch.full_like(idx, n2))
+            return val.new_zeros((B, n2 + 1)).scatter_add(
+                1, safe.reshape(B, -1), val.reshape(B, -1))[:, :n2]
+
+        g = torch.randn(x.shape[0], x2.shape[1], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+
+        def grad():
+            a = x1[..., :6].detach().requires_grad_(True)
+            b = x2[..., :6].detach().requires_grad_(True)
+            with torch.enable_grad():
+                y = hbond.coverage_nl(c, table, a, b, w1)
+                ga, gb = torch.autograd.grad((y * g).sum(), (a, b))
+            return torch.cat([ga.reshape(-1), gb.reshape(-1)])
+
+        with torch.no_grad():
+            res[f"{name} coverage_nl"] = spread(
+                lambda: hbond.coverage_nl(*args))
+            res[f"{name} scatter_add (before)"] = spread(old)
+            new, before = hbond.coverage_nl(*args), old()
+        res[f"{name} gradient"] = spread(grad)
+        res[f"{name} coverage_nl vs before, rel"] = rel_err(new, before)[0]
+    log_spread("repeat gfp coverage",
+               {k: v for k, v in res.items() if isinstance(v, dict)})
+    log("[repeat gfp coverage] coverage_nl against the scatter_add: " +
+        ", ".join(f"{k} {v:.2e}" for k, v in res.items()
+                  if not isinstance(v, dict)))
+    for k, v in res.items():
+        if k.endswith("coverage_nl") and v["differ"]:
+            raise AssertionError(f"[repeat gfp coverage] {k} varies")
+    return res
+
+
+def repeat_contact(dev):
+    """`[repeat extras contact]`: the contact_energy stream of the extras
+    bundle at TIME_REPLICAS replicas, as it is (a fixed-order gather) and
+    by the former pair of `index_add`s.  Gate: the stream never varies."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.nodes import radial
+    system, pos0 = load_system(os.path.join(DATA_DIR, BUNDLE_EXTRAS), dev)
+    x = tiled(torch.as_tensor(pos0, device=dev)[None], TIME_REPLICAS)
+    spec = system.by_name["contact"]
+    c, p = system.consts["contact"], system.params["contact"]
+    with torch.no_grad():
+        beads = system.evaluate(x)[1][spec.args[0]]
+
+        def old():
+            en = 0.5 * radial._contact_values(c, p, beads)
+            ids = c["id"]
+            return en.new_zeros(beads.shape[:2]).index_add(
+                1, ids[:, 0], en).index_add(1, ids[:, 1], en)
+        res = {"contact_energy": spread(
+            lambda: radial.contact_energy_per_bead(c, p, [beads])),
+            "index_add (before)": spread(old)}
+        res["rel vs before"] = rel_err(
+            radial.contact_energy_per_bead(c, p, [beads]), old())[0]
+    log_spread("repeat extras contact",
+               {k: v for k, v in res.items() if isinstance(v, dict)})
+    if res["contact_energy"]["differ"]:
+        raise AssertionError("[repeat extras contact] the stream varies")
+    return res
+
+
+def repeat_training(dev, gen):
+    """`[repeat train]`: on no-env ubiquitin (phase 6's cell): the rotamer
+    table's cotangent as it is (`table_cotangent`, one-hot products)
+    and by the former `index_add_`, and one training step's gradient (the
+    energy-gap loss of TRAIN_CONFIGS configurations to the packed table,
+    as `fit_packed` takes it; printed).  Gate: `table_cotangent` never
+    varies."""
+    import torch
+    from upside_md_torch import DATA_DIR, training
+    from upside_md_torch.ops.fused_pair import table_cotangent
+    path = os.path.join(DATA_DIR, BUNDLE_NOENV)
+    system, pos0 = load_system(path, dev)
+    pos = perturbed(torch.as_tensor(pos0, device=dev), TRAIN_CONFIGS, gen,
+                    dev)
+    with torch.no_grad():
+        outs = system.evaluate(pos)[1]
+    plan, prep = system.pair_fusion, system.fused_prepared()
+    x1, _, x2, _ = plan.block_inputs(system.consts, outs)
+    table = system.params[plan.rot.name]["interaction_param"]
+    A1, A2 = prep.type_rows
+    g = torch.randn((TRAIN_CONFIGS, prep.n2, prep.n2), generator=gen,
+                    device=dev)
+    args = (table, prep.row_type[prep.r_p:] - A1 - A2, prep.col_type[3],
+            x1[:, prep.r_p:], x2, prep.mask[prep.r_p:], g)
+
+    def old():
+        A, Bt, M = table.shape
+        t1, t2 = args[1].long(), args[2].long()
+        idx = (t1[:, None] * Bt + t2[None, :]).reshape(-1)
+        out = table.new_zeros((A * Bt, M))
+        out.index_add_(0, idx, per_pair_cotangent(*args).reshape(-1, M))
+        return out.reshape(A, Bt, M)
+
+    states = training.rotamer_node_marginals(system, pos[0]).argmax(-1)
+    fixed = training.rotamer_state_restricted_system(system, states.cpu())
+    loss = training.energy_gap_loss(fixed, system, pos)
+    pk = training.rotamer_packings(system.params)["rotamer"]
+    theta0 = torch.tensor(pk.pack(table), dtype=table.dtype, device=dev)
+
+    def step_grad():
+        theta = theta0.clone().requires_grad_(True)
+        p = {k: dict(v) for k, v in system.params.items()}
+        p["rotamer"]["interaction_param"] = pk.unpack(theta)
+        (gt,) = torch.autograd.grad(loss(p, {}), theta)
+        return gt
+
+    with torch.no_grad():
+        res = {"table_cotangent": spread(lambda: table_cotangent(*args)),
+               "index_add_ (before)": spread(old)}
+        res["rel vs before"] = rel_err(table_cotangent(*args), old())[0]
+    res["training step gradient"] = spread(step_grad, SCRIPT_STEP_REPS)
+    log_spread("repeat train",
+               {k: v for k, v in res.items() if isinstance(v, dict)})
+    if res["table_cotangent"]["differ"]:
+        raise AssertionError("[repeat train] table_cotangent varies")
+    return res
+
+
+def per_pair_cotangent(table, t1, t2, x1, x2, mask, g):
+    """Each pair's (M,) table cotangent summed over replicas, (n1, n2, M):
+    `table_cotangent` before its sum by type."""
+    import torch
+    from upside_md_torch.ops.fused_pair import _geometry
+    from upside_md_torch.ops.pairs import quadspline_family
+    from upside_md_torch.ops.spline import bspline_window_weights
+    ka, k, dx = quadspline_family(table.shape[-1])
+    inv_dx, inv_dth = 1.0 / dx, (ka - 3) / 2.0
+    p = table.detach()[t1.long()[:, None], t2.long()[None, :]]
+    _, dist, _, cos1, cos2 = _geometry(x1, x2)
+    s = dist * inv_dx
+    gm = torch.where(mask.bool() & (s < k - 2 - 1e-6), g,
+                     torch.zeros_like(s))
+    wa1 = bspline_window_weights((cos1 + 1.0) * inv_dth + 1.0, ka, False)
+    wa2 = bspline_window_weights((cos2 + 1.0) * inv_dth + 1.0, ka, False)
+    wd = bspline_window_weights(s, k, True)
+    a1 = (wa1 * p[..., :ka]).sum(-1)
+    a2 = (wa2 * p[..., ka:2 * ka]).sum(-1)
+    narrow = (wd * p[..., 2 * ka + k:]).sum(-1)
+    return torch.cat([(gm * a2 * narrow)[..., None] * wa1,
+                      (gm * a1 * narrow)[..., None] * wa2,
+                      gm[..., None] * wd,
+                      (gm * a1 * a2)[..., None] * wd], dim=-1).sum(0)
+
+
+def batch_independence(dev, gen):
+    """`[batch cytochrome_c]`: each replica's energy terms at
+    TIME_REPLICAS replicas in one batch and in 4 batches of a quarter:
+    `backbone_pairs` as it is (halving sums) must be bitwise equal; its
+    former `.sum((-1, -2))` over the same grid and the other terms are
+    printed."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.nodes import steric
+    system, pos0 = load_system(os.path.join(DATA_DIR, BUNDLE_REX), dev)
+    x = perturbed(torch.as_tensor(pos0, device=dev), TIME_REPLICAS, gen,
+                  dev)
+    q = TIME_REPLICAS // 4
+    spec = system.by_name["backbone_pairs"]
+    c = system.consts["backbone_pairs"]
+
+    def old(inputs):
+        affine = inputs[0][:, c["id"]]
+        R = steric.quat_to_rot(affine[..., 3:7])
+        atoms = steric.rotate_vec(R.unsqueeze(-3), c["ref_pos"]) \
+            + affine[..., None, 0:3]
+        ax = atoms.reshape(atoms.shape[0], -1, 3)
+        d = ax.unsqueeze(1) - ax.unsqueeze(2)
+        v, _ = steric.compact_sigmoid((d * d).sum(-1) - steric.WALL2,
+                                      steric.SHARPNESS)
+        return steric.ENERGY_SCALE * torch.where(
+            c["pair_mask"], v, torch.zeros_like(v)).sum((-1, -2))
+
+    def terms(xs):
+        _, outs, per, _ = system.evaluate(xs)
+        per = dict(per)
+        per["backbone_pairs (before)"] = old([outs[a] for a in spec.args])
+        return per
+
+    with torch.no_grad():
+        whole = terms(x)
+        parts = [terms(x[i * q:(i + 1) * q]) for i in range(4)]
+    res = {}
+    for name, v in whole.items():
+        split = torch.cat([p[name] for p in parts])
+        res[name] = {"equal": bool(torch.equal(v, split)),
+                     "max_abs": (v - split).abs().max().item(),
+                     "max_value": v.abs().max().item()}
+    log(f"[batch cytochrome_c] {TIME_REPLICAS} replicas in one batch against"
+        f" 4 x {q}, each term (bitwise equal; largest difference): " +
+        "; ".join(f"{k} {v['equal']} ({v['max_abs']:.3e})"
+                  for k, v in res.items()))
+    if not res["backbone_pairs"]["equal"]:
+        raise AssertionError("[batch cytochrome_c] backbone_pairs depends "
+                             "on the batch size")
+    return res
+
+
+def phase14(dev, gen):
+    """The repo-level scripts (the entry point, the bench at its defaults
+    and at 64 replicas, the every-config table but its curve, the three
+    examples) and the fixed-order sums.  Returns (results, launches by
+    path)."""
+    import torch
+    t0 = time.perf_counter()
+    res, per_path = {}, {}
+    res["entry"], per_path["entry ubiquitin"] = scripts_entry(dev)
+    torch.cuda.empty_cache()
+    res["bench"] = [scripts_bench(n) for n in SCRIPT_BENCH_REPLICAS]
+    res["bench_all"], per_path["bench_all"] = scripts_bench_all(dev)
+    torch.cuda.empty_cache()
+    res["examples"], ex = scripts_examples(dev)
+    per_path.update(ex)
+    torch.cuda.empty_cache()
+    res["repeat"] = {"gfp_coverage": repeat_coverage_nl(dev),
+                     "contact": repeat_contact(dev),
+                     "train": repeat_training(dev, gen)}
+    res["batch"] = batch_independence(dev, gen)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[scripts] phase 14 took {res['seconds']:.1f} s")
+    return res, per_path
+
+
 def main():
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--out", default=None)
@@ -4633,6 +5149,9 @@ def main():
     # ---- 13. replica sharding over ranks; BASELINE configs 1 and 3
     results["phases"]["mesh"], launches_mesh = phase13(
         dev, gen, base_f, fused_path, rex_path)
+
+    # ---- 14. the repo-level scripts; the fixed-order sums
+    results["phases"]["scripts"], launches_scripts = phase14(dev, gen)
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
                 "md ubiquitin_noenv": launches_n, "train": launches_t,
                 "rex cytochrome_c": launches_r,
@@ -4646,12 +5165,13 @@ def main():
                 "cli up ubiquitin": launches_up,
                 "cli built ubiquitin": launches_build,
                 "cli upside_config pdb": launches_pdb,
-                "chi1 pdb": launches_chi1_pdb, **launches_mesh}
+                "chi1 pdb": launches_chi1_pdb, **launches_mesh,
+                **launches_scripts}
     results["phases"]["launches"] = per_path
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
-    # ---- 14. report
+    # ---- 15. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
          "replaces": KERNEL_INFO[nm][1], "launches": launches[nm],

@@ -20,7 +20,10 @@ bundle, plus the bundle pin and the import isolation of the port.
   get_param/set_param round trip on it; a trp-cage `.up` built by
   `upside_config` from the committed libraries and evaluated, the edit,
   merge and library tools, `run.upside_config` and chi1 from a PDB; the
-  replica mesh and dry-run modules and config 1 built by `bench_systems`)
+  replica mesh and dry-run modules and config 1 built by `bench_systems`;
+  and, in a second process, the flagship entry point's forward step,
+  `bench_torch.py` at one replica and one round, one row of
+  `tools/bench_all_torch.py` and `examples/replica_exchange_torch.py`)
   with jax, h5py and upside_md_tpu blocked.
 """
 
@@ -357,11 +360,55 @@ print("isolated ok")
 """
 
 
+BLOCKED_SCRIPTS = BLOCKED_IMPORT[:BLOCKED_IMPORT.index("import torch")] + r"""
+# the repo-level scripts: the flagship entry point, the bench, one row of
+# the every-config table and one example
+import importlib.util
+import os
+import tempfile
+import torch
+from upside_md_torch import bench_systems, entry
+fwd, (x0, prm) = entry.entry(small=True, device="cpu")
+assert bool(torch.isfinite(fwd(x0, prm)[1]).all())
+
+
+def script(name, *path):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(sys.argv[1], *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+os.environ.update(BENCH_REPLICAS="1", BENCH_ROUNDS="1")
+assert script("bench_torch", "bench_torch.py").main("cpu")["value"] > 0
+table = script("bench_all_torch", "tools", "bench_all_torch.py")
+s1, p1, x1, _ = bench_systems.build_backbone_system(device="cpu")
+assert table.md_steps_per_sec(s1, p1, x1, 1, 1) > 0
+rex_example = script("replica_exchange_torch", "examples",
+                     "replica_exchange_torch.py")
+with tempfile.TemporaryDirectory() as tmp:
+    assert len(rex_example.main([tmp, "--n-replica", "2", "--duration",
+                                 "0.054", "--device", "cpu"])) == 2
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "h5py", "upside_md_tpu")]
+assert not bad, bad
+print("isolated ok")
+"""
+
+
 def test_port_imports_without_jax_h5py_or_reference():
     r = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT, ROOT, TRP,
                         os.path.join(DATA_DIR, "trp_cage_extras_synth.npz"),
                         os.path.join(DATA_DIR, "ubiquitin_chi1_synth.npz")],
                        capture_output=True, text=True, timeout=300,
                        env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "isolated ok" in r.stdout
+    # the repo-level scripts, in a process of their own
+    r = subprocess.run([sys.executable, "-c", BLOCKED_SCRIPTS, ROOT],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "JAX_PLATFORMS": "cpu",
+                            "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr[-3000:]
     assert "isolated ok" in r.stdout

@@ -113,6 +113,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+# the Rama maps the bundles are built with (one definition, the port's)
+from upside_md_torch.bench_systems import smooth_rama_maps  # noqa: E402
+
 RESTYPES = ['ALA', 'ARG', 'ASN', 'ASP', 'CYS', 'GLN', 'GLU', 'GLY', 'HIS',
             'ILE', 'LEU', 'LYS', 'MET', 'PHE', 'PRO', 'SER', 'THR', 'TRP',
             'TYR', 'VAL']
@@ -323,21 +326,6 @@ def write_torus_library(path, rng):
         f.create_dataset("transition_energy",
                          data=rng.normal(scale=0.7, size=(6, 6)))
     return path
-
-
-def smooth_rama_maps(n_res, rng, n_grid=72):
-    grid = -np.pi + 2 * np.pi * np.arange(n_grid) / n_grid
-    phi, psi = np.meshgrid(grid, grid, indexing="ij")
-    wells = np.array([[-1.1, -0.8], [-2.1, 2.3], [1.0, 0.8]])
-    maps = np.empty((n_res, n_grid, n_grid))
-    for r in range(n_res):
-        w = rng.dirichlet([6.0, 5.0, 1.0])
-        dens = sum(wk * np.exp(3.0 * (np.cos(phi - c[0]) - 1.0)
-                               + 3.0 * (np.cos(psi - c[1]) - 1.0))
-                   for wk, c in zip(w, wells))
-        p = dens + 1e-3 * dens.max()
-        maps[r] = -np.log(p / p.sum())      # negative log probability
-    return maps
 
 
 def write_libs(lib_dir):

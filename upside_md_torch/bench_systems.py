@@ -74,6 +74,34 @@ def _rama_maps(n_res):
     return np.tile(base, (n_res, 1, 1))
 
 
+def smooth_rama_maps(n_res, rng, n_grid=72):
+    """Synthetic Rama maps (n_res, n_grid, n_grid): the negative log of a
+    mixture of three von Mises wells (helix, sheet, left-handed), with
+    weights drawn per residue from `rng`; the maps the committed bundles
+    were built with (tools/export_torch_bundle.py imports this)."""
+    grid = -np.pi + 2 * np.pi * np.arange(n_grid) / n_grid
+    phi, psi = np.meshgrid(grid, grid, indexing="ij")
+    wells = np.array([[-1.1, -0.8], [-2.1, 2.3], [1.0, 0.8]])
+    maps = np.empty((n_res, n_grid, n_grid))
+    for r in range(n_res):
+        w = rng.dirichlet([6.0, 5.0, 1.0])
+        dens = sum(wk * np.exp(3.0 * (np.cos(phi - c[0]) - 1.0)
+                               + 3.0 * (np.cos(psi - c[1]) - 1.0))
+                   for wk, c in zip(w, wells))
+        p = dens + 1e-3 * dens.max()
+        maps[r] = -np.log(p / p.sum())      # negative log probability
+    return maps
+
+
+def example_rama_maps(n_res, seed=1):
+    """The Rama maps of the examples: the reference's uniform maps when
+    its libraries are present, otherwise `smooth_rama_maps` (never the
+    white-noise map of `_rama_maps`, whose rama_map_pot is ~1e5)."""
+    if _exists(RAMA_REF):
+        return uniform_rama_maps_from_reference(n_res, RAMA_REF)
+    return smooth_rama_maps(n_res, np.random.default_rng(seed))
+
+
 def build_backbone_system(seq=TRP_CAGE, hbond_energy=-2.1119, seed=1,
                           device="cuda"):
     """BASELINE config 1: constant-T backbone potential (bonds + Rama map +
@@ -92,13 +120,23 @@ def build_full_system(seq=UBIQUITIN, hbond_energy=-2.1119, seed=1,
     """BASELINE config 2: full forcefield with rotamer BP sidechains,
     hbond coverage + hydrophobes, and the environment/burial chain (when
     the environment library exists)."""
+    return _write_and_load(full_builder(seq, hbond_energy, seed,
+                                        sidechain_lib, environment_lib),
+                           device)
+
+
+def full_builder(seq=UBIQUITIN, hbond_energy=-2.1119, seed=1,
+                 sidechain_lib=None, environment_lib=None, rama_maps=None):
+    """The `ConfigBuilder` of `build_full_system`, not yet written; Rama
+    maps `rama_maps` in place of `_rama_maps`' when given."""
     ref = have_reference_params()
     sidechain_lib = sidechain_lib or (SIDECHAIN if ref else SIDECHAIN_SYNTH)
     environment_lib = environment_lib or (ENVIRONMENT if ref
                                           else ENVIRONMENT_SYNTH)
     b = ConfigBuilder(f">x\n{seq}\n", seed=seed)
     b.add_backbone_springs()
-    b.add_rama_map_pot(_rama_maps(b.n_res))
+    b.add_rama_map_pot(_rama_maps(b.n_res) if rama_maps is None
+                       else rama_maps)
     b.add_backbone_pairs()
     # damping 0.1: the solver schedule of the JAX package's builds (the
     # same fixed point as the reference default 0.4)
@@ -108,7 +146,7 @@ def build_full_system(seq=UBIQUITIN, hbond_energy=-2.1119, seed=1,
     if _exists(environment_lib):
         b.add_environment(environment_lib)
     b.add_rotamer_node()
-    return _write_and_load(b, device)
+    return b
 
 
 def build_10A_system(seq=PROTEIN_G, seed=1, device="cuda"):
@@ -161,10 +199,10 @@ def synthetic_10A_library(path, source=SIDECHAIN_SYNTH):
     return path
 
 
-def _write_and_load(builder, device="cuda"):
+def _write_and_load(builder, device="cuda", dtype=torch.float32):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "system.up")
         builder.write(path)
         records, pos, aux = load_up(path)
-    system, pos = System.from_records(records, pos, device)
+    system, pos = System.from_records(records, pos, device, dtype)
     return system, system.params, pos, aux

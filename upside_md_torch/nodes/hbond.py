@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.pairs import quadspline_coverage_nl, quadspline_family
+from ..ops.pairs import (quadspline_coverage_nl, quadspline_family,
+                         scatter_rows)
 from ..ops.quadspline import PairSpline, quadspline_colsum
 from .base import per_slot, register_node, to_tensor, type_pairs
 
@@ -119,19 +120,17 @@ def _hbond_coverage(c, p, inputs, ctx):
 def coverage_nl(c, table, x1, x2, w1):
     """The coverage (B, n2) from the neighbour list (hbond.py:139-148):
     w1[i] times the pair value at each row's COVERAGE_NEIGHBOR_K nearest
-    in-cutoff columns, summed by column, the slots off the list sent to a
-    dropped column n2."""
+    in-cutoff columns, summed by column.  The values go back on the dense
+    (B, n1, n2) grid (`scatter_rows`: a row's kept columns are distinct,
+    so no two values meet) and each column sums its rows in a fixed
+    order; a scatter_add into the columns would sum with float atomics on
+    the card, in an order that varies run to run."""
     ka, k, dx = quadspline_family(table.shape[-1])
     cov, idx, mask = quadspline_coverage_nl(
         table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
         x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
         c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K)
-    B, n2 = x2.shape[:2]
-    val = torch.where(mask, w1[..., None] * cov, torch.zeros_like(cov))
-    safe = torch.where(mask, idx, torch.full_like(idx, n2))
-    out = val.new_zeros((B, n2 + 1)).scatter_add(
-        1, safe.reshape(B, -1), val.reshape(B, -1))
-    return out[:, :n2]
+    return scatter_rows(w1[..., None] * cov, idx, mask, x2.shape[1]).sum(1)
 
 
 infer_H_O = register_node("infer_H_O", False, _infer_h_o)

@@ -18,9 +18,11 @@ time.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..ops.pairs import batch_rows, neighbor_list, sequence_exclusion_mask
+from ..ops.pairs import (batch_rows, neighbor_list, sequence_exclusion_mask,
+                         type_members)
 from ..ops.sigmoid import compact_sigmoid
 from ..ops.spline import eval_clamped_bspline
 from .base import (flat_param, per_slot, register_node, to_tensor,
@@ -110,15 +112,29 @@ def _contact(c, p, inputs, ctx):
     return _contact_values(c, p, inputs[0]).sum(-1)
 
 
+def _prepare_contact(c, device, dtype):
+    """The contact list, and each bead's contact ends (`bead_contacts`,
+    (max id + 1, m)): indices into [the first ends' energies, the second
+    ends', a zero], in that order, padded with the zero's index."""
+    out = {k: to_tensor(v, device, dtype) for k, v in c.items()}
+    ends = np.asarray(c["id"]).T.reshape(-1)
+    out["bead_contacts"] = type_members(
+        ends, int(ends.max()) + 1 if len(ends) else 0).to(device)
+    return out
+
+
 def contact_energy_per_bead(consts, params, inputs):
     """Per-bead contact energy (B, n_bead), half of each pair's energy on
     both of its beads: the reference's 'contact_energy' stream
-    (sidechain_radial.cpp:171-183)."""
+    (sidechain_radial.cpp:171-183).  Each bead gathers its contacts'
+    halves (`bead_contacts`) and sums them in a fixed order: an index_add
+    would sum with float atomics on the card, in an order that varies run
+    to run."""
     x = inputs[0]
     en = 0.5 * _contact_values(consts, params, x)
-    ids = consts["id"]
-    out = en.new_zeros(x.shape[:2])
-    return out.index_add(1, ids[:, 0], en).index_add(1, ids[:, 1], en)
+    halves = torch.nn.functional.pad(torch.cat([en, en], -1), (0, 1))
+    per = halves[:, consts["bead_contacts"]].sum(-1)
+    return torch.nn.functional.pad(per, (0, x.shape[1] - per.shape[1]))
 
 
 _get_table, _set_table = flat_param("interaction_param")
@@ -126,4 +142,5 @@ radial = register_node("radial", True, _radial, prepare=_prepare_radial,
                        get_param=_get_table, set_param=_set_table)
 hbond_sc_radial = register_node("hbond_sc_radial", True, _hbond_sc_radial,
                                 get_param=_get_table, set_param=_set_table)
-contact = register_node("contact", True, _contact)
+contact = register_node("contact", True, _contact,
+                        prepare=_prepare_contact)

@@ -536,8 +536,13 @@ def table_cotangent(table, t1, t2, x1, x2, mask, g):
     (n1, n2) the call site's mask and g (B, n1, n2) the pair cotangent.
     The cotangent is selected, never multiplied, by mask AND inside the
     table's own cutoff.  Each pair's window weights and the table row it
-    reads give its (M,) cotangent, which `index_add_` scatters to its
-    (type1, type2) entry."""
+    reads give its (M,) cotangent, summed over the replica chunks; then a
+    (type1, type2) entry sums its pairs as two products with the types'
+    one-hot matrices (each row over the columns of each type, then those
+    sums over the rows of each type), matrix products that sum in the same
+    order on every run: the `index_add_` it replaces summed with float
+    atomics on the card, in an order that varies run to run.  The one-hot
+    matrices are built on the types' device, with no host read."""
     from .pairs import quadspline_family
     from .spline import bspline_window_weights
     ka, k, dx = quadspline_family(table.shape[-1])
@@ -545,8 +550,7 @@ def table_cotangent(table, t1, t2, x1, x2, mask, g):
     A, Bt, M = table.shape
     t1, t2 = t1.long(), t2.long()
     p = table.detach()[t1[:, None], t2[None, :]]          # (n1, n2, M)
-    idx = (t1[:, None] * Bt + t2[None, :]).reshape(-1)
-    out = table.new_zeros((A * Bt, M))
+    per_pair = torch.zeros_like(p)
     for r0 in range(0, x1.shape[0], COTANGENT_CHUNK):
         sl = slice(r0, r0 + COTANGENT_CHUNK)
         _, dist, _, cos1, cos2 = _geometry(x1[sl], x2[sl])
@@ -563,8 +567,11 @@ def table_cotangent(table, t1, t2, x1, x2, mask, g):
                         (gm * a1 * narrow)[..., None] * wa2,
                         gm[..., None] * wd,
                         (gm * a1 * a2)[..., None] * wd], dim=-1)
-        out.index_add_(0, idx, gw.sum(0).reshape(-1, M))
-    return out.reshape(A, Bt, M)
+        per_pair = per_pair + gw.sum(0)
+    rows = (t1[:, None] == torch.arange(A, device=t1.device)).to(p.dtype)
+    cols = (t2[:, None] == torch.arange(Bt, device=t2.device)).to(p.dtype)
+    by_col = torch.einsum("jb,ijm->ibm", cols, per_pair)
+    return torch.einsum("ia,ibm->abm", rows, by_col)
 
 
 def env_rowsums(tab4, t1e, t2e, me, x1e, wcol, xb):

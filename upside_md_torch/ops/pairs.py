@@ -10,6 +10,7 @@ Pallas body exists for it.  Every array carries the replica axis first,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .spline import bspline_window_weights
@@ -133,6 +134,21 @@ def quadspline_coverage_nl(p_table, t1, t2, pos1, dir1, pos2, dir2,
     narrow = seg_eval(dist_coord, 2 * ka + k, 2 * ka + 2 * k, True)
     cov = torch.where(mask, wide + a1 * a2 * narrow, torch.zeros_like(wide))
     return cov, idx, mask
+
+
+def type_members(t, n_type):
+    """(n_type, m) the indices of t's (n,) entries of each type, in
+    increasing order, padded with n (the index of an appended zero): the
+    gather table of a sum by type in a fixed order.  Built on the host
+    from host types (a numpy array or a CPU tensor), so that no caller
+    reads the card for it."""
+    t = np.asarray(t, np.int64)
+    order = np.argsort(t, kind="stable")
+    counts = np.bincount(t, minlength=n_type)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(int)
+    table = np.full((n_type, max(int(counts.max(initial=0)), 1)), len(t))
+    table[t[order], np.arange(len(t)) - first[t[order]]] = order
+    return torch.as_tensor(table)
 
 
 def scatter_rows(values, idx, mask, n2):
