@@ -25,7 +25,8 @@ checks them:
   and K5, and BP by the plain port of the XLA `_bp_solve`, the reference's
   own branch past 128 residues) and 238-residue GFP (1,143 beads; the
   fixed-K neighbour lists of the rotamer grid and both coverages, plain
-  PyTorch as the reference's are XLA, and the plain BP solve);
+  PyTorch as the reference's are XLA, their row gathers' backward the
+  port's own kernel `gather_rows_bwd`, and the plain BP solve);
 * the node types the older bundles do not use, on the fused path:
   BASELINE config 2 (ubiquitin with sidechain_radial packing; K1 fwd, K1
   bwd, K2), BASELINE config 5 (chi1 prediction on ubiquitin through
@@ -156,18 +157,29 @@ the bundle's seed.  Phases:
    versions (phase 4's tolerances, tile decisions equal to `cull_tiles`,
    device time by launch, bounds, the plain versions' time), MD at 64
    and 512 replicas; `[large gfp]` a whole evaluation on the card in
-   float32 against the port on the CPU in float64 (no kernel lies on this
-   path; same limits), MD at 64 replicas, for the rotamer grid and both
+   float32 against the port on the CPU in float64 (the one kernel on this
+   path, `gather_rows_bwd`, sums in the plain version's order; same
+   limits), MD at 64 replicas, for the rotamer grid and both
    coverages the largest in-cutoff partner count of a row beside the
    list's width K, and the device time of an evaluation's three
-   neighbour-list calls, forward and backward, beside the MD's.  Each MD: 2 warm-up rounds, 3 x 3 timed rounds
+   neighbour-list calls, forward and backward, beside the MD's;
+   `[gather gfp]` `gather_rows_bwd` on each of the three lists at the
+   MD's last positions (64 replicas, a seeded cotangent) against its
+   plain version (rel 1e-6, and bitwise equal on a second launch), its
+   time (a wrapper call, device time, plain, `index_add_` of the kept
+   slots as the library call, each on copies of its operands in turn so
+   that they come from HBM; the bound over the list's kept slots, and its
+   launches an MD evaluation), and beside it the whole gather, forward and backward, as
+   `gather_rows`, as the former `index_select` and as advanced indexing
+   (whose CUDA backward sorts).  Each MD: 2 warm-up rounds, 3 x 3 timed rounds
    (steps/s, mean BP sweeps and host syncs of the plain solve an
    evaluation, peak memory), then 2 rounds under `torch.profiler` (device
    time an evaluation, idle share, the plain solve's share of device
    time); launch counts set to 0 just before each path and read just
-   after: T4 lysozyme's K4 and K5 launched and no other kernel, GFP no
-   kernel at all; GFP's evaluation is also held against the port on the
-   CPU in float32 (printed, not gated: precision apart from fault);
+   after: T4 lysozyme's K4 and K5 launched and no other kernel, GFP
+   `gather_rows_bwd` and no other; GFP's evaluation is also held against
+   the port on the CPU in float32 (printed, not gated: precision apart
+   from fault);
 9. the remaining node types, each gate card float32 against the port on
    the CPU in float64 at BP tol 1e-6 (energy and force RMS rel < 1e-3):
    `[config2 ubiquitin_radial]` BASELINE config 2, its fusion plan's
@@ -189,7 +201,7 @@ the bundle's seed.  Phases:
 10. the command line (`python -m upside_md_torch.cli`, driven in
    process through `cli.main`), writing its per-slot HDF5 files with
    `io/h5.py` into a temporary directory: `[cli ubiquitin]` 64 slots of
-   ubiquitin at the detailed log level, 60 rounds, frames every 10,
+   ubiquitin at the detailed log level, 30 rounds, frames every 10,
    beside a bare `run_ensemble` under the same schedule (K1 fwd, K1 bwd
    and K2 launched as often over as many evaluations; every file read
    back by the port's reader, every frame finite; the logged potential
@@ -200,7 +212,7 @@ the bundle's seed.  Phases:
    the copies and the logging) beside the bare run's, bytes a frame a slot
    and ms a flush); `[cli rex cytochrome_c]` config 4 through the
    command line from 64 ladder bundles written with `bundle.save`, even/odd
-   swap sets every 10 rounds, 40 rounds (replica_index a permutation in
+   swap sets every 10 rounds, 20 rounds (replica_index a permutation in
    every frame; swap acceptance and steps/s beside phase 7's); `[cli pda]`
    --potential-deriv-agreement on ubiquitin (its value, finite);
 11. `.up` configurations: `[up ubiquitin]` the committed
@@ -211,7 +223,7 @@ the bundle's seed.  Phases:
    `System.from_up` against `System.from_bundle` at 64 replicas, rel
    1e-6); `[up rama]` `rama_map_pot`'s get_param on both systems (rel
    1e-6) and set_param(get_param()) (energy rel 1e-6); `[cli up
-   ubiquitin]` `cli.main` on the `.up` at 64 slots, 60 rounds, frames
+   ubiquitin]` `cli.main` on the `.up` at 64 slots, 30 rounds, frames
    every 10, beside the bundle's run in the order npz, up, up, npz (K1
    fwd, K1 bwd and K2 launched as by the bundle run; the frame-1
    potential rel 1e-6; steps/s of each; every logged dataset of each run
@@ -225,7 +237,7 @@ the bundle's seed.  Phases:
    libraries, the committed `.up`'s Rama maps passed uncentred (every
    dataset and attribute equal to the committed `.up`'s as the port's
    reader reads them; host ms of building and writing), then `cli.main`
-   at 64 slots, 60 rounds, frames every 10 on the committed and the built
+   at 64 slots, 30 rounds, frames every 10 on the committed and the built
    file (frame-1 potential rel 0, every logged position equal, K1 fwd, K1
    bwd and K2 launched as often); `[build radial]` the same plus
    `add_sidechain_radial` (its `load_up` records equal to
@@ -250,7 +262,7 @@ the bundle's seed.  Phases:
    Gloo, rel 1e-5, every rank's launches equal to one process's, steps/s
    summed over the ranks beside one process's (5 timed rounds; card
    sharing, not a claim); `[mesh rex cytochrome_c]` BASELINE config 4 (64
-   slots, the ladder, swaps every 10 rounds, 40 rounds) on the 4 ranks,
+   slots, the ladder, swaps every 10 rounds, 20 rounds) on the 4 ranks,
    `sharded_attempt_swaps` between sharded Hamiltonian advances, against
    `cli.run_ensemble` in one process from the same seed: replica_index and
    swap stats equal, carried energies rel 1e-6, swap acceptance printed;
@@ -284,12 +296,17 @@ the bundle's seed.  Phases:
    `[examples train_rotamer]` the examples at small size (files written,
    replica_index a permutation, the training loss falling; the fused
    kernels launched where the path has them, none on the backbone-only
-   exchange); `[repeat gfp coverage]`, `[repeat extras contact]`,
-   `[repeat train]` 20 calls on the same inputs of GFP's coverages past
-   1,024 columns, the contact_energy stream and the rotamer table's
-   cotangent, each as it is (fixed-order sums; must never vary) and in
-   its former scatter (printed), with the coverage's gradient and a
-   training step's gradient (10 calls; printed); `[batch cytochrome_c]`
+   exchange); `[repeat gfp coverage]`, `[repeat gfp forces]`, `[repeat
+   radial nl]`, `[repeat extras contact]`, `[repeat train]`, `[repeat
+   train env]` 20 calls on the same inputs of GFP's coverages past 1,024
+   columns and their gradient, GFP's whole evaluation (forces and
+   energies) at 64 replicas, the `radial` node's neighbour-list branch
+   with its gradient (1,100 probes, 64 replicas), the contact_energy
+   stream, the rotamer table's cotangent and the environment table's
+   cotangent (full ubiquitin), each as it is (fixed-order sums and the
+   fixed-order gather `gather_rows`: must never vary) and in its former
+   scatter or `index_select` gather (printed), and a training step's
+   gradient (10 calls; printed); `[batch cytochrome_c]`
    every energy term of 64 replicas in one batch against 4 x 16
    (`backbone_pairs` bitwise equal; its former whole-grid sum and the
    other terms printed);
@@ -343,12 +360,19 @@ KERNEL_INFO = {
                    "upside_md_tpu/ops/pallas_quadspline.py:390"),
     "bp_bethe_planes": ("upside_md_torch/csrc/bp_bethe_planes.cu",
                         "upside_md_tpu/ops/pallas_bp.py:230"),
+    # no TPU kernel: the JAX package gathers the list's rows in XLA
+    "gather_rows_bwd": ("upside_md_torch/csrc/gather_rows.cu",
+                        "none (XLA gather, upside_md_tpu/ops/pairs.py:94)"),
 }
 FUSED_KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
 UNFUSED_KERNELS = ("quadspline_fwd", "quadspline_bwd", "colsum_fwd",
                    "colsum_bwd", "bp_bethe_planes")
 # T4 lysozyme's path: K4 and K5; its BP is the plain solve, past K6's cap
 LARGE_KERNELS = UNFUSED_KERNELS[:4]
+# GFP's path: the neighbour lists' row gather
+GFP_KERNELS = ("gather_rows_bwd",)
+GATHER_TOL = 1e-6      # gather_rows_bwd against its plain version, rel
+ROTATE_BYTES = 150e6   # a timed kernel's operands in turn: 3x the 50 MB L2
 NOENV_KERNELS = ("fused_pair_fwd", "fused_pair_bwd_recompute",
                  "bp_bethe_pairs")
 TRAIN_CONFIGS, TRAIN_STEPS, TRAIN_LR = 8, 5, 0.03
@@ -387,7 +411,7 @@ N_DERIV_EVALS = 7     # the force-evaluation counter of the extras gate
 PROFILE_ROUNDS = 1
 # phase 10: the command line (slots, rounds, frame interval; config 4's
 # rounds; slots whose frame-1 streams are recomputed on the CPU)
-CLI_SLOTS, CLI_ROUNDS, CLI_EVERY, CLI_REX_ROUNDS = 64, 60, 10, 40
+CLI_SLOTS, CLI_ROUNDS, CLI_EVERY, CLI_REX_ROUNDS = 64, 30, 10, 20
 CLI_HOST_SLOTS = 4
 CLI_APPEND_FRAMES = 300     # three flushes: one creating, two appending
 # phase 11: the committed .up of ubiquitin_full_synth's build; host calls
@@ -423,20 +447,20 @@ STREAM_REPS = 20
 # the chi1 bundle at the same coordinates
 UBIQUITIN = ("MQIFVKTLTGKTITLEVEPSDTIENVKAKIQDKEGIPPDQQRLIFAGKQLEDGRTLSDYNIQ"
              "KESTLHLVLRLRGG")
-BUILD_SLOTS, BUILD_ROUNDS, BUILD_EVERY = 64, 60, 10
+BUILD_SLOTS, BUILD_ROUNDS, BUILD_EVERY = 64, 30, 10
 PDB_SLOTS, PDB_ROUNDS = 64, 30
 BUILD_EVAL_TOL, CHI1_PDB_TOL = 1e-4, 1e-6
 # phase 13: replica sharding over ranks.  Ubiquitin at 64 replicas, 3
 # compared rounds with a thermostat step every round (so each draws the
 # whole ensemble's noise), then 5 timed rounds; sharded positions against
 # the unsharded run: rel 1e-6 at world size 1 over NCCL, 1e-5 on ranks
-# sharing the card over Gloo; config 4 over 4 ranks for 40 rounds
+# sharing the card over Gloo; config 4 over 4 ranks for 20 rounds
 # (energies rel 1e-6); one training step over 4 ranks on 16 positions
 # (each gradient leaf rel 1e-5 against one process's)
 MESH_REPLICAS, MESH_ROUNDS, MESH_TIMED_ROUNDS = 64, 3, 5
 MESH_THERMOSTAT, MESH_SEED = 0.027, 11
 MESH_NCCL_TOL, MESH_GLOO_TOL = 1e-6, 1e-5
-MESH_REX_RANKS, MESH_REX_ROUNDS, MESH_REX_TOL = 4, 40, 1e-6
+MESH_REX_RANKS, MESH_REX_ROUNDS, MESH_REX_TOL = 4, 20, 1e-6
 MESH_TRAIN_BATCH, MESH_TRAIN_TOL = 16, 1e-5
 # BASELINE configs 1 and 3 built by the port's bench_systems: replicas,
 # timed rounds (3 x), and config 1's card float32 against the CPU float64
@@ -454,6 +478,8 @@ SCRIPT_ROUNDS, SCRIPT_REX_ROUNDS, SCRIPT_TRAIN_STEPS = 3, 20, 2
 SCRIPT_FOLD_DURATION, SCRIPT_REX_SLOTS, SCRIPT_REX_DURATION = 0.54, 8, 0.54
 SCRIPT_TRAIN_FRAMES, SCRIPT_TRAIN_FIT = 6, 5
 SCRIPT_GATE_TOL, SCRIPT_STEP_REPS = 1e-3, 10
+# `[repeat radial nl]`: probes of the radial node past its threshold
+RADIAL_NL_PROBES = 1100
 
 
 def log(msg):
@@ -2336,7 +2362,8 @@ def large_md(path, dev, label, replicas, names, rounds):
                     if e.name == "bp_solve_plain"
                     and e.device_type == torch.autograd.DeviceType.CPU) * 1e-6
         n_ev = 3 * LARGE_PROFILE_ROUNDS
-        rec.update({"profiled_wall_s": wall, "device_s_per_eval": busy / n_ev,
+        rec.update({"n_evals": state.n_evals,
+                    "profiled_wall_s": wall, "device_s_per_eval": busy / n_ev,
                     "idle_share": 1.0 - busy / wall,
                     "plain_bp_share": solve / busy if busy else None,
                     "launches_per_eval": len(kern) / n_ev})
@@ -2394,10 +2421,11 @@ def card_vs_host(label, sys_d, sys_h, pos, n_deriv_evals=0, gate=True):
 
 def large_gfp_gate(dev, gen, base, path):
     """[large gfp]: a whole evaluation on the card in float32 against the
-    port on the CPU in float64, both at BP tol 1e-6: no kernel lies on
-    this path, so the gate is device against host (energy and force RMS
-    rel < 1e-3), and no kernel may launch.  Beside it, the same against
-    the CPU in float32 (printed, not gated): precision apart from fault."""
+    port on the CPU in float64, both at BP tol 1e-6: the gate is device
+    against host (energy and force RMS rel < 1e-3), and only the row
+    gather's kernel (GFP_KERNELS) may launch.  Beside it, the same against
+    the CPU in float32 (printed, not gated): precision apart from
+    fault."""
     from upside_md_torch.ops import kernels
     label = "large gfp"
     sys_d, _ = load_system(path, dev, True, tol=1e-6)
@@ -2405,7 +2433,7 @@ def large_gfp_gate(dev, gen, base, path):
     pos = perturbed(base, COMPARE_REPLICAS, gen, dev)
     kernels.reset_counts()
     out = card_vs_host(label, sys_d, host_system(path, "float64"), pos)[0]
-    read_launches(f"{label} gate", ())
+    read_launches(f"{label} gate", GFP_KERNELS)
     f32 = card_vs_host(label, sys_d, host_system(path, "float32"), pos,
                        gate=False)[0]
     log(f"[{label}] force RMS rel, card float32 against host float64 "
@@ -2473,6 +2501,199 @@ def large_nl(path, dev, pos, device_ms_per_eval):
     del covs, leaves, system
     torch.cuda.empty_cache()
     return out
+
+def gather_lists(system, outs):
+    """GFP's three neighbour lists as the nodes form them, through
+    `quadspline_coverage_nl`: [(name, the gathered column rows (B, n2, 6),
+    idx, mask)]."""
+    import torch
+    from upside_md_torch.nodes import hbond, rotamer
+    from upside_md_torch.ops.pairs import (quadspline_coverage_nl,
+                                           quadspline_family)
+    covs, (c, p, beads, _) = unfused_operands(system, outs)
+    sites = [(name, system.consts[name]["type1"],
+              system.consts[name]["type2"], cps.mask, table, x1, x2,
+              hbond.COVERAGE_NEIGHBOR_K)
+             for name, cps, table, x1, x2, _ in covs]
+    sites.append(("rotamer", c["type"], c["type"], c["spline"].mask,
+                  p["interaction_param"], beads, beads,
+                  min(beads.shape[1], rotamer.NEIGHBOR_K)))
+    out = []
+    for name, t1, t2, mask, table, x1, x2, K in sites:
+        ka, k, dx = quadspline_family(table.shape[-1])
+        with torch.no_grad():
+            _, idx, kept = quadspline_coverage_nl(
+                table, t1, t2, x1[..., 0:3], x1[..., 3:6], x2[..., 0:3],
+                x2[..., 3:6], ka, k, 1.0 / dx, mask.bool(), K)
+        out.append((name, x2[..., :6], idx, kept))
+    return out
+
+
+def index_select_rows(x, idx, mask, plain=False):
+    """The row gather as it was before `gather_rows`: one `index_select`,
+    whose CUDA backward is an `index_add` with float atomics (`mask` and
+    `plain` unread: every slot takes its cotangent)."""
+    from upside_md_torch.ops.pairs import flat_rows
+    B, n = x.shape[:2]
+    return x.reshape(B * n, -1).index_select(0, flat_rows(idx, n)).reshape(
+        idx.shape + x.shape[2:])
+
+
+def indexed_rows(x, idx, mask, plain=False):
+    """The row gather by advanced indexing, whose CUDA backward sorts
+    (`mask` and `plain` unread)."""
+    from upside_md_torch.ops.pairs import flat_rows
+    B, n = x.shape[:2]
+    return x.reshape(B * n, -1)[flat_rows(idx, n)].reshape(
+        idx.shape + x.shape[2:])
+
+
+class former_gather:
+    """Within it, the neighbour lists gather their rows by
+    `index_select_rows`, as before `gather_rows` (for printed
+    comparisons)."""
+
+    def __enter__(self):
+        from upside_md_torch.nodes import radial
+        from upside_md_torch.ops import pairs
+        self.saved = pairs.gather_rows, radial.gather_rows
+        pairs.gather_rows = radial.gather_rows = index_select_rows
+
+    def __exit__(self, *exc):
+        from upside_md_torch.nodes import radial
+        from upside_md_torch.ops import pairs
+        pairs.gather_rows, radial.gather_rows = self.saved
+
+
+def ms_text(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def rotating(fn, inputs):
+    """fn over the argument tuples `inputs` in turn, a new tuple each
+    call, so that a timed call does not find its operands left in L2 by
+    the call before (each tuple a copy; together at least ROTATE_BYTES)."""
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % len(inputs)
+        return fn(*inputs[turn[0]])
+    return call
+
+
+def copies(n_bytes, *ts):
+    """[ts, and clones of ts]: enough tuples that a pass over them reads
+    ROTATE_BYTES of which each reads n_bytes."""
+    n = max(2, math.ceil(ROTATE_BYTES / max(n_bytes, 1)))
+    return [ts] + [tuple(t.clone() for t in ts) for _ in range(n - 1)]
+
+
+def gfp_gather(dev, path, pos, launches_per_eval):
+    """[gather gfp]: `gather_rows_bwd` on each of GFP's three neighbour
+    lists at `pos`: the slots sorted by row (`row_segments`) and a seeded
+    cotangent (w = 6: position and direction), the kernel against the
+    plain version (rel GATHER_TOL, bitwise equal on a second launch), and
+    per list one wrapper call's ms, device ms, the plain version's ms,
+    `index_add_` of the kept slots' cotangents into their rows (the
+    library call: one PyTorch call of the same sum, with float atomics)
+    and the bound over the kept slots: each kept slot's cotangent row and
+    sorted index read once, the row offsets read and the result written
+    once, one add a value.  The kernel, the plain version and the library
+    call are timed on copies of their operands in turn (`rotating`), so
+    that what a call reads comes from HBM as the bound counts it; the
+    kernel's device ms on the same operands every call, which a warm L2
+    holds, is recorded beside.  Beside it, the whole gather, forward and
+    backward (the sort included), as `gather_rows`, as
+    `index_select_rows` and as `indexed_rows`: ms and device ms.  Returns
+    the kernel table's entries for an evaluation's three calls (max abs
+    err, (ms, plain ms, device ms), (bound ms, by), library ms) and the
+    records."""
+    import torch
+    from upside_md_torch.ops import pairs
+    system, _ = load_system(path, dev)
+    with torch.no_grad():
+        outs = system.evaluate(pos)[1]
+    lists = gather_lists(system, outs)
+    del outs
+    gen = torch.Generator(device=dev).manual_seed(13)
+    recs, worst = {}, 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0, "ops": 0}
+    for name, x, idx, kept in lists:
+        n_rows, w = x.shape[0] * x.shape[1], x.shape[2]
+        flat = pairs.flat_rows(idx, x.shape[1])
+        order, starts = pairs.row_segments(flat, n_rows, kept)
+        g = torch.randn((flat.shape[0], w), generator=gen, device=dev)
+        got = pairs.gather_rows_bwd(g, order, starts)
+        again = pairs.gather_rows_bwd(g, order, starts)
+        want = pairs.gather_rows_bwd_plain(g, order, starts)
+        err, d = rel_err(got, want)
+        check(f"[gather gfp] {name} gather_rows_bwd", err, GATHER_TOL)
+        repeatable(f"gather_rows_bwd {name}", (got,), (again,))
+        worst = max(worst, d)
+        n_kept = int(starts[-1])
+        n_bytes = n_kept * (4 * w + 8) + (n_rows + 1) * 8 + n_rows * w * 4
+        ops = copies(n_bytes, g, order, starts)
+        ms, plain_ms, dms = timed(
+            rotating(pairs.gather_rows_bwd, ops),
+            rotating(pairs.gather_rows_bwd_plain, ops))
+        same_dms = device_ms(lambda: pairs.gather_rows_bwd(g, order, starts))
+        del ops
+        on = kept.reshape(-1)
+        lib = copies(n_bytes, flat[on], g[on])
+        lib_ms = cuda_ms(rotating(
+            lambda rows, gk: gk.new_zeros((n_rows, w)).index_add_(0, rows,
+                                                                  gk), lib))
+        lib_err = rel_err(lib[0][1].new_zeros((n_rows, w)).index_add_(
+            0, *lib[0]), want)[0]
+        del lib
+        b = bound(n_bytes, n_kept * w)
+        leaf = x.detach().requires_grad_(True)
+        gy = g.reshape(idx.shape + (w,))
+        forms = {}
+        for form, fn in (("gather_rows", pairs.gather_rows),
+                         ("index_select", index_select_rows),
+                         ("advanced indexing", indexed_rows)):
+            def whole():
+                with torch.enable_grad():
+                    y = fn(leaf, idx, kept)
+                    return torch.autograd.grad(y, leaf, gy)
+            forms[form] = {"ms": cuda_ms(whole), "device_ms":
+                           device_ms(whole, reps=5)}
+        recs[name] = {"slots": flat.shape[0], "kept": n_kept,
+                      "rows": n_rows, "max_abs_err": d, "rel_err": err,
+                      "bitwise_equal_plain": bool(torch.equal(got, want)),
+                      "ms": ms, "device_ms": dms,
+                      "device_ms_same_operands": same_dms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_rel_err": lib_err, "bound_ms": b[0],
+                      "bound_by": b[1], "whole_gather": forms}
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("device_ms", dms),
+                     ("library_ms", lib_ms), ("bytes", n_bytes),
+                     ("ops", n_kept * w)):
+            tot[k] += v or 0
+        log(f"[gather gfp] {name}: {flat.shape[0]} slots, {n_kept} kept, "
+            f"{n_rows} rows; kernel {ms:.4f} ms a call, device "
+            f"{ms_text(dms)} (same operands every call "
+            f"{ms_text(same_dms)}), plain {plain_ms:.4f} ms, index_add_ of "
+            f"the kept slots {lib_ms:.4f} ms (rel {lib_err:.1e} to plain), "
+            f"bound {b[0]:.4f} ms ({b[1]}); bitwise equal "
+            f"to plain {recs[name]['bitwise_equal_plain']}; whole gather, "
+            "forward and backward: " + "; ".join(
+                f"{k} {v['ms']:.4f} ms (device {ms_text(v['device_ms'])})"
+                for k, v in forms.items()))
+    b = bound(tot["bytes"], tot["ops"])
+    recs["launches_per_eval"] = launches_per_eval
+    log(f"[gather gfp] an evaluation's three calls at {pos.shape[0]} "
+        f"replicas: kernel {tot['ms']:.4f} ms, device "
+        f"{tot['device_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+        f"index_add_ {tot['library_ms']:.4f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]}); {launches_per_eval:.2f} launches an MD evaluation")
+    del lists, system
+    torch.cuda.empty_cache()
+    return (worst, (tot["ms"], tot["plain_ms"], tot["device_ms"]), b,
+            tot["library_ms"], recs)
+
 
 # ---------------------------------------------------------------------------
 # the remaining node types: config 2, chi1 prediction, the extras
@@ -3022,7 +3243,7 @@ def cli_ubiquitin(dev, path):
     slots (from the files) equal to the port on the CPU in float64 (within
     1e-4 of each stream's largest value, or of 1e-6 where that is smaller).
     steps/s with logging counts from `run_ensemble`'s start to the last
-    file's close, so every file write is inside (with 6 frames all of them
+    file's close, so every file write is inside (with 3 frames all of them
     happen at the close, each creating its datasets); the append path,
     which a run of fewer than BUFFER_FRAMES frames does not reach, is
     timed by `replay_appends` on the same frames' values."""
@@ -4703,8 +4924,9 @@ def repeat_coverage_nl(dev):
     """`[repeat gfp coverage]`: both coverages of GFP (past 1,024 columns:
     the neighbour list) at TIME_REPLICAS replicas, `coverage_nl` as it is
     (a dense grid summed by column) and the former `scatter_add` into the
-    columns, and the coverage's gradient to its inputs (printed).  Gate:
-    `coverage_nl` never varies."""
+    columns, and the coverage's gradient to its inputs, through
+    `gather_rows` and through the former `index_select` (printed).  Gate:
+    `coverage_nl` and its gradient never vary."""
     import torch
     from upside_md_torch import DATA_DIR
     from upside_md_torch.nodes import hbond
@@ -4753,6 +4975,8 @@ def repeat_coverage_nl(dev):
             res[f"{name} scatter_add (before)"] = spread(old)
             new, before = hbond.coverage_nl(*args), old()
         res[f"{name} gradient"] = spread(grad)
+        with former_gather():
+            res[f"{name} gradient, index_select (before)"] = spread(grad)
         res[f"{name} coverage_nl vs before, rel"] = rel_err(new, before)[0]
     log_spread("repeat gfp coverage",
                {k: v for k, v in res.items() if isinstance(v, dict)})
@@ -4760,8 +4984,132 @@ def repeat_coverage_nl(dev):
         ", ".join(f"{k} {v:.2e}" for k, v in res.items()
                   if not isinstance(v, dict)))
     for k, v in res.items():
-        if k.endswith("coverage_nl") and v["differ"]:
+        if k.endswith(("coverage_nl", "gradient")) and v["differ"]:
             raise AssertionError(f"[repeat gfp coverage] {k} varies")
+    return res
+
+
+def repeat_gfp_forces(dev, gen):
+    """`[repeat gfp forces]`: GFP's whole evaluation (energy and forces,
+    `System.deriv` from a cold solver start) at TIME_REPLICAS perturbed
+    replicas, with its neighbour lists' rows gathered by `gather_rows` and
+    by the former `index_select` (printed).  Gate: the forces and energies
+    through `gather_rows` never vary."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    system, pos0 = load_system(os.path.join(DATA_DIR, BUNDLE_GFP), dev)
+    x = perturbed(torch.as_tensor(pos0, device=dev), TIME_REPLICAS, gen,
+                  dev)
+
+    def forces():
+        g, e, _ = system.deriv(x, system.init_cache(x.shape[0]))
+        return torch.cat([g.reshape(-1), e])
+
+    res = {"forces and energies": spread(forces)}
+    with former_gather():
+        res["forces and energies, index_select (before)"] = spread(forces)
+    log_spread("repeat gfp forces", res)
+    if res["forces and energies"]["differ"]:
+        raise AssertionError("[repeat gfp forces] GFP's forces vary")
+    del system
+    torch.cuda.empty_cache()
+    return res
+
+
+def radial_case(dev, n=RADIAL_NL_PROBES):
+    """(consts, table, positions (TIME_REPLICAS, n, 3)) of a `radial` node
+    past its neighbour-list threshold: config 2's table, n probes of
+    random types at the density of a protein's CB atoms (uniform in a
+    ball of radius 32 A at 1,100 probes), a chain's sequence separation."""
+    import numpy as np
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.nodes.radial import _prepare_radial
+    system, _ = load_system(os.path.join(DATA_DIR, BUNDLE_RADIAL), dev)
+    table = system.params["radial"]["interaction_param"]
+    types = np.random.default_rng(17).integers(0, table.shape[0], n)
+    c = _prepare_radial({"id": np.arange(n), "type": types}, dev,
+                        torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    radius = 32.0 * (n / 1100.0) ** (1.0 / 3.0)
+    d = torch.randn((TIME_REPLICAS, n, 3), generator=gen, device=dev)
+    r = torch.rand((TIME_REPLICAS, n, 1), generator=gen, device=dev)
+    x = radius * r ** (1.0 / 3.0) * d / d.norm(dim=-1, keepdim=True)
+    return c, table, x
+
+
+def repeat_radial_nl(dev):
+    """`[repeat radial nl]`: the `radial` node's neighbour-list branch
+    (`nodes/radial._radial_neighbours`) on `radial_case`'s inputs, its
+    energies and their gradient to the positions, through `gather_rows`
+    and through the former `index_select` (printed).  Gate: the energies
+    and gradient through `gather_rows` never vary."""
+    import torch
+    from upside_md_torch.nodes import radial
+    c, table, x = radial_case(dev)
+
+    def energy_grad():
+        leaf = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = radial._radial_neighbours(c, table, leaf)
+            (g,) = torch.autograd.grad(e.sum(), leaf)
+        return torch.cat([e.detach(), g.reshape(-1)])
+
+    res = {"energy and gradient": spread(energy_grad)}
+    with former_gather():
+        res["energy and gradient, index_select (before)"] = spread(
+            energy_grad)
+    log_spread("repeat radial nl", res)
+    log(f"[repeat radial nl] {x.shape[1]} probes, {x.shape[0]} replicas, "
+        f"threshold {radial.NEIGHBOR_LIST_THRESHOLD}, K {radial.NEIGHBOR_K}")
+    if res["energy and gradient"]["differ"]:
+        raise AssertionError("[repeat radial nl] the radial node varies")
+    return res
+
+
+def repeat_train_env(dev, gen):
+    """`[repeat train env]`: on full ubiquitin (the env band) at
+    TIME_REPLICAS perturbed replicas, the environment table's cotangent
+    (`fused_pair.env_table_cotangent`, as `block_table_cotangents` calls
+    it, summed by type with one-hot products) under a seeded env-row
+    cotangent, and by its former autograd through the table gather (an
+    accumulating `index_put_`; printed).  Gate: `env_table_cotangent`
+    never varies."""
+    import torch
+    from upside_md_torch import DATA_DIR
+    from upside_md_torch.ops.fused_pair import (env_rowsums,
+                                                env_table_cotangent)
+    system, pos0 = load_system(os.path.join(DATA_DIR, BUNDLE), dev)
+    x = perturbed(torch.as_tensor(pos0, device=dev), TIME_REPLICAS, gen,
+                  dev)
+    with torch.no_grad():
+        outs = system.evaluate(x)[1]
+    plan, prep = system.pair_fusion, system.fused_prepared()
+    x1, _, x2, wcol = plan.block_inputs(system.consts, outs)
+    tab4 = plan.tables(system.params)[3]
+    rt = prep.row_type.long()
+    g_env = torch.randn((x.shape[0], prep.r_p - prep.r_e), generator=gen,
+                        device=dev)
+    args = (tab4, rt[prep.r_e:prep.r_p], prep.col_type[2],
+            prep.mask[prep.r_e:prep.r_p], x1[:, prep.r_e:prep.r_p], wcol, x2,
+            g_env)
+
+    def before():
+        t = tab4.detach().requires_grad_(True)
+        with torch.enable_grad():
+            prm = t[args[1][:, None], args[2].long()[None, :]]
+            (g,) = torch.autograd.grad(
+                (g_env * env_rowsums(prm, *args[3:7])).sum(), t)
+        return g
+
+    res = {"env_table_cotangent": spread(lambda: env_table_cotangent(*args)),
+           "autograd through the table gather (before)": spread(before)}
+    log_spread("repeat train env", res)
+    res["rel vs before"] = rel_err(env_table_cotangent(*args), before())[0]
+    log(f"[repeat train env] env_table_cotangent against the autograd "
+        f"through the gather: rel {res['rel vs before']:.2e}")
+    if res["env_table_cotangent"]["differ"]:
+        raise AssertionError("[repeat train env] env_table_cotangent varies")
     return res
 
 
@@ -4950,8 +5298,11 @@ def phase14(dev, gen):
     per_path.update(ex)
     torch.cuda.empty_cache()
     res["repeat"] = {"gfp_coverage": repeat_coverage_nl(dev),
+                     "gfp_forces": repeat_gfp_forces(dev, gen),
+                     "radial_nl": repeat_radial_nl(dev),
                      "contact": repeat_contact(dev),
-                     "train": repeat_training(dev, gen)}
+                     "train": repeat_training(dev, gen),
+                     "train_env": repeat_train_env(dev, gen)}
     res["batch"] = batch_independence(dev, gen)
     res["seconds"] = time.perf_counter() - t0
     log(f"[scripts] phase 14 took {res['seconds']:.1f} s")
@@ -4976,7 +5327,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    results = {"phases": {}}
+    results = {"phases": {}, "phase_seconds": {}}
+    stamps = [t_start]
+
+    def phase_done(n):
+        stamps.append(time.perf_counter())
+        results["phase_seconds"][n] = stamps[-1] - stamps[-2]
     fused_path = os.path.join(DATA_DIR, BUNDLE)
     unfused_path = os.path.join(DATA_DIR, BUNDLE_UNFUSED)
     noenv_path = os.path.join(DATA_DIR, BUNDLE_NOENV)
@@ -4988,6 +5344,7 @@ def main():
         f"{torch.version.cuda} | count {torch.cuda.device_count()}")
     results["card"] = card
 
+    phase_done(1)
     # ---- 2. build
     t0 = time.perf_counter()
     kernels.build(verbose=True)
@@ -4995,6 +5352,7 @@ def main():
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    phase_done(2)
     # ---- 3. kernel vs plain at each path's shapes
     gen = torch.Generator(device=dev).manual_seed(7)
     base_f = torch.as_tensor(bundle.load(fused_path)[1], device=dev)
@@ -5018,6 +5376,7 @@ def main():
                                         "ubiquitin_noenv": layout_n}}
     torch.cuda.empty_cache()
 
+    phase_done(3)
     # ---- 4. timing, kernel vs plain, at 64 replicas with the config's BP
     # tolerance and a warm start, as in MD
     ms, bounds, before, lat, passes, rows = time_fused(dev, gen, base_f,
@@ -5036,7 +5395,7 @@ def main():
     bounds.update(bounds_u)
     bounds.update(bounds_n)
     lat.update(lat_u)
-    for nm in kernels.KERNELS:
+    for nm in (nm for nm in kernels.KERNELS if nm in ms):
         dms = "not measured" if ms[nm][2] is None else f"{ms[nm][2]:.4f} ms"
         log(f"[time] {nm}: kernel {ms[nm][0]:.4f} ms a call on an idle "
             f"card, device time of its launches {dms}, plain "
@@ -5054,6 +5413,7 @@ def main():
     results["phases"]["bp_passes"] = passes
     results["phases"]["row_tile"] = rows
 
+    phase_done(4)
     # ---- 5. MD through each path
     md_f, launches_f = run_md(fused_path, dev, "ubiquitin", FUSED_KERNELS,
                               max_sweeps=MAX_MEAN_SWEEPS)
@@ -5064,10 +5424,12 @@ def main():
     results["phases"]["md"] = {"ubiquitin": md_f, "rnase_a": md_u,
                                "ubiquitin_noenv": md_n}
 
+    phase_done(5)
     # ---- 6. training through K3 and the table cotangents
     train, launches_t = run_train(noenv_path, dev, gen, base_n)
     results["phases"]["train"] = train
 
+    phase_done(6)
     # ---- 7. replica exchange: BASELINE config 4 on cytochrome c
     rex_path = os.path.join(DATA_DIR, BUNDLE_REX)
     base_r = torch.as_tensor(bundle.load(rex_path)[1], device=dev)
@@ -5076,6 +5438,7 @@ def main():
     rex["config4_pivot"], launches_rm = rex_run(rex_path, dev, mc=True)
     results["phases"]["rex"] = rex
 
+    phase_done(7)
     # ---- 8. proteins past 128 residues and 1,024 beads
     t4_path = os.path.join(DATA_DIR, BUNDLE_T4)
     gfp_path = os.path.join(DATA_DIR, BUNDLE_GFP)
@@ -5089,12 +5452,18 @@ def main():
         dev, gen, torch.as_tensor(bundle.load(gfp_path)[1], device=dev),
         gfp_path)}
     large["gfp"]["md"], launches_gfp, last = large_md(
-        gfp_path, dev, "large gfp", GFP_MD_REPLICAS, (), LARGE_ROUNDS)
-    large["gfp"]["nl"] = large_nl(
-        gfp_path, dev, last,
-        large["gfp"]["md"][GFP_MD_REPLICAS[0]]["device_s_per_eval"] * 1e3)
+        gfp_path, dev, "large gfp", GFP_MD_REPLICAS, GFP_KERNELS,
+        LARGE_ROUNDS)
+    gfp_md = large["gfp"]["md"][GFP_MD_REPLICAS[0]]
+    large["gfp"]["nl"] = large_nl(gfp_path, dev, last,
+                                  gfp_md["device_s_per_eval"] * 1e3)
+    nm = "gather_rows_bwd"
+    errs[nm], ms[nm], bounds[nm], library, large["gfp"]["gather"] = \
+        gfp_gather(dev, gfp_path, last, launches_gfp[nm] / gfp_md["n_evals"])
+    library_ms = {nm: library}
     results["phases"]["large"] = large
 
+    phase_done(8)
     # ---- 9. the remaining node types: config 2, chi1, the extras
     rest = {}
     rest["config2"], launches_c2 = config2(
@@ -5105,6 +5474,7 @@ def main():
         dev, gen, os.path.join(DATA_DIR, BUNDLE_EXTRAS))
     results["phases"]["remaining_nodes"] = rest
 
+    phase_done(9)
     # ---- 10. the command line and its trajectory files
     t0 = time.perf_counter()
     cli_res = {}
@@ -5116,6 +5486,7 @@ def main():
     log(f"[cli] phase 10 took {cli_res['seconds']:.1f} s")
     results["phases"]["cli"] = cli_res
 
+    phase_done(10)
     # ---- 11. .up configurations read without h5py
     t0 = time.perf_counter()
     up_path = os.path.join(DATA_DIR, BUNDLE_UP)
@@ -5130,6 +5501,7 @@ def main():
     log(f"[up] phase 11 took {up_res['seconds']:.1f} s")
     results["phases"]["up"] = up_res
 
+    phase_done(11)
     # ---- 12. .up configurations built on this machine
     import tempfile
     t0 = time.perf_counter()
@@ -5146,10 +5518,12 @@ def main():
     log(f"[build] phase 12 took {build['seconds']:.1f} s")
     results["phases"]["build"] = build
 
+    phase_done(12)
     # ---- 13. replica sharding over ranks; BASELINE configs 1 and 3
     results["phases"]["mesh"], launches_mesh = phase13(
         dev, gen, base_f, fused_path, rex_path)
 
+    phase_done(13)
     # ---- 14. the repo-level scripts; the fixed-order sums
     results["phases"]["scripts"], launches_scripts = phase14(dev, gen)
     per_path = {"md ubiquitin": launches_f, "md rnase_a": launches_u,
@@ -5171,6 +5545,7 @@ def main():
     launches = {nm: sum(p.get(nm, 0) for p in per_path.values())
                 for nm in kernels.KERNELS}
 
+    phase_done(14)
     # ---- 15. report
     table = {"kernels": [
         {"name": nm, "route": "cuda", "source": KERNEL_INFO[nm][0],
@@ -5178,11 +5553,13 @@ def main():
          "max_abs_err": errs[nm], "ms": ms[nm][0],
          "device_ms": ms[nm][2], "plain_ms": ms[nm][1],
          "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
-         "library_ms": None,
+         "library_ms": library_ms.get(nm),
          **({"bound_table_ms": before[nm][0]} if nm in before else {})}
         for nm in kernels.KERNELS]}
     results.update(table)
     results["total_s"] = time.perf_counter() - t_start
+    log("[phases] seconds: " + ", ".join(
+        f"{n} {t:.1f}" for n, t in results["phase_seconds"].items()))
     log(f"[done] total run time {results['total_s']:.1f} s")
     if args.out:
         os.makedirs(args.out, exist_ok=True)

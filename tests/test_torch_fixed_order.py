@@ -5,6 +5,9 @@ both are exact up to the order of the additions), on the trp-cage bundle:
 * `table_cotangent` (ops/fused_pair.py; training's table cotangents)
   against its former `index_add_` by (type1, type2), in one replica chunk
   and in two: rel 1e-12;
+* `env_table_cotangent` (the environment table's cotangent, summed by
+  type with one-hot products) against its former autograd through the
+  table gather (an accumulating `index_put_`): rel 1e-12;
 * `coverage_nl` (nodes/hbond.py; the coverages past 1,024 columns), at a
   neighbour width of 8 so rows overflow, against its former
   `scatter_add` into the columns: rel 1e-12;
@@ -113,6 +116,27 @@ def test_type_members():
     np.testing.assert_array_equal(type_members(t, 4).numpy(),
                                   [[1, 5, 6], [4, 6, 6], [0, 2, 3],
                                    [6, 6, 6]])
+
+
+def test_env_table_cotangent_equals_index_put(trp):
+    system, x, outs = trp
+    plan, prep = system.pair_fusion, system.fused_prepared()
+    assert prep.r_p > prep.r_e                  # the bundle has an env band
+    x1, _, x2, wcol = plan.block_inputs(system.consts, outs)
+    tab4 = plan.tables(system.params)[3]
+    rt = prep.row_type.long()
+    g_env = torch.randn((x.shape[0], prep.r_p - prep.r_e), dtype=x.dtype,
+                        generator=torch.Generator().manual_seed(4))
+    args = (tab4, rt[prep.r_e:prep.r_p], prep.col_type[2],
+            prep.mask[prep.r_e:prep.r_p], x1[:, prep.r_e:prep.r_p], wcol, x2,
+            g_env)
+    new = fused_pair.env_table_cotangent(*args)
+    t = tab4.detach().requires_grad_(True)
+    prm = t[args[1][:, None], args[2].long()[None, :]]
+    (old,) = torch.autograd.grad(
+        (g_env * fused_pair.env_rowsums(prm, *args[3:7])).sum(), t)
+    assert new.shape == old.shape == tab4.shape
+    assert old.abs().max() > 0 and _rel(new, old) < 1e-12
 
 
 def test_coverage_nl_equals_scatter_add(trp, monkeypatch):

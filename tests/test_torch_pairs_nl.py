@@ -146,9 +146,9 @@ def nl_branches(monkeypatch):
     calls = []
     real = tpairs.quadspline_coverage_nl
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append(args[-1])
-        return real(*args)
+        return real(*args, **kw)
 
     monkeypatch.setattr(trot, "quadspline_coverage_nl", spy)
     monkeypatch.setattr(thb, "quadspline_coverage_nl", spy)

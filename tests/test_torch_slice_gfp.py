@@ -40,9 +40,9 @@ def calls(monkeypatch):
     got = {"nl": [], "planes": []}
     real_nl, real_planes = tpairs.quadspline_coverage_nl, trot.bp_bethe_planes
 
-    def nl(*args):
+    def nl(*args, **kw):
         got["nl"].append(args[-1])
-        return real_nl(*args)
+        return real_nl(*args, **kw)
 
     def planes(st, *args, **kw):
         got["planes"].append(st.n_res)

@@ -4,7 +4,7 @@
 one JSON object as its last line.
 
     python3 tools/time_fixed_order.py [--label NAME] [--rounds 10]
-        [--forms] [--out FILE]
+        [--forms | --cotangents] [--out FILE]
 
 What it measures:
 
@@ -21,15 +21,17 @@ What it measures:
   dispatches, views left out;
 * `cotangent_ms`: `fused_pair.block_table_cotangents` on full ubiquitin
   at 64 perturbed replicas under random cotangents: the rotamer table
-  alone and the three spline tables together (CUDA-event median of 5
-  after a warm-up);
+  alone, the three spline tables together, and the environment table
+  alone (`env_table_cotangent`) (CUDA-event median of 5 after a
+  warm-up);
 * `train_s`: the training step of tools/bench_all_torch.py's training
   row (the energy-match loss over 64 perturbed ubiquitin conformations,
   every floating parameter's gradient, an SGD update, through
   `parallel.mesh.sharded_training_step` on one rank): seconds a step
   over 10 chained steps a sync, and one step's wall time.
 
-With `--forms` it times instead, in this tree only, the forms of
+With `--cotangents` it times only `cotangent_ms` and `train_s`.  With
+`--forms` it times instead, in this tree only, the forms of
 `backbone_pairs`' sums (`_forms`: the parent's `.sum`, two earlier
 halving forms, the current node) at 64 and 512 replicas of ubiquitin,
 trp-cage and cytochrome c: the node's forward and backward
@@ -169,14 +171,16 @@ def cotangent_ms(system, pos, n=64):
     g_cov = torch.randn((n, 2, prep.n2), generator=gen, device=x.device)
     g_grid = torch.randn((n, prep.n2, prep.n2), generator=gen,
                          device=x.device)
+    g_env = torch.randn((n, prep.n_e), generator=gen, device=x.device)
 
     def call(needed):
         return lambda: block_table_cotangents(
-            prep, needed, tabs, x1, w1, x2, wcol, g_cov, g_grid, None)
+            prep, needed, tabs, x1, w1, x2, wcol, g_cov, g_grid, g_env)
     with torch.no_grad():
         return {"rotamer": cuda_ms(call((False, False, True, False))),
                 "three spline tables": cuda_ms(call((True, True, True,
-                                                      False)))}
+                                                      False))),
+                "env table": cuda_ms(call((False, False, False, True)))}
 
 
 def train_seconds(system, params, pos, n=64, K=10):
@@ -328,6 +332,7 @@ def main():
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--forms", action="store_true")
+    ap.add_argument("--cotangents", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -339,6 +344,14 @@ def main():
     if args.forms:
         rec = {"label": args.label, "card": card,
                "forms": time_forms(args.label)}
+        rec["seconds"] = time.perf_counter() - t0
+        return emit(rec, args.out)
+    if args.cotangents:
+        ubq, ubq_pos = System.from_bundle(
+            os.path.join(DATA_DIR, "ubiquitin_full_synth.npz"), "cuda")
+        rec = {"label": args.label, "card": card,
+               "cotangent_ms": cotangent_ms(ubq, ubq_pos),
+               "train_s": train_seconds(ubq, ubq.params, ubq_pos)}
         rec["seconds"] = time.perf_counter() - t0
         return emit(rec, args.out)
     bb = {nm: bench_systems.build_backbone_system(seq=seq, device="cuda")

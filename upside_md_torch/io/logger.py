@@ -31,6 +31,7 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
 from . import h5
 
@@ -126,3 +127,38 @@ class H5Logger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def log_standard_frame(logger, sim, state, params=None, batched=False,
+                       replica_index=None):
+    """The standard per-frame streams (main.cpp:526-541) in the JAX
+    logger's layout (upside_md_tpu/io/logger.py:79-104): pos, kinetic,
+    potential, time, temperature, and replica_index where given.  The
+    port's state always carries the replica axis: without `batched` it
+    holds one replica, logged as the JAX package logs an unbatched state
+    (pos (1, n_atom, 3), kinetic, potential and temperature (1,));
+    `batched` keeps the replica axis (pos (B, 1, n_atom, 3), the others
+    (B, 1)).  Values float32, time float64, as `cli.log_values` writes
+    them; the potential at the force-evaluation counter 0, as the JAX
+    package's."""
+    B = state.pos.shape[0]
+    if not batched and B != 1:
+        raise ValueError(f"log_standard_frame: {B} replicas; pass "
+                         "batched=True")
+
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    pos = host(state.pos)
+    per = {"kinetic": host(sim.kinetic_energy(state)),
+           "potential": host(sim.potential_energy(state, params))}
+    logger.log_frame("pos", pos[:, None] if batched else pos)
+    for name in ("kinetic", "potential"):
+        logger.log_frame(name, per[name][:, None] if batched else per[name])
+    logger.log_frame("time", np.float64(3.0 * sim.dt * state.round_num))
+    temp = host(state.temperature)
+    logger.log_frame("temperature", temp[:, None] if batched else temp)
+    if replica_index is not None:
+        if isinstance(replica_index, torch.Tensor):
+            replica_index = replica_index.cpu().numpy()
+        logger.log_frame("replica_index", np.asarray(replica_index))

@@ -4,9 +4,10 @@ LOG_DETAILED / LOG_EXTENSIVE and the per-node add_logger registrations).
 
 Each node type can contribute named frame streams at a minimum log level;
 `stream_plan` collects them for a system in `system.specs` order, with
-the JAX package's names, levels and collision suffixes, and
+the JAX package's names, levels and collision suffixes;
 `make_frame_fn` evaluates the graph once a frame over the whole replica
-batch and returns the potential, every stream and the hbond count:
+batch and returns the potential, every stream and the hbond count, and
+`make_stream_fn` the streams alone, of one configuration or a batch:
 
   tip_pos, time_estimate              AFM            BASIC   bonds.cpp:130
   rama                                rama_coord     DETAILED bonds.cpp:199
@@ -199,6 +200,39 @@ def _evaluate_stream(system, spec, fn, outputs, params, stacked, n):
         for i in range(inputs[0].shape[0])])
 
 
+def _plan_values(system, plan, outputs, params, n_deriv_evals):
+    """{stream: (B, ...)} of `plan` from one evaluation's outputs, each
+    slot under its own parameters where `params` stacks leaves."""
+    spec = system.stacked_leaves(params)
+    return {name: _evaluate_stream(
+                system, s, fn, outputs, params,
+                frozenset(k for nd, k in spec if nd == s.name),
+                n_deriv_evals)
+            for name, s, fn in plan}
+
+
+def make_stream_fn(system, level, batched=False):
+    """One function pos, params=None, n_deriv_evals=0 -> {stream: tensor}
+    that evaluates the graph once (the JAX package's `make_stream_fn`);
+    None when no stream is active at `level`.  pos is one configuration
+    (n_atom, 3) and the streams carry no replica axis, or with `batched`
+    (B, n_atom, 3) and every stream carries one."""
+    plan = stream_plan(system, level)
+    if not plan:
+        return None
+
+    def stream_fn(pos, params=None, n_deriv_evals=0):
+        params = system.params if params is None else params
+        with torch.no_grad():
+            x = pos if batched else pos[None]
+            outputs = system.evaluate(x, params=params,
+                                      n_deriv_evals=n_deriv_evals)[1]
+            out = _plan_values(system, plan, outputs, params, n_deriv_evals)
+        return out if batched else {k: v[0] for k, v in out.items()}
+
+    return stream_fn
+
+
 def make_frame_fn(system, level=None):
     """One evaluation a frame over the replica batch (the reference
     evaluates the graph once a frame too, main.cpp:630-655):
@@ -212,16 +246,11 @@ def make_frame_fn(system, level=None):
 
     def frame_fn(pos, params=None, n_deriv_evals=0):
         params = system.params if params is None else params
-        spec = system.stacked_leaves(params)
         with torch.no_grad():
             total, outputs, _, _ = system.evaluate(
                 pos, params=params, n_deriv_evals=n_deriv_evals)
-            streams = {
-                name: _evaluate_stream(
-                    system, s, fn, outputs, params,
-                    frozenset(k for nd, k in spec if nd == s.name),
-                    n_deriv_evals)
-                for name, s, fn in plan}
+            streams = _plan_values(system, plan, outputs, params,
+                                   n_deriv_evals)
             hb = n_hbond(system, outputs)
         return total, streams, hb
 

@@ -107,7 +107,7 @@ def _hbond_coverage(c, p, inputs, ctx):
 
     def colsum(table, x1, x2, w1):
         if x2.shape[1] > COVERAGE_NL_THRESHOLD:
-            return coverage_nl(c, table, x1, x2, w1)
+            return coverage_nl(c, table, x1, x2, w1, ctx.plain)
         return quadspline_colsum(c["spline"], table, x1, x2, w1, ctx.plain)
 
     args = (p["interaction_param"], hb_nodes[..., :6], sc[..., :6],
@@ -117,7 +117,7 @@ def _hbond_coverage(c, p, inputs, ctx):
     return cov.unsqueeze(-1)
 
 
-def coverage_nl(c, table, x1, x2, w1):
+def coverage_nl(c, table, x1, x2, w1, plain=False):
     """The coverage (B, n2) from the neighbour list (hbond.py:139-148):
     w1[i] times the pair value at each row's COVERAGE_NEIGHBOR_K nearest
     in-cutoff columns, summed by column.  The values go back on the dense
@@ -129,7 +129,7 @@ def coverage_nl(c, table, x1, x2, w1):
     cov, idx, mask = quadspline_coverage_nl(
         table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
         x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
-        c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K)
+        c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K, plain=plain)
     return scatter_rows(w1[..., None] * cov, idx, mask, x2.shape[1]).sum(1)
 
 

@@ -12,8 +12,9 @@ the CB probes, dense up to NEIGHBOR_LIST_THRESHOLD of them; above, each
 probe's min(n, NEIGHBOR_K) nearest partners inside the largest cutoff of
 the table (`ops/pairs.neighbor_list`, as the rotamer grid and the
 coverages take above 1,024 beads): exact while no probe has more
-partners, the farthest dropped otherwise.  The threshold is read at call
-time.
+partners, the farthest dropped otherwise.  The partners' positions come
+through `ops/pairs.gather_rows`, whose backward sums in a fixed order.
+The threshold is read at call time.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.pairs import (batch_rows, neighbor_list, sequence_exclusion_mask,
+from ..ops.pairs import (gather_rows, neighbor_list, sequence_exclusion_mask,
                          type_members)
 from ..ops.sigmoid import compact_sigmoid
 from ..ops.spline import eval_clamped_bspline
@@ -64,7 +65,7 @@ def _radial_dense(c, table, x, stacked):
     return radial_energy(p, disp, c["pair_mask"]).sum((-1, -2))
 
 
-def _radial_neighbours(c, table, x):
+def _radial_neighbours(c, table, x, plain=False):
     # the largest cutoff of the table bounds every pair's (a tensor: no
     # host sync)
     reach = (table.shape[-1] - 3 - 1e-6) / table[..., 0].detach().min()
@@ -72,7 +73,7 @@ def _radial_neighbours(c, table, x):
                               min(x.shape[1], NEIGHBOR_K))
     t = c["type"]
     p = table[t[None, :, None], t[idx]]                  # (B, n, K, 17)
-    disp = x[:, :, None, :] - batch_rows(x, idx)
+    disp = x[:, :, None, :] - gather_rows(x, idx, kept, plain)
     return radial_energy(p, disp, kept).sum((-1, -2))
 
 
@@ -83,9 +84,10 @@ def _radial(c, p, inputs, ctx):
     if x.shape[1] <= NEIGHBOR_LIST_THRESHOLD:
         return _radial_dense(c, table, x, stacked)
     if stacked:
-        return per_slot(lambda tab, xs: _radial_neighbours(c, tab, xs),
-                        table, x)
-    return _radial_neighbours(c, table, x)
+        return per_slot(
+            lambda tab, xs: _radial_neighbours(c, tab, xs, ctx.plain),
+            table, x)
+    return _radial_neighbours(c, table, x, ctx.plain)
 
 
 def _hbond_sc_radial(c, p, inputs, ctx):

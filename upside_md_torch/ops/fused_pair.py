@@ -537,12 +537,9 @@ def table_cotangent(table, t1, t2, x1, x2, mask, g):
     The cotangent is selected, never multiplied, by mask AND inside the
     table's own cutoff.  Each pair's window weights and the table row it
     reads give its (M,) cotangent, summed over the replica chunks; then a
-    (type1, type2) entry sums its pairs as two products with the types'
-    one-hot matrices (each row over the columns of each type, then those
-    sums over the rows of each type), matrix products that sum in the same
-    order on every run: the `index_add_` it replaces summed with float
-    atomics on the card, in an order that varies run to run.  The one-hot
-    matrices are built on the types' device, with no host read."""
+    (type1, type2) entry sums its pairs in the same order on every run
+    (`sum_by_type`): the `index_add_` it replaces summed with float
+    atomics on the card, in an order that varies run to run."""
     from .pairs import quadspline_family
     from .spline import bspline_window_weights
     ka, k, dx = quadspline_family(table.shape[-1])
@@ -568,16 +565,29 @@ def table_cotangent(table, t1, t2, x1, x2, mask, g):
                         gm[..., None] * wd,
                         (gm * a1 * a2)[..., None] * wd], dim=-1)
         per_pair = per_pair + gw.sum(0)
-    rows = (t1[:, None] == torch.arange(A, device=t1.device)).to(p.dtype)
-    cols = (t2[:, None] == torch.arange(Bt, device=t2.device)).to(p.dtype)
+    return sum_by_type(per_pair, t1, t2, A, Bt)
+
+
+def sum_by_type(per_pair, t1, t2, n_t1, n_t2):
+    """(n_t1, n_t2, M): per_pair (n1, n2, M) summed over the pairs of each
+    (t1, t2) type, as two products with the types' one-hot matrices (each
+    row over the columns of each type, then those sums over the rows of
+    each type): matrix products, which sum in the same order on every run.
+    The one-hot matrices are built on the types' device, with no host
+    read."""
+    t1, t2 = t1.long(), t2.long()
+    rows = (t1[:, None] == torch.arange(n_t1, device=t1.device)).to(
+        per_pair.dtype)
+    cols = (t2[:, None] == torch.arange(n_t2, device=t2.device)).to(
+        per_pair.dtype)
     by_col = torch.einsum("jb,ijm->ibm", cols, per_pair)
     return torch.einsum("ia,ibm->abm", rows, by_col)
 
 
-def env_rowsums(tab4, t1e, t2e, me, x1e, wcol, xb):
-    """Plain env band rows (B, n_e) as a function of the sigmoid table:
-    port of `_env_xla_rowsums` (pallas_quadspline.py:2172)."""
-    prm = tab4[t1e.long()[:, None], t2e.long()[None, :]]     # (n_e, n2, 4)
+def env_rowsums(prm, me, x1e, wcol, xb):
+    """Plain env band rows (B, n_e) as a function of each pair's row of
+    the sigmoid table, prm (n_e, n2, 4): port of `_env_xla_rowsums`
+    (pallas_quadspline.py:2172)."""
     d = xb[:, None, :, :3] - x1e[:, :, None, :3]
     dist = torch.sqrt((d * d).sum(-1) + 1e-12)
     dp = (d * x1e[:, :, None, 3:6]).sum(-1) / dist
@@ -589,15 +599,19 @@ def env_rowsums(tab4, t1e, t2e, me, x1e, wcol, xb):
 
 
 def env_table_cotangent(tab4, t1e, t2e, me, x1e, wcol, xb, g_env):
-    """d(sum g_env * env)/d(tab4) by autograd through `env_rowsums`, as
-    the JAX rule does (:2223-2227); the backward of the table gather is
-    PyTorch's accumulating scatter by type."""
+    """d(sum g_env * env)/d(tab4), as the JAX rule takes it by autodiff of
+    `_env_xla_rowsums` (:2223-2227): each pair's (4,) cotangent by
+    autograd through `env_rowsums`, then summed by type
+    (`sum_by_type`).  Autograd through the table gather itself would
+    scatter by type with PyTorch's accumulating `index_put_`, which on
+    the CPU adds in an order that varies run to run."""
+    t1e, t2e = t1e.long(), t2e.long()
     with torch.enable_grad():
-        t = tab4.detach().requires_grad_(True)
-        total = (g_env * env_rowsums(t, t1e, t2e, me, x1e.detach(),
-                                     wcol.detach(), xb.detach())).sum()
-        (grad,) = torch.autograd.grad(total, t)
-    return grad
+        prm = tab4.detach()[t1e[:, None], t2e[None, :]].requires_grad_(True)
+        total = (g_env * env_rowsums(prm, me, x1e.detach(), wcol.detach(),
+                                     xb.detach())).sum()
+        (per_pair,) = torch.autograd.grad(total, prm)
+    return sum_by_type(per_pair, t1e, t2e, *tab4.shape[:2])
 
 
 def block_table_cotangents(prep, needed, tabs, x1, w1, x2, wcol, g_cov,

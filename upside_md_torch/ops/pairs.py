@@ -4,8 +4,11 @@ fixed-K neighbour list that the rotamer grid and the coverage nodes take
 above 1,024 beads or columns.
 
 The neighbour list is plain PyTorch, as the reference is XLA there: no
-Pallas body exists for it.  Every array carries the replica axis first,
-(B, n1, K); tables and static masks are shared across replicas.
+Pallas body exists for it.  The backward of its row gather
+(`gather_rows`) is a kernel of the port's own, `gather_rows_bwd`
+(csrc/gather_rows.cu): a sum in a fixed order where `index_select`'s
+backward added with float atomics.  Every array carries the replica axis
+first, (B, n1, K); tables and static masks are shared across replicas.
 """
 
 from __future__ import annotations
@@ -59,15 +62,92 @@ def pair_coverage(table, t1, t2, feats1, feats2, base_mask, ka, k, dx):
     return out[0] if lead else out
 
 
-def batch_rows(x, idx):
+def gather_rows(x, idx, mask, plain=False):
     """x (B, n, w) at the per-replica row indices idx (B, ...): (B, ...,
-    w).  One index_select over the flattened replicas, whose backward is an
-    index_add."""
-    B, n = x.shape[:2]
-    flat = (idx + n * torch.arange(B, device=idx.device).reshape(
-        (B,) + (1,) * (idx.dim() - 1))).reshape(-1)
-    return x.reshape(B * n, -1).index_select(0, flat).reshape(
-        idx.shape + x.shape[2:])
+    w), the gather of the neighbour lists.  Its backward sums each row's
+    cotangent over the slots that read it in a fixed order, increasing
+    slot index, with no float atomics (`gather_rows_bwd`: the kernel on a
+    CUDA tensor, its plain version on a CPU one or when `plain`), so the
+    gradient is the same on every run.  Slots where `mask` (idx's shape)
+    is False take no cotangent: on the neighbour lists theirs is 0."""
+    return _GatherRows.apply(x, idx, mask, plain)
+
+
+def flat_rows(idx, n):
+    """idx (B, ...) of rows of x (B, n, w) as rows of the flattened x (B
+    n, w): (m,), m = idx.numel()."""
+    b = torch.arange(idx.shape[0], device=idx.device).reshape(
+        (-1,) + (1,) * (idx.dim() - 1))
+    return (idx + n * b).reshape(-1)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, mask, plain):
+        B, n = x.shape[:2]
+        flat = flat_rows(idx, n)
+        ctx.save_for_backward(flat, mask)
+        ctx.x_shape, ctx.plain = x.shape, plain
+        return x.reshape(B * n, -1).index_select(0, flat).reshape(
+            idx.shape + x.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, mask = ctx.saved_tensors
+        n_rows = ctx.x_shape[0] * ctx.x_shape[1]
+        order, starts = row_segments(flat, n_rows, mask)
+        gx = gather_rows_bwd(g.reshape(flat.shape[0], -1), order, starts,
+                             ctx.plain)
+        return gx.reshape(ctx.x_shape), None, None, None
+
+
+def row_segments(flat, n_rows, mask):
+    """The slots (m,) sorted by their row flat (in [0, n_rows)), and each
+    row's segment of that order: (order (m,), starts (n_rows + 1,)), row r
+    read by the slots order[starts[r]:starts[r + 1]] in increasing slot
+    order (a stable integer sort).  Slots off `mask` sort last, past
+    starts[n_rows]."""
+    key = torch.where(mask.reshape(-1), flat, torch.full_like(flat, n_rows))
+    key, order = torch.sort(key.to(torch.int32), stable=True)
+    starts = torch.searchsorted(key, torch.arange(
+        n_rows + 1, dtype=torch.int32, device=key.device))
+    return order, starts
+
+
+def gather_rows_bwd(g, order, starts, plain=False):
+    """(n_rows, w): row r's sum of g (m, w) over the slots
+    order[starts[r]:starts[r + 1]], left to right from 0.  The kernel on
+    CUDA tensors (`csrc/gather_rows.cu`), the plain version on CPU ones or
+    when `plain`."""
+    n_rows = starts.shape[0] - 1
+    if plain or g.device.type != "cuda":
+        return gather_rows_bwd_plain(g, order, starts)
+    from . import kernels
+    if (g.dtype, order.dtype, starts.dtype) != (torch.float32, torch.int64,
+                                                torch.int64):
+        raise TypeError(f"gather_rows_bwd: float32 cotangents and int64 "
+                        f"indices, got {g.dtype}, {order.dtype}, "
+                        f"{starts.dtype}")
+    g = g.contiguous()
+    out = g.new_empty((n_rows, g.shape[1]))
+    kernels.launch("gather_rows_bwd", g, order.contiguous(),
+                   starts.contiguous(), n_rows, g.shape[1], out)
+    return out
+
+
+def gather_rows_bwd_plain(g, order, starts):
+    """`gather_rows_bwd` in PyTorch: the segments' k-th entries added to
+    the running sums for k = 0, 1, ..., the kernel's additions in its
+    order (rows whose segment has ended add an exact 0)."""
+    n_rows = starts.shape[0] - 1
+    out = g.new_zeros((n_rows, g.shape[1]))
+    first, length = starts[:-1], starts[1:] - starts[:-1]
+    zero = g.new_zeros(())
+    for k in range(int(length.max())):
+        live = (length > k)[:, None]
+        slot = order[(first + k).clamp(max=order.shape[0] - 1)]
+        out = out + torch.where(live, g[slot], zero)
+    return out
 
 
 def neighbor_list(pos1, pos2, cutoff2, base_mask, K):
@@ -100,17 +180,21 @@ def _in_cutoff(pos1, pos2, cutoff2, base_mask):
 
 
 def quadspline_coverage_nl(p_table, t1, t2, pos1, dir1, pos2, dir2,
-                           n_knot_angular, n_knot, inv_dx, base_mask, K):
+                           n_knot_angular, n_knot, inv_dx, base_mask, K,
+                           plain=False):
     """The pair spline on the neighbour list (ops/pairs.py:82-121): the
     values of the dense pair spline at each row's K nearest in-cutoff
     columns.  p_table (n_t1, n_t2, m) is shared; t1 (n1,), t2 (n2,) the
     row and column types; pos and dir (B, n, 3).  Returns (values (B, n1,
     K), idx, mask) with 0 where the mask is off.  Differentiable in the
-    positions, directions and table by autograd, as the reference is."""
+    positions, directions and table by autograd, as the reference is; the
+    rows' backward takes its plain version when `plain`."""
     ka, k = n_knot_angular, n_knot
     cutoff = (k - 2 - 1e-6) / inv_dx
     idx, mask = neighbor_list(pos1, pos2, cutoff * cutoff, base_mask, K)
-    p2, d2 = batch_rows(pos2, idx), batch_rows(dir2, idx)     # (B, n1, K, 3)
+    # one gather of both, so that the backward sorts the list once
+    rows2 = gather_rows(torch.cat([pos2, dir2], -1), idx, mask, plain)
+    p2, d2 = rows2[..., :3], rows2[..., 3:]                   # (B, n1, K, 3)
     p = p_table[t1[None, :, None], t2[idx]]                    # (B, n1, K, m)
 
     disp = p2 - pos1[:, :, None, :]

@@ -286,3 +286,42 @@ class System:
                                         allow_unused=True)
         return {k: torch.zeros_like(v) if g is None else g
                 for (k, v), g in zip(leaves.items(), grads)}
+
+
+def freeze_static_nodes(system, params=None):
+    """Fold every node that does not depend on `pos` and is not a
+    potential into a `constant` node holding its output (the JAX
+    package's `freeze_static_nodes`, system.py:159-189; the reference's
+    upside_engine.freeze_nodes).  Returns (frozen_system,
+    frozen_params): the system on the same device, dtype and kernel
+    settings, and `params` (the system's own by default) with each frozen
+    node's parameters replaced by {"value": its output}."""
+    params = system.params if params is None else params
+    depends = {"pos"}
+    for s in system.specs:
+        if any(a in depends for a in s.args):
+            depends.add(s.name)
+    # the static nodes alone, in graph order (their inputs are static too)
+    ctx = EvalContext()
+    outputs = {}
+    with torch.no_grad():
+        for s in system.specs:
+            if s.name not in depends and not s.node_type.is_potential:
+                ctx.node_name = s.name
+                outputs[s.name] = s.node_type.compute(
+                    system.consts[s.name], params.get(s.name, {}),
+                    [outputs[a] for a in s.args], ctx)
+    specs, frozen_params = [], {}
+    for s in system.specs:
+        if s.name in depends or s.node_type.is_potential:
+            specs.append(s)
+            if s.name in params:
+                frozen_params[s.name] = params[s.name]
+        else:
+            value = {"value": outputs[s.name][0]}
+            specs.append(NodeSpec(s.name, resolve_node_type("constant"), [],
+                                  {}, value))
+            frozen_params[s.name] = value
+    frozen = System(system.n_atom, specs, system.device, system.dtype,
+                    kernels=not system.plain, residuals=system.residuals)
+    return frozen, frozen_params
