@@ -526,6 +526,7 @@ def device_events(fn, reps=20):
     calls of fn() ran, in the order the card ran them (`torch.profiler`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from upside_md_torch.tracing import is_user_annotation
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -533,8 +534,10 @@ def device_events(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # the program's spans are annotations, not device work
     ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not is_user_annotation(e)]
     ev.sort(key=lambda e: e.time_range.start)
     return [(e.name, e.device_time) for e in ev]
 
@@ -2297,18 +2300,17 @@ def large_md(path, dev, label, replicas, names, rounds):
     """MD of a large protein at each replica count: 2 warm-up rounds, then
     3 x `rounds` timed rounds (steps/s, mean BP sweeps and host syncs of
     the plain solve a force evaluation, peak memory), then
-    LARGE_PROFILE_ROUNDS rounds under `torch.profiler` with the plain BP
-    solve (`bp_bethe_planes_plain`: `bp_solve_plain` and
-    `bethe_and_gradients`) inside a range of its own: device time an
-    evaluation, the idle share, the plain solve's share of device time
-    and kernel launches an evaluation.  The launch counts are set to 0
+    LARGE_PROFILE_ROUNDS rounds under `torch.profiler`: device time an
+    evaluation, the idle share, the plain BP solve's share of device time
+    (its `bp.plain` span: `bp_solve_plain` and `bethe_and_gradients`) and
+    kernel launches an evaluation.  The launch counts are set to 0
     just before and read just after: each of `names` > 0, every other 0.
     Returns (records, launches, the last run's positions)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from upside_md_torch.md.sim import Simulation
     from upside_md_torch.ops import bp_pairs, kernels
-    from upside_md_torch.ops import bp_planes as bpp
+    from upside_md_torch.tracing import is_user_annotation
     system, pos0 = load_system(path, dev)
     md = {}
     kernels.reset_counts()
@@ -2337,29 +2339,19 @@ def large_md(path, dev, label, replicas, names, rounds):
         rec = {"steps_per_s": rate, "times_s": times,
                "mean_bp_sweeps": sweeps, "host_syncs_per_eval": syncs,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        real = bpp.bp_bethe_planes_plain
-
-        def annotated(*args):
-            with record_function("bp_solve_plain"):
-                return real(*args)
-
-        bpp.bp_bethe_planes_plain = annotated
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                state = sim.advance(state, LARGE_PROFILE_ROUNDS)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            bpp.bp_bethe_planes_plain = real
-        # the range's device-side copy is not device work
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = sim.advance(state, LARGE_PROFILE_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the spans' device-side copies are not device work
         kern = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name != "bp_solve_plain"]
+                and not is_user_annotation(e)]
         busy = sum(e.device_time for e in kern) * 1e-6
         solve = sum(e.device_time_total for e in prof.events()
-                    if e.name == "bp_solve_plain"
+                    if e.name == "bp.plain"
                     and e.device_type == torch.autograd.DeviceType.CPU) * 1e-6
         n_ev = 3 * LARGE_PROFILE_ROUNDS
         rec.update({"n_evals": state.n_evals,
@@ -2708,15 +2700,15 @@ def plan_names(system):
 
 def profiled_round(path, dev, n_rep, ranges=(), specs=None):
     """PROFILE_ROUNDS rounds of MD under `torch.profiler` after 2 warm-up
-    rounds, each node type named in `ranges` inside a `record_function`
-    range of its name (its forward: autograd runs the backward outside
-    it): device time an evaluation, idle share, device launches an
-    evaluation and each range's share of device time."""
+    rounds: device time an evaluation, idle share, device launches an
+    evaluation and, for each node type named in `ranges`, the share of
+    device time of its nodes' forward spans (`node.<name>`; the backward
+    runs in `node.<name>.bwd`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from upside_md_torch.md.sim import Simulation
-    from upside_md_torch.nodes.base import NODE_REGISTRY
     from upside_md_torch.system import System
+    from upside_md_torch.tracing import is_user_annotation
     if specs is None:
         system, pos0 = load_system(path, dev)
     else:
@@ -2725,37 +2717,25 @@ def profiled_round(path, dev, n_rep, ranges=(), specs=None):
     sim = Simulation(system, dt=0.009, thermostat_interval=0.135, seed=1)
     state = sim.advance(sim.initial_state(pos0, n_rep, temperature=0.85), 2)
     torch.cuda.synchronize()
-    real = {nm: NODE_REGISTRY[nm].compute for nm in ranges}
-
-    def ranged(nm, fn):
-        def compute(*args):
-            with record_function(nm):
-                return fn(*args)
-        return compute
-
-    for nm, fn in real.items():
-        NODE_REGISTRY[nm].compute = ranged(nm, fn)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state = sim.advance(state, PROFILE_ROUNDS)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for nm, fn in real.items():
-            NODE_REGISTRY[nm].compute = fn
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = sim.advance(state, PROFILE_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in real]
+            and not is_user_annotation(e)]
     busy = sum(e.device_time for e in kern) * 1e-6
     if not busy:
         raise AssertionError("the profiler recorded no device time")
     n_ev = 3 * PROFILE_ROUNDS
+    spans = {nm: {"node." + s.name for s in system.specs
+                  if s.node_type.name == nm} for nm in ranges}
     shares = {nm: sum(e.device_time_total for e in prof.events()
-                      if e.name == nm and e.device_type
+                      if e.name in spans[nm] and e.device_type
                       == torch.autograd.DeviceType.CPU) * 1e-6 / busy
-              for nm in real}
+              for nm in ranges}
     return {"wall_s": wall, "device_ms_per_eval": busy / n_ev * 1e3,
             "idle_share": 1.0 - busy / wall,
             "launches_per_eval": len(kern) / n_ev,
@@ -3153,18 +3133,26 @@ def read_frames(paths):
     return {k: np.stack(v) for k, v in out.items()}
 
 
+def flush_writes(window, paths):
+    """Each logger's buffer writes in a recorder window: the seconds of its
+    `io.flush` spans (`upside_md_torch/tracing.py`), a list a path."""
+    return [[(r.t1_ns - r.t0_ns) * 1e-9 for r in window.records
+             if r.name == "io.flush" and r.id == p] for p in paths]
+
+
 def replay_appends(cli, values, tmp, n, frame_bytes):
     """The append path on this host: CLI_APPEND_FRAMES frames, `values`
     (a run's recorded (round, frame values)) taken in turn, logged through
     `cli.log_values` into n fresh slot files, as `cli.main` logs them.
     Every BUFFER_FRAMES frames each logger flushes: the first flush
     creates the datasets, the later ones append BUFFER_FRAMES rows to
-    them.  For each flush: its ms a slot (the logger's own clock of its
-    writes) and the files' growth, which must be the new rows' chunks
+    them.  For each flush: its ms a slot (its writes' `io.flush` spans)
+    and the files' growth, which must be the new rows' chunks
     (BUFFER_FRAMES frames of frame_bytes) and no more than 8 bytes of
     padding a dataset, never a copy of earlier data.  The files are read
     back with the port's reader: every frame, each position as logged."""
     import numpy as np
+    from upside_md_torch import tracing
     from upside_md_torch.io import h5
     from upside_md_torch.io.logger import BUFFER_FRAMES, H5Logger
     label = "cli append"
@@ -3177,15 +3165,19 @@ def replay_appends(cli, values, tmp, n, frame_bytes):
     flushes, buffer_s = [], []
     for k in range(CLI_APPEND_FRAMES):
         v = values[k % len(values)][1]
-        seen = [len(lg.flush_seconds) for lg in loggers]
+        flush = (k + 1) % BUFFER_FRAMES == 0
+        if flush:
+            tracing.enable()
         t0 = time.perf_counter()
         cli.log_values(loggers, 3 * 0.009 * (k + 1), v)
         wall = time.perf_counter() - t0
-        if (k + 1) % BUFFER_FRAMES:
+        if not flush:
             buffer_s.append(wall)
             continue
-        ms = [1e3 * sum(lg.flush_seconds[j:]) for lg, j in zip(loggers, seen)]
-        n_ds = len(loggers[0].flush_seconds) - seen[0]  # one write each
+        tracing.disable()
+        writes = flush_writes(tracing.last_window(), paths)
+        ms = [1e3 * sum(w) for w in writes]
+        n_ds = len(writes[0])  # one write each
         new = [os.path.getsize(p) for p in paths]
         grow = [b - a for a, b in zip(size, new)]
         size = new
@@ -3246,11 +3238,12 @@ def cli_ubiquitin(dev, path):
     file's close, so every file write is inside (with 3 frames all of them
     happen at the close, each creating its datasets); the append path,
     which a run of fewer than BUFFER_FRAMES frames does not reach, is
-    timed by `replay_appends` on the same frames' values."""
+    timed by `replay_appends` on the same frames' values.  The logged run
+    runs with the recorder on: its `io.flush` spans time the writes."""
     import tempfile
     import numpy as np
     import torch
-    from upside_md_torch import cli
+    from upside_md_torch import cli, tracing
     from upside_md_torch.io.streams import make_frame_fn
     from upside_md_torch.md.sim import Simulation
     from upside_md_torch.ops import kernels
@@ -3268,9 +3261,11 @@ def cli_ubiquitin(dev, path):
     bare_launches = dict(kernels.LAUNCHES)
     with tempfile.TemporaryDirectory() as tmp:
         kernels.reset_counts()
+        tracing.enable()
         with _Recorded() as rec:
             rc = cli.main(cli_flags(CLI_ROUNDS, CLI_EVERY, temps, tmp)
                           + [path] * n)
+        tracing.disable()
         launches = dict(kernels.LAUNCHES)
         if rc != 0:
             raise AssertionError(f"{label}: main returned {rc}")
@@ -3282,7 +3277,8 @@ def cli_ubiquitin(dev, path):
         n_frame = frames["pos"].shape[1]
         nbytes = sum(os.path.getsize(p) for p in paths)
         frame_bytes = sum(a[0].nbytes for a in frames.values()) / n_frame
-        flush_ms = [1e3 * sum(lg.flush_seconds) for lg in rec.loggers]
+        flush_ms = [1e3 * sum(w) for w in flush_writes(
+            tracing.last_window(), [lg.path for lg in rec.loggers])]
         appends = replay_appends(cli, rec.values, tmp, n, frame_bytes)
     evals = state.n_evals + out["n_energy_evals"]
     bare_evals = bare.n_evals + bare_out["n_energy_evals"]

@@ -119,6 +119,17 @@ class CountOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+
+def is_annotation(event):
+    """A span's annotation in a profile (`tracing.is_user_annotation`),
+    not device work; a tree without the recorder has none."""
+    try:
+        from upside_md_torch.tracing import is_user_annotation
+    except ImportError:
+        return False
+    return is_user_annotation(event)
+
+
 def launches_per_eval(system, pos, n=64):
     """(device kernels and copies, dispatched ops) of one warm deriv."""
     from torch.autograd import DeviceType
@@ -131,7 +142,8 @@ def launches_per_eval(system, pos, n=64):
                              ProfilerActivity.CUDA]) as prof:
         system.deriv(x, cache)
         torch.cuda.synchronize()
-    dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not is_annotation(e))
     with CountOps() as ops:
         system.deriv(x, cache)
     torch.cuda.synchronize()
@@ -321,7 +333,8 @@ def time_forms(label):
                     torch.cuda.synchronize()
                 rec[f"launches {n}"] = sum(
                     1 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA) or None
+                    if e.device_type == DeviceType.CUDA
+                    and not is_annotation(e)) or None
             out[f"{bundle_name}: {name}"] = rec
             print(f"[{label}] {bundle_name}: {name}: {rec}", flush=True)
     return out

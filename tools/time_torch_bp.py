@@ -285,6 +285,17 @@ def time_k1(cs, timing, dev, gen, n):
     return recs
 
 
+
+def is_annotation(event):
+    """A span's annotation in a profile (`tracing.is_user_annotation`),
+    not device work; a tree without the recorder has none."""
+    try:
+        from upside_md_torch.tracing import is_user_annotation
+    except ImportError:
+        return False
+    return is_user_annotation(event)
+
+
 def md_device_s_per_eval(cs, dev, bundle_name, n):
     """Device time of one evaluation of an MD round (`torch.profiler` over
     ROUNDS rounds after a 2-round warm-up), and the idle share."""
@@ -304,7 +315,8 @@ def md_device_s_per_eval(cs, dev, bundle_name, n):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_s = sum(e.device_time for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA) * 1e-6
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not is_annotation(e)) * 1e-6
     del sim, state, system
     torch.cuda.empty_cache()
     return dev_s / (3 * ROUNDS), 1.0 - dev_s / wall

@@ -143,56 +143,33 @@ def diagnose_traj(path, ke_sigma=4.0):
 
 def profile_nodes(system, params, pos, reps=20):
     """Per-node time, the reference's COLLECT_PROFILE report
-    (src/timing.cpp:11-53): each node's compute is run alone on its real
-    inputs (from one evaluation of the graph at `pos`, (n_atom, 3) or
-    (B, n_atom, 3)) `reps` times after one warm-up call, timed between
-    CUDA events on the card and with `time.perf_counter` on the CPU.  The
-    fused pair block, which the nodes of its plan read, is a row of its
-    own.  Returns a list of (name, microseconds, percent) sorted by
-    cost."""
-    import time
+    (src/timing.cpp:11-53): `reps` force evaluations (`System.deriv`) at
+    `pos`, (n_atom, 3) or (B, n_atom, 3), after one warm-up, with the
+    recorder on (`tracing.py`); each node's time is that of its forward
+    and backward spans, `node.<name>` and `node.<name>.bwd`: stream time on
+    the card, host time on the CPU.  The fused pair block, which the nodes
+    of its plan read, is a row of its own (`fused_pair`, `fused_pair.bwd`).
+    Returns a list of (name, microseconds, percent) sorted by cost."""
+    from . import tracing
 
     params = system.params if params is None else params
     pos = torch.as_tensor(pos, dtype=system.dtype,
                           device=system.device)
     pos = pos[None] if pos.ndim == 2 else pos
-    cuda = pos.is_cuda
-    with torch.no_grad():
-        _, outputs, _, ctx = system.evaluate(pos, params=params)
-        spec = system.stacked_leaves(params)
-        calls = []
-        fusion = system.pair_fusion
-        if fusion is not None:
-            prep = system.fused_prepared(params)
-            calls.append(("(fused pair block)", lambda: fusion.compute(
-                system.consts, outputs, prep, params, system.plain,
-                system.residuals)))
-        for s in system.specs:
-            def call(s=s):
-                ctx.node_name = s.name
-                ctx.stacked = frozenset(k for n, k in spec if n == s.name)
-                return s.node_type.compute(
-                    system.consts[s.name], params.get(s.name, {}),
-                    [outputs[a] for a in s.args], ctx)
-            calls.append((s.name, call))
-        rows = []
-        for name, fn in calls:
-            fn()
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(reps):
-                    fn()
-                end.record()
-                end.synchronize()
-                us = start.elapsed_time(end) * 1e3 / reps
-            else:
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                us = (time.perf_counter() - t0) * 1e6 / reps
-            rows.append([name, us])
+    system.deriv(pos, params=params)
+    tracing.enable()
+    try:
+        for _ in range(reps):
+            system.deriv(pos, params=params)
+    finally:
+        tracing.disable()
+    w = tracing.last_window()
+    names = [(s.name, "node." + s.name) for s in system.specs]
+    if system.pair_fusion is not None:
+        names.append(("(fused pair block)", "fused_pair"))
+    rows = [[name, sum(w.spans[k].time() for k in (span, span + ".bwd")
+                       if k in w.spans) * 1e6 / reps]
+            for name, span in names]
     total = sum(r[1] for r in rows)
     rows = [(name, us, 100.0 * us / max(total, 1e-12))
             for name, us in rows]

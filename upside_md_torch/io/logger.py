@@ -27,12 +27,12 @@ new file, which then replaces it.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from .. import tracing
 from . import h5
 
 LOG_LEVELS = ("basic", "detailed", "extensive")
@@ -46,7 +46,6 @@ class H5Logger:
         for /input/sequence (kept from the file when None)."""
         self.path = path
         self._buffers: Dict[str, list] = {}
-        self.flush_seconds = []        # wall time of each buffer's write
         tmp = f"{path}.tmp{os.getpid()}"
         self._w = h5.Writer(tmp)
         try:
@@ -102,15 +101,14 @@ class H5Logger:
         rows = self._buffers.pop(name, [])
         if not rows:
             return
-        t0 = time.perf_counter()
-        block = np.stack(rows)
-        path = f"output/{name}"
-        if path in self._w:
-            self._w.append(path, block)
-        else:
-            self._w.create_extensible(path, block, BUFFER_FRAMES)
-            self._w.flush()
-        self.flush_seconds.append(time.perf_counter() - t0)
+        with tracing.span("io.flush", self.path):
+            block = np.stack(rows)
+            path = f"output/{name}"
+            if path in self._w:
+                self._w.append(path, block)
+            else:
+                self._w.create_extensible(path, block, BUFFER_FRAMES)
+                self._w.flush()
 
     def flush(self):
         for name in list(self._buffers):
@@ -147,7 +145,8 @@ def log_standard_frame(logger, sim, state, params=None, batched=False,
                          "batched=True")
 
     def host(t):
-        return t.detach().cpu().numpy().astype(np.float32)
+        with tracing.sync("log_frame"):
+            return t.detach().cpu().numpy().astype(np.float32)
 
     pos = host(state.pos)
     per = {"kinetic": host(sim.kinetic_energy(state)),
@@ -160,5 +159,6 @@ def log_standard_frame(logger, sim, state, params=None, batched=False,
     logger.log_frame("temperature", temp[:, None] if batched else temp)
     if replica_index is not None:
         if isinstance(replica_index, torch.Tensor):
-            replica_index = replica_index.cpu().numpy()
+            with tracing.sync("log_frame"):
+                replica_index = replica_index.cpu().numpy()
         logger.log_frame("replica_index", np.asarray(replica_index))

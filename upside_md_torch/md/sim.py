@@ -24,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from .integrator import integration_cycle, recenter
 from .mc import JumpSampler, PivotSampler, metropolis_step
 from .thermostat import OUThermostat, thermalize
@@ -169,7 +170,9 @@ class Simulation:
         spec).  noise: optional callable round -> (B, n_atom, 3)
         thermostat noise; mc_draws: optional callable (round, "pivot" or
         "jump") -> that move's draws (`metropolis_step`); otherwise the
-        generator draws them."""
+        generator draws them.  Spans (`tracing.py`): `md.round` around each
+        round (id: the round), inside it `md.mc`, `md.thermostat` and
+        `md.eval` around each force evaluation (id: its counter)."""
         system = self.system
         params = system.params if params is None else params
         if spec is not None and frozenset(spec) != \
@@ -187,35 +190,42 @@ class Simulation:
         def deriv(p, stage, c):
             # the JAX loop's counter, 3 * round + stage + 1 (sim.py:193)
             nonlocal sweeps, n_evals
-            g, _, c = system.deriv(p, c, fused_prep, params,
-                                   n_deriv_evals=3 * nr + stage + 1)
-            for entry in c.values():
-                if isinstance(entry, dict) and "iters" in entry:
-                    sweeps = sweeps + entry["iters"]
+            n = 3 * nr + stage + 1
+            with tracing.span("md.eval", n):
+                g, _, c = system.deriv(p, c, fused_prep, params,
+                                       n_deriv_evals=n)
+                for entry in c.values():
+                    if isinstance(entry, dict) and "iters" in entry:
+                        sweeps = sweeps + entry["iters"]
             n_evals += 1
             return g, c
 
         for i in range(n_rounds):
             nr = state.round_num + i
-            if self.mc_interval and nr > 0 and nr % self.mc_interval == 0:
-                for kind, sampler in samplers.items():
-                    if sampler is None:
-                        continue
-                    pos, acc = metropolis_step(
-                        pos, temp, energy, sampler, self.generator,
-                        None if mc_draws is None else mc_draws(nr, kind))
-                    stats[kind] = stats[kind] + torch.stack(
-                        [acc.to(torch.int32), torch.ones_like(
-                            acc, dtype=torch.int32)], -1)
-            if nr % self.thermostat_interval == 0:
-                temp = self._anneal_temperature(state.initial_temperature,
-                                                nr)
-                mom = self.thermostat.apply(
-                    mom, temp, self.generator,
-                    None if noise is None else noise(nr))
-            pos, mom, cache = integration_cycle(
-                deriv, pos, mom, self.dt, cache, self.max_force,
-                self.integrator)
+            with tracing.span("md.round", nr):
+                if self.mc_interval and nr > 0 and \
+                        nr % self.mc_interval == 0:
+                    with tracing.span("md.mc", nr):
+                        for kind, sampler in samplers.items():
+                            if sampler is None:
+                                continue
+                            pos, acc = metropolis_step(
+                                pos, temp, energy, sampler, self.generator,
+                                None if mc_draws is None
+                                else mc_draws(nr, kind))
+                            stats[kind] = stats[kind] + torch.stack(
+                                [acc.to(torch.int32), torch.ones_like(
+                                    acc, dtype=torch.int32)], -1)
+                if nr % self.thermostat_interval == 0:
+                    with tracing.span("md.thermostat", nr):
+                        temp = self._anneal_temperature(
+                            state.initial_temperature, nr)
+                        mom = self.thermostat.apply(
+                            mom, temp, self.generator,
+                            None if noise is None else noise(nr))
+                pos, mom, cache = integration_cycle(
+                    deriv, pos, mom, self.dt, cache, self.max_force,
+                    self.integrator)
         return replace(state, pos=pos, mom=mom,
                        round_num=state.round_num + n_rounds,
                        temperature=temp, pivot_stats=stats["pivot"],

@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.bp_pairs import MAX_RES
 from ..ops.fused_pair import FusedPrep, fused_pair_block, make_prep
 from ..ops.pairs import quadspline_family
@@ -60,8 +61,9 @@ class PairFusionPlan:
                  - np.asarray(spec.consts["id2"])[None, :])
             return np.abs(d) > 2
 
-        tabs = [t.detach().cpu().numpy() if t is not None else None
-                for t in self.tables(params)]
+        with tracing.sync("fusion_tables"):
+            tabs = [t.detach().cpu().numpy() if t is not None else None
+                    for t in self.tables(params)]
         if env is not None:
             env_band = (env.consts["type1"], env.consts["type2"], excl(env))
         else:

@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels
 
 NROT = 6
@@ -98,10 +99,11 @@ def make_statics(res, rot, valid, n2p, damping, max_iter, tol, chunk,
         chunk=max(1, int(chunk)))
 
 
-# host syncs of the plain solve: one a chunk of sweeps, where it reads
-# whether any replica is still active (XLA's while_loop keeps that test on
-# the device); nothing else changes the count
-HOST_SYNCS = {"bp_solve_plain": 0}
+# the recorder's host syncs by site (`tracing.sync`); the plain solve's,
+# "bp_solve_plain", are one a chunk of sweeps, where it reads whether any
+# replica is still active (XLA's while_loop keeps that test on the device)
+HOST_SYNCS = tracing.HOST_SYNCS
+HOST_SYNCS.setdefault("bp_solve_plain", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +137,8 @@ def node_potentials(E1, valid):
 
 def _any_active(active):
     """Whether a replica is still solving: a host sync, counted."""
-    HOST_SYNCS["bp_solve_plain"] += 1
-    return bool(active.any())
+    with tracing.sync("bp_solve_plain"):
+        return bool(active.any())
 
 
 def bp_solve_plain(prob, P, adj, valid, damping, max_iter, tol, chunk,
@@ -407,8 +409,10 @@ def bp_bethe_pairs_fwd(st, E1, E_pair, init=None, plain=False):
     """K2: the plain version on CPU tensors (or when asked), the CUDA
     kernel on CUDA tensors."""
     if plain or not E1.is_cuda:
-        return bp_bethe_pairs_plain(st, E1, E_pair, init)
-    return bp_pairs_kernel(st, E1, E_pair, init)[0]
+        with tracing.span("bp.plain"):
+            return bp_bethe_pairs_plain(st, E1, E_pair, init)
+    with tracing.span("bp.k2"):
+        return bp_pairs_kernel(st, E1, E_pair, init)[0]
 
 
 def bp_pairs_kernel(st, E1, E_pair, init=None):
@@ -485,11 +489,13 @@ class BPFreeEnergy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gF, *unused):
-        G1, dE, E_pair, nb = ctx.saved_tensors
-        if E_pair is not None:
-            dE = dE + identity_edge_gradient(ctx.st, E_pair, nb)
-        return gF[:, None, None] * G1, gF[:, None, None] * dE, None, None, \
-            None, None
+        with tracing.span("bp.bwd"):
+            G1, dE, E_pair, nb = ctx.saved_tensors
+            if E_pair is not None:
+                with tracing.span("cotangent.identity_edge"):
+                    dE = dE + identity_edge_gradient(ctx.st, E_pair, nb)
+            return gF[:, None, None] * G1, gF[:, None, None] * dE, None, \
+                None, None, None
 
 
 def bp_bethe_pairs(st, E1, E_pair, init=None, plain=False,

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import kernels
 from .bp_pairs import (MAX_RES, NPAIR, NROT, BPScratch, bethe_and_gradients,
                        bp_solve_plain, node_potentials, small_outputs)
@@ -85,8 +86,10 @@ def planes_solver(n_res, on_card, plain=False):
 
 def bp_bethe_planes_fwd(st, E1, P, adj, init=None, plain=False):
     """(F, G1, G2, nb, eb, dev, iters) from the solve `planes_solver`
-    chooses."""
-    return planes_solver(st.n_res, E1.is_cuda, plain)(st, E1, P, adj, init)
+    chooses, in the span `bp.k6` or `bp.plain`."""
+    solve = planes_solver(st.n_res, E1.is_cuda, plain)
+    with tracing.span("bp.k6" if solve is k6 else "bp.plain"):
+        return solve(st, E1, P, adj, init)
 
 
 def bp_planes_kernel(st, E1, P, adj, init=None):
@@ -137,9 +140,10 @@ class BPPlanesFreeEnergy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gF, *unused):
-        G1, G2 = ctx.saved_tensors
-        return gF[:, None, None] * G1, gF[:, None, None, None] * G2, None, \
-            None, None, None
+        with tracing.span("bp.bwd"):
+            G1, G2 = ctx.saved_tensors
+            return gF[:, None, None] * G1, gF[:, None, None, None] * G2, \
+                None, None, None, None
 
 
 def bp_bethe_planes(st, E1, E2planes, adj, init=None, plain=False):

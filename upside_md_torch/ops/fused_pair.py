@@ -63,6 +63,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels
 from .sigmoid import compact_sigmoid
 from .tile_cull import (TILE, cutoff_sq, flags_buffer, mask_words, n_tiles,
@@ -151,7 +152,8 @@ class FusedPrep:
         """(n_rt,) float32 squared cull thresholds of K3's row tiles: the
         larger band cutoff of each tile's rows, +inf for a tile with env
         rows (no spline cutoff)."""
-        band = self.band_of_rows().cpu().numpy()
+        with tracing.sync("fused_prep_bands"):
+            band = self.band_of_rows().cpu().numpy()
         cov, pair = self.cut2
         rows = np.where(band == 2, np.inf, np.where(band == 3, pair, cov))
         return row_tile_thresholds(rows).to(self.mask.device)
@@ -159,7 +161,9 @@ class FusedPrep:
     @functools.cached_property
     def mask_words(self):
         """(n1, n_ct) int32 packed mask (`tile_cull.mask_words`): K3's."""
-        return mask_words(self.mask.cpu().numpy()).to(self.mask.device)
+        with tracing.sync("fused_prep_mask"):
+            mask = self.mask.cpu().numpy()
+        return mask_words(mask).to(self.mask.device)
 
 
 def make_prep(tabs, type1, type2, masks, env_tab, device,
@@ -630,15 +634,19 @@ def block_table_cotangents(prep, needed, tabs, x1, w1, x2, wcol, g_cov,
          lambda: w1[:, prep.r_b:prep.r_e, None] * g_cov[:, 1:2, :]),
         (prep.r_p, prep.n1, 3, A1 + A2,
          lambda: g_grid[:, :n2, :n2]))
-    out = []
-    for tab, want, (lo, hi, b, off, pair_g) in zip(tabs[:3], needed[:3],
-                                                  bands):
-        out.append(table_cotangent(tab, rt[lo:hi] - off, ct[b], x1[:, lo:hi],
-                                   x2, mask[lo:hi], pair_g())
-                   if want else None)
-    out.append(env_table_cotangent(
-        tabs[3], rt[prep.r_e:prep.r_p], ct[2], mask[prep.r_e:prep.r_p],
-        x1[:, prep.r_e:prep.r_p], wcol, x2, g_env) if needed[3] else None)
+    out = [None] * 4
+    for i, (lo, hi, b, off, pair_g) in enumerate(bands):
+        if needed[i]:
+            with tracing.span("cotangent.table"):
+                out[i] = table_cotangent(tabs[i], rt[lo:hi] - off, ct[b],
+                                         x1[:, lo:hi], x2, mask[lo:hi],
+                                         pair_g())
+    if needed[3]:
+        with tracing.span("cotangent.env_table"):
+            out[3] = env_table_cotangent(
+                tabs[3], rt[prep.r_e:prep.r_p], ct[2],
+                mask[prep.r_e:prep.r_p], x1[:, prep.r_e:prep.r_p], wcol, x2,
+                g_env)
     return out
 
 

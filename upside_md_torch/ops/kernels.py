@@ -11,8 +11,10 @@ thread's current device, with that device's current stream.  Ranks that
 start together build once: `parallel.mesh.make_replica_mesh` has rank 0
 call `library()` while the others wait at a barrier.
 
-`LAUNCHES` counts, per kernel, the calls that launched it; nothing else
-changes the counts.
+`LAUNCHES` (the recorder's counter `kernel.<name>`, `tracing.py`) counts,
+per kernel, the calls that launched it; nothing else changes the counts.
+Each call is the span `kernel.<name>`; building and loading the library,
+`kernels.build` and `kernels.load`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import tempfile
 
 import torch
 
+from .. import tracing
+
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
@@ -37,7 +41,10 @@ KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "fused_pair_bwd_recompute",
 TILE_ROWS = 32
 TILE_COLS = 32
 
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = tracing.LAUNCHES
+LAUNCHES.update((name, 0) for name in KERNELS)
+# each kernel's span and counter (`tracing.py`)
+_NAMES = {name: "kernel." + name for name in KERNELS}
 _lib = None
 
 
@@ -112,7 +119,10 @@ def build(verbose=False):
 def library():
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(build())
+        with tracing.span("kernels.build"):
+            path = build()
+        with tracing.span("kernels.load"):
+            _lib = ctypes.CDLL(path)
     return _lib
 
 
@@ -142,7 +152,8 @@ def launch(name, *args):
     (index,) = devices
     fn = getattr(library(), name)
     cargs = [_carg(a) for a in args]
-    with torch.cuda.device(index):
+    with tracing.span(_NAMES[name]), \
+            torch.cuda.device(index):
         cargs.append(ctypes.c_void_p(
             torch.cuda.current_stream(index).cuda_stream))
         if fn.argtypes is None:     # the kinds of a function's arguments
@@ -151,4 +162,4 @@ def launch(name, *args):
         rc = fn(*cargs)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    tracing.count(_NAMES[name])

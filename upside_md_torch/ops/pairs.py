@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from .spline import bspline_window_weights
 
 # score of a pair outside the mask or the cutoff (ops/pairs.py:75)
@@ -143,7 +144,9 @@ def gather_rows_bwd_plain(g, order, starts):
     out = g.new_zeros((n_rows, g.shape[1]))
     first, length = starts[:-1], starts[1:] - starts[:-1]
     zero = g.new_zeros(())
-    for k in range(int(length.max())):
+    with tracing.sync("gather_rows_plain"):
+        longest = int(length.max())
+    for k in range(longest):
         live = (length > k)[:, None]
         slot = order[(first + k).clamp(max=order.shape[0] - 1)]
         out = out + torch.where(live, g[slot], zero)

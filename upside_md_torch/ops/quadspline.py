@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels
 from .fused_pair import _geometry, poly_coefficients, table_cotangent
 from .pairs import quadspline_family
@@ -94,7 +95,9 @@ class PairSpline:
         key = (id(table), table._version)
         if self._memo is None or self._memo[0] != key:
             ka, k, dx = quadspline_family(table.shape[-1])
-            coef = poly_coefficients(table.detach().cpu().numpy(), ka, k)
+            with tracing.sync("quadspline_table"):
+                host = table.detach().cpu().numpy()
+            coef = poly_coefficients(host, ka, k)
             self._memo = (key, table, SplineTable(
                 torch.as_tensor(coef, dtype=table.dtype,
                                 device=table.device),
@@ -372,7 +375,9 @@ def _table_grad(ctx, index, table, x1, x2, g_pair):
     if not ctx.needs_input_grad[index]:
         return None
     ps = ctx.ps
-    return table_cotangent(table, ps.t1, ps.t2, x1, x2, ps.mask, g_pair())
+    with tracing.span("cotangent.table"):
+        return table_cotangent(table, ps.t1, ps.t2, x1, x2, ps.mask,
+                               g_pair())
 
 
 class QuadSpline(torch.autograd.Function):

@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from ..tracing import is_user_annotation
 from . import mesh as M
 
 DT, THERMOSTAT_INTERVAL = 0.009, 0.027
@@ -67,8 +68,9 @@ def audited(label, mesh, found):
         if on_card:
             torch.cuda.synchronize(mesh.device)
     comm = sorted({e.name for e in prof.events()
-                   if "nccl" in e.name.lower()
-                   or "gloo" in e.name.lower()}) if on_card else []
+                   if not is_user_annotation(e)
+                   and ("nccl" in e.name.lower()
+                        or "gloo" in e.name.lower())}) if on_card else []
     found.append({"advance": label,
                   "collectives": sum(M.COLLECTIVES[k] - before[k]
                                      for k in before),

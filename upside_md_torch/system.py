@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import nodes  # noqa: F401  (registers the node types)
+from . import tracing
 from .config import bundle
 from .nodes.base import NodeSpec, resolve_node_type, to_tensor, topo_sort
 from .nodes.fusion import plan_pair_fusion
@@ -156,19 +157,20 @@ class System:
         tabs = self.pair_fusion.tables(params)
         key = tuple((id(t), t._version) for t in tabs if t is not None)
         if self._prep_memo is None or self._prep_memo[0] != key:
-            fusion = self.pair_fusion
-            spec = {(n, "interaction_param") for n in fusion.table_nodes} \
-                & self.stacked_leaves(params)
-            if spec:
-                n_slot = params[next(iter(spec))[0]]["interaction_param"] \
-                    .shape[0]
-                prep = [fusion.prepare(slot_params(params, spec, i),
-                                       self.device, self.dtype)
-                        for i in range(n_slot)]
-            else:
-                prep = fusion.prepare(params, self.device, self.dtype)
-            self._prep_memo = (key, tabs, prep)
+            with tracing.span("fused_pair.prepare"):
+                self._prep_memo = (key, tabs, self._fused_prepare(params))
         return self._prep_memo[2]
+
+    def _fused_prepare(self, params):
+        """`fused_prepared`'s operands, built anew."""
+        fusion = self.pair_fusion
+        spec = {(n, "interaction_param") for n in fusion.table_nodes} \
+            & self.stacked_leaves(params)
+        if not spec:
+            return fusion.prepare(params, self.device, self.dtype)
+        n_slot = params[next(iter(spec))[0]]["interaction_param"].shape[0]
+        return [fusion.prepare(slot_params(params, spec, i), self.device,
+                               self.dtype) for i in range(n_slot)]
 
     # -- graph evaluation ---------------------------------------------------
 
@@ -182,7 +184,10 @@ class System:
         size B gives each replica its own value); inject: {node: tensor}
         added to that node's output (how `get_sens` reads output
         cotangents); n_deriv_evals: the force-evaluation counter AFM reads
-        (the MD loop passes 3 * round + stage + 1)."""
+        (the MD loop passes 3 * round + stage + 1), and the id of the
+        evaluation's spans: `node.<name>` around each node's compute and
+        `node.<name>.bwd` around its backward, `fused_pair` and
+        `fused_pair.bwd` around the fused block's (`tracing.py`)."""
         params = self.params if params is None else params
         spec = self.stacked_leaves(params)
         for n, k in spec:
@@ -198,13 +203,18 @@ class System:
             if fusion is not None and s.name == fusion.trigger_name:
                 prep = fused_prep if fused_prep is not None \
                     else self.fused_prepared(params)
-                ctx.fused = fusion.compute(self.consts, outputs, prep, params,
-                                           self.plain, self.residuals)
+                ctx.fused = self._fused_block(outputs, prep, params,
+                                              n_deriv_evals)
             ctx.node_name = s.name
             ctx.stacked = frozenset(k for n, k in spec if n == s.name)
-            out = s.node_type.compute(self.consts[s.name],
-                                      params.get(s.name, {}),
-                                      [outputs[a] for a in s.args], ctx)
+            name = "node." + s.name
+            bwd = tracing.backward_span(name + ".bwd", n_deriv_evals)
+            with tracing.span(name, n_deriv_evals):
+                out = s.node_type.compute(self.consts[s.name],
+                                          params.get(s.name, {}),
+                                          [outputs[a] for a in s.args], ctx)
+                if bwd is not None:
+                    out = bwd(out)
             if s.node_type.is_potential:
                 per_term[s.name] = out
             else:
@@ -215,6 +225,17 @@ class System:
         for v in per_term.values():
             total = total + v
         return total, outputs, per_term, ctx
+
+    def _fused_block(self, outputs, prep, params, n_deriv_evals):
+        """The fused block's member outputs, in its spans."""
+        fusion = self.pair_fusion
+        bwd = tracing.backward_span("fused_pair.bwd", n_deriv_evals)
+        with tracing.span("fused_pair", n_deriv_evals):
+            fused = fusion.compute(self.consts, outputs, prep, params,
+                                   self.plain, self.residuals)
+            if bwd is not None:
+                fused = dict(zip(fused, bwd(tuple(fused.values()))))
+        return fused
 
     def init_cache(self, n_replica: int) -> Dict:
         """Initial solver state (BP warm-start beliefs) for n_replica."""

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .nodes.base import NodeSpec
 from .ops.pairs import quadspline_family
 
@@ -175,7 +176,8 @@ class QuadsplinePacking:
         projection otherwise.  Returns a flat float64 numpy vector."""
         ka, k = self.ka, self.k
         if isinstance(table, torch.Tensor):
-            table = table.detach().cpu().numpy()
+            with tracing.sync("pack_table"):
+                table = table.detach().cpu().numpy()
         table = np.asarray(table, np.float64)
         eps = 1e-7
 
@@ -223,13 +225,29 @@ def _adam(leaves, learning_rate):
 
 
 def _finite(loss, step):
-    value = float(loss.detach())
+    with tracing.sync("train_loss"):
+        value = float(loss.detach())
     if not np.isfinite(value):
         # the reference's training aborts on NaN energies
         # (rotamer_parameter_estimation.py:198-201, 255-260)
         raise FloatingPointError(
             f"non-finite training loss at step {step}: {value}")
     return value
+
+
+def _step(opt, loss_of, i, history):
+    """Step i of `fit` or `fit_packed` in its spans (`tracing.py`):
+    `train.step` around `train.loss`, the loss's host read, `train.backward`
+    and `train.adam`."""
+    with tracing.span("train.step", i):
+        opt.zero_grad()
+        with tracing.span("train.loss", i):
+            loss = loss_of()
+        history.append(_finite(loss, i))
+        with tracing.span("train.backward", i):
+            loss.backward()
+        with tracing.span("train.adam", i):
+            opt.step()
 
 
 def fit_packed(system, loss_of_params, params, pack_names, n_steps=50,
@@ -256,11 +274,7 @@ def fit_packed(system, loss_of_params, params, pack_names, n_steps=50,
 
     history = []
     for i in range(n_steps):
-        opt.zero_grad()
-        loss = loss_of_params(unpacked())
-        history.append(_finite(loss, i))
-        loss.backward()
-        opt.step()
+        _step(opt, lambda: loss_of_params(unpacked()), i, history)
     with torch.no_grad():
         out = unpacked()
     return out, history
@@ -278,11 +292,7 @@ def fit(loss_fn, trainable, frozen, n_steps=100, learning_rate=1e-3,
     opt = _adam(leaves, learning_rate)
     history = []
     for i in range(n_steps):
-        opt.zero_grad()
-        loss = loss_fn(trainable, frozen)
-        history.append(_finite(loss, i))
-        loss.backward()
-        opt.step()
+        _step(opt, lambda: loss_fn(trainable, frozen), i, history)
         if callback is not None:
             callback(i, trainable, history[-1])
     return {n: {k: v.detach() for k, v in p.items()}
@@ -306,6 +316,7 @@ def multi_system_gradient(systems_and_pos, params):
                                           device=system.device), merged)
         g = torch.autograd.grad(e.sum(), flat, allow_unused=True)
         grads = [a if b is None else a + b for a, b in zip(grads, g)]
-        total = total + float(e.detach().sum())
+        with tracing.sync("multi_system_energy"):
+            total = total + float(e.detach().sum())
     it = iter(grads)
     return total, {n: {k: next(it) for k in p} for n, p in leaves.items()}
