@@ -132,8 +132,15 @@ the bundle's seed.  Phases:
    prints steps/s and mean BP sweeps;
 6. training: 5 Adam steps of `fit_packed` on 8 perturbed no-env
    ubiquitin configurations, counts set to 0 just before and read just
-   after; every loss finite, the last below the first, K3 launched;
-   prints seconds per step and the table cotangents' share of it;
+   after; every loss finite, the last below the first, K3 and
+   `table_cotangent` launched; prints seconds per step and the table
+   cotangents' share of it; the rotamer table's cotangent there through
+   its kernel against the plain version (rel `TRAIN_COTANGENT_TOL`,
+   bitwise repeatable) and each one's time; then the three tables of the
+   full ubiquitin fused block at the training cell's 1,024 replicas, each
+   band's operand as the block's backward forms it, kernel against plain
+   (rel `TRAIN_COTANGENT_TOL`, bitwise repeatable), each band's call,
+   device and plain time and bound, their sums the kernel table's row;
 7. replica exchange on cytochrome c: at 4 replicas under the stacked
    spring ladder the whole evaluation with kernels against
    `kernels=False` at BP tol 1e-6 (energy and force RMS rel < 1e-3) and
@@ -292,11 +299,12 @@ the bundle's seed.  Phases:
    > 0, kernel_plain_rel_err < 1e-3, the card's name); `[bench_all]`
    every row of `tools/bench_all_torch.py` but the ubiquitin curve at 3
    rounds a timed call (no row may fail; K1 fwd, K1 bwd and K2
-   launched); `[examples fold_trp_cage]`, `[examples replica_exchange]`,
+   launched, and `table_cotangent` by the training row);
+   `[examples fold_trp_cage]`, `[examples replica_exchange]`,
    `[examples train_rotamer]` the examples at small size (files written,
    replica_index a permutation, the training loss falling; the fused
-   kernels launched where the path has them, none on the backbone-only
-   exchange); `[repeat gfp coverage]`, `[repeat gfp forces]`, `[repeat
+   kernels launched where the path has them, `table_cotangent` where a
+   table trains, none on the backbone-only exchange); `[repeat gfp coverage]`, `[repeat gfp forces]`, `[repeat
    radial nl]`, `[repeat extras contact]`, `[repeat train]`, `[repeat
    train env]` 20 calls on the same inputs of GFP's coverages past 1,024
    columns and their gradient, GFP's whole evaluation (forces and
@@ -363,6 +371,11 @@ KERNEL_INFO = {
     # no TPU kernel: the JAX package gathers the list's rows in XLA
     "gather_rows_bwd": ("upside_md_torch/csrc/gather_rows.cu",
                         "none (XLA gather, upside_md_tpu/ops/pairs.py:94)"),
+    # no TPU kernel: the JAX package computes the table cotangent in XLA
+    "table_cotangent": (
+        "upside_md_torch/csrc/table_cotangent.cu",
+        "none (XLA `_table_cotangent`, "
+        "upside_md_tpu/ops/pallas_quadspline.py:753)"),
 }
 FUSED_KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
 UNFUSED_KERNELS = ("quadspline_fwd", "quadspline_bwd", "colsum_fwd",
@@ -376,6 +389,8 @@ ROTATE_BYTES = 150e6   # a timed kernel's operands in turn: 3x the 50 MB L2
 NOENV_KERNELS = ("fused_pair_fwd", "fused_pair_bwd_recompute",
                  "bp_bethe_pairs")
 TRAIN_CONFIGS, TRAIN_STEPS, TRAIN_LR = 8, 5, 0.03
+TRAIN_COTANGENT_TOL = 1e-4   # table_cotangent against its plain version
+COTANGENT_REPLICAS = 1024    # the training cell's ensemble
 PARAM_SWEEPS = 100   # fixed BP sweeps of the param_deriv comparison
 # the burial coupling's spline offset for the environment-table gradient
 # check: with the synthetic library's 0 the coverages sit on the clamped
@@ -394,6 +409,9 @@ FP32_OPS_PER_S = 67e12
 OPS_GEOM, OPS_VALUE, OPS_PLANES, OPS_BWD = 27, 80, 110, 150
 OPS_ENV_FWD, OPS_ENV_BWD, OPS_PLANE_BWD = 46, 70, 45
 OPS_SWEEP_EDGE, OPS_BETHE_EDGE = 110, 540
+# a live pair's table cotangent beyond its geometry: three windows, the
+# table row's three sums, the products and the 16 window sums
+OPS_COTANGENT = 125
 COMPARE_REPLICAS, TIME_REPLICAS, MD_REPLICAS = 4, 64, (64, 512)
 # BASELINE config 4 (tools/bench_all.py:103-160): replicas, timed rounds,
 # rounds between exchanges (and frames, and pivot moves), warm-up blocks
@@ -605,6 +623,24 @@ def bound(n_bytes, n_ops):
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     to = n_ops / FP32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def cotangent_bound(table, x1, x2, mask):
+    """`bound` of `table_cotangent` on these operands: OPS_GEOM a masked
+    pair and replica, OPS_COTANGENT more a live one; the bytes of g where
+    a pair is live, the sites and the (M, n1, n2) pair sums written
+    once."""
+    import torch
+    from upside_md_torch.ops.fused_pair import _geometry
+    from upside_md_torch.ops.pairs import quadspline_family
+    _, k, dx = quadspline_family(table.shape[-1])
+    with torch.no_grad():
+        dist = _geometry(x1, x2)[1]
+        live = int((mask.bool() & (dist * (1.0 / dx) < k - 2 - 1e-6)).sum())
+    B, (n1, n2) = x1.shape[0], mask.shape
+    masked = B * int(mask.bool().sum())
+    return bound(4 * (live + 6 * B * (n1 + n2) + table.shape[-1] * n1 * n2),
+                 OPS_GEOM * masked + OPS_COTANGENT * live)
 
 
 def spline_pairs(ps, tab, x1, x2):
@@ -1387,7 +1423,10 @@ def row_tile_k3(system, base, n, gen, dev):
 def run_train(path, dev, gen, base):
     """fit_packed of the rotamer table under the energy-gap loss on
     TRAIN_CONFIGS perturbed configurations, TRAIN_STEPS Adam steps; the
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after.  Then the
+    rotamer table's cotangent at these TRAIN_CONFIGS replicas, through the
+    kernel and its plain version (rel TRAIN_COTANGENT_TOL, bitwise
+    repeatable), each one's time and the plain one's share of a step."""
     import torch
     from upside_md_torch import training
     from upside_md_torch.ops import kernels
@@ -1421,12 +1460,12 @@ def run_train(path, dev, gen, base):
         f"{launches}")
     if not (all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]):
         raise AssertionError(f"training loss not finite or not lower: {hist}")
-    for nm in NOENV_KERNELS:
+    for nm in NOENV_KERNELS + ("table_cotangent",):
         if launches[nm] <= 0:
             raise AssertionError(f"kernel {nm} was not launched by training")
 
-    # the rotamer table's cotangent (plain PyTorch): two per step, one for
-    # each of the two systems
+    # the rotamer table's cotangent: two per step, one for each of the two
+    # systems; the plain version's time as before, the kernel's beside it
     with torch.no_grad():
         _, outs, _, _ = system.evaluate(pos)
     plan, prep = system.pair_fusion, system.fused_prepared()
@@ -1435,15 +1474,88 @@ def run_train(path, dev, gen, base):
     A1, A2 = prep.type_rows
     g = torch.randn((TRAIN_CONFIGS, prep.n2, prep.n2), generator=gen,
                     device=dev)
-    cot_ms = cuda_ms(lambda: table_cotangent(
-        table, prep.row_type[prep.r_p:] - A1 - A2, prep.col_type[3],
-        x1[:, prep.r_p:], x2, prep.mask[prep.r_p:], g), reps=5)
+    args = (table, prep.row_type[prep.r_p:] - A1 - A2, prep.col_type[3],
+            x1[:, prep.r_p:], x2, prep.mask[prep.r_p:], g)
+    with torch.no_grad():
+        got, again = table_cotangent(*args), table_cotangent(*args)
+        want = table_cotangent(*args, plain=True)
+        repeatable("table_cotangent", (got,), (again,))
+        check("[train] table_cotangent", rel_err(got, want)[0],
+              TRAIN_COTANGENT_TOL)
+        cot_ms = cuda_ms(lambda: table_cotangent(*args, plain=True), reps=5)
+        kernel_ms = cuda_ms(lambda: table_cotangent(*args))
     share = 2 * cot_ms / 1e3 / per_step
-    log(f"[train] rotamer table cotangent {cot_ms:.4f} ms per call, "
-        f"{share:.3f} of a step")
+    log(f"[train] rotamer table cotangent {cot_ms:.4f} ms per call "
+        f"(plain), {share:.3f} of a step; the kernel {kernel_ms:.4f} ms; "
+        f"table_cotangent launched {launches['table_cotangent']} times in "
+        f"{TRAIN_STEPS} steps")
     return {"loss": hist, "s_per_step": per_step, "step_s": steps,
-            "table_cotangent_ms": cot_ms, "table_cotangent_share": share}, \
-        {nm: launches[nm] for nm in NOENV_KERNELS}
+            "table_cotangent_ms": cot_ms, "table_cotangent_share": share,
+            "table_cotangent_kernel_ms": kernel_ms}, \
+        {nm: launches[nm] for nm in NOENV_KERNELS + ("table_cotangent",)}
+
+
+def train_cotangents(path, dev, gen, base):
+    """The fused block's three trained tables' cotangents at
+    COTANGENT_REPLICAS perturbed ubiquitin configurations, the training
+    cell's ensemble size, each band's operand as `block_table_cotangents`
+    forms it (the coverage bands' w1 g_cov products, the pair band's
+    strided g_grid view) under random cotangents: the kernel against its
+    plain version (rel TRAIN_COTANGENT_TOL), bitwise repeatable, each
+    band's call, device and plain ms and bound logged.  Returns (max abs
+    err, (ms, plain ms, device ms), bound) of the three bands together,
+    a training step's ensemble calls, for the kernel table."""
+    import torch
+    from upside_md_torch.ops.fused_pair import table_cotangent
+    system, _ = load_system(path, dev)
+    pos = perturbed(base, COTANGENT_REPLICAS, gen, dev)
+    with torch.no_grad():
+        _, outs, _, _ = system.evaluate(pos)
+    plan, prep = system.pair_fusion, system.fused_prepared()
+    x1, w1, x2, _ = plan.block_inputs(system.consts, outs)
+    del outs
+    A1, A2 = prep.type_rows
+    rt, ct, mask, n2 = prep.row_type.long(), prep.col_type, prep.mask, prep.n2
+    B = COTANGENT_REPLICAS
+    g_cov = torch.randn((B, 2, n2), generator=gen, device=dev)
+    g_grid = torch.randn((B, prep.n2p, prep.n2p), generator=gen, device=dev)
+    tabs = plan.tables(system.params)
+    # table, rows, column set, type offset, the band's pair cotangent, as
+    # `block_table_cotangents`
+    bands = (
+        (0, 0, prep.r_b, 0, 0,
+         lambda: w1[:, :prep.r_b, None] * g_cov[:, 0:1, :]),
+        (1, prep.r_b, prep.r_e, 1, A1,
+         lambda: w1[:, prep.r_b:prep.r_e, None] * g_cov[:, 1:2, :]),
+        (2, prep.r_p, prep.n1, 3, A1 + A2, lambda: g_grid[:, :n2, :n2]))
+    worst, times, bound_ms, bases = 0.0, [], 0.0, set()
+    for i, lo, hi, cols, off, pair_g in bands:
+        name, table = plan.table_nodes[i], tabs[i]
+        args = (table, rt[lo:hi] - off, ct[cols], x1[:, lo:hi], x2,
+                mask[lo:hi], pair_g())
+        with torch.no_grad():
+            got, again = table_cotangent(*args), table_cotangent(*args)
+            repeatable(f"table_cotangent {name}", (got,), (again,))
+            want = table_cotangent(*args, plain=True)
+            err, d = rel_err(got, want)
+            check(f"[train] table_cotangent {name}, {B} replicas", err,
+                  TRAIN_COTANGENT_TOL)
+            t = (cuda_ms(lambda: table_cotangent(*args)),
+                 cuda_ms(lambda: table_cotangent(*args, plain=True),
+                         reps=2, warm=0),
+                 device_ms(lambda: table_cotangent(*args)))
+            b = cotangent_bound(table, args[3], x2, args[5])
+        log(f"[train] table_cotangent {name} ({hi - lo} x {n2} pairs, "
+            f"{B} replicas): kernel {t[0]:.4f} ms a call, device time "
+            f"{t[2]} ms, plain {t[1]:.1f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        worst = max(worst, d)
+        times.append(t)
+        bound_ms += b[0]
+        bases.add(b[1])
+        del got, again, want, args
+    torch.cuda.empty_cache()
+    sums = tuple(None if None in col else sum(col) for col in zip(*times))
+    return worst, sums, (bound_ms, "/".join(sorted(bases)))
 
 
 # ---------------------------------------------------------------------------
@@ -4808,15 +4920,17 @@ def scripts_bench_all(dev):
     """`[bench_all]`: every row of `tools/bench_all_torch.py` but the
     ubiquitin curve, at SCRIPT_ROUNDS rounds a timed call (exchange rows
     SCRIPT_REX_ROUNDS, training SCRIPT_TRAIN_STEPS chained steps); the
-    counts set to 0 just before and read just after (K1 fwd, K1 bwd and
-    K2 launched); any row's failure fails the phase."""
+    counts set to 0 just before and read just after (K1 fwd, K1 bwd, K2
+    and, for the training row's table gradients, `table_cotangent`
+    launched); any row's failure fails the phase."""
     from upside_md_torch.ops import kernels
     table = load_script("bench_all_torch", "tools", "bench_all_torch.py")
     t0 = time.perf_counter()
     kernels.reset_counts()
     rows = table.run_rows(dev, SCRIPT_ROUNDS, SCRIPT_REX_ROUNDS,
                           TIME_REPLICAS, SCRIPT_TRAIN_STEPS, curve=())
-    launches = path_launches("bench_all", FUSED_KERNELS)
+    launches = path_launches("bench_all",
+                             FUSED_KERNELS + ("table_cotangent",))
     failed = [r["row"] for r in rows if "error" in r]
     if failed:
         raise AssertionError(f"[bench_all] rows failed: {failed}")
@@ -4831,7 +4945,7 @@ def scripts_examples(dev):
     read just after: fold_trp_cage_torch (full force field; K1 fwd, K1
     bwd, K2), replica_exchange_torch (backbone only, 8 slots, one
     exchange; no kernel), train_rotamer_torch (the loss falls; K1 fwd, K1
-    bwd, K2)."""
+    bwd, K2, `table_cotangent`)."""
     import tempfile
     import numpy as np
     from upside_md_torch.ops import kernels
@@ -4883,7 +4997,7 @@ def scripts_examples(dev):
                                       n_train_steps=SCRIPT_TRAIN_FIT,
                                       device=dev)
         per_path["examples train_rotamer"] = path_launches(
-            "examples train_rotamer", FUSED_KERNELS)
+            "examples train_rotamer", FUSED_KERNELS + ("table_cotangent",))
         if not (all(math.isfinite(v) for v in hist) and hist[-1] < hist[0]):
             raise AssertionError(f"[examples train_rotamer] loss {hist}")
         res["train_rotamer"] = {"loss": hist, "accuracy": [acc0, acc1],
@@ -5423,6 +5537,9 @@ def main():
     phase_done(5)
     # ---- 6. training through K3 and the table cotangents
     train, launches_t = run_train(noenv_path, dev, gen, base_n)
+    nm = "table_cotangent"
+    errs[nm], ms[nm], bounds[nm] = train_cotangents(fused_path, dev, gen,
+                                                     base_f)
     results["phases"]["train"] = train
 
     phase_done(6)

@@ -5,6 +5,10 @@ both are exact up to the order of the additions), on the trp-cage bundle:
 * `table_cotangent` (ops/fused_pair.py; training's table cotangents)
   against its former `index_add_` by (type1, type2), in one replica chunk
   and in two: rel 1e-12;
+* on CPU tensors `table_cotangent` is its plain version and a table's
+  gradient through the fused block (the training cell's three tables)
+  launches no kernel; the table cotangent's kernel is in `KERNELS`, with
+  its C entry point in `csrc/table_cotangent.cu`;
 * `env_table_cotangent` (the environment table's cotangent, summed by
   type with one-hot products) against its former autograd through the
   table gather (an accumulating `index_put_`): rel 1e-12;
@@ -30,7 +34,7 @@ import torch
 from torch_threads import one_thread  # noqa: F401 (autouse)
 from upside_md_torch import DATA_DIR
 from upside_md_torch.nodes import hbond, radial, steric
-from upside_md_torch.ops import fused_pair
+from upside_md_torch.ops import fused_pair, kernels
 from upside_md_torch.ops.pairs import (quadspline_coverage_nl,
                                       quadspline_family, type_members)
 from upside_md_torch.ops.spline import bspline_window_weights
@@ -109,6 +113,50 @@ def test_table_cotangent_equals_index_add(trp, name, chunk, monkeypatch):
     old = table_cotangent_index_add(*args)
     assert new.shape == old.shape == table.shape
     assert _rel(new, old) < 1e-12
+
+
+def _refuse_launch(name, *args):
+    raise AssertionError(f"{name} launched on CPU tensors")
+
+
+def test_table_cotangent_on_cpu_tensors_is_plain(trp, monkeypatch):
+    """CPU tensors take the plain version, `plain` or not: the kernels'
+    launcher, patched to raise, is never called."""
+    monkeypatch.setattr(kernels, "launch", _refuse_launch)
+    system, _, outs = trp
+    c, table, x1, x2 = _coverage_operands(system, outs, "hbond_coverage")
+    g = torch.randn(x1.shape[0], x1.shape[1], x2.shape[1],
+                    generator=torch.Generator().manual_seed(5),
+                    dtype=x1.dtype)
+    args = (table, c["type1"], c["type2"], x1[..., :6], x2[..., :6],
+            c["spline"].mask, g)
+    want = fused_pair.table_cotangent_plain(*args)
+    assert want.abs().max() > 0
+    for plain in (False, True):
+        assert torch.equal(fused_pair.table_cotangent(*args, plain=plain),
+                           want)
+
+
+@pytest.mark.parametrize("node", ["rotamer", "hbond_coverage",
+                                  "hbond_coverage_hydrophobe"])
+def test_table_gradient_on_cpu_tensors_launches_nothing(trp, node,
+                                                        monkeypatch):
+    """A pair table's gradient through the fused block on CPU tensors
+    (`block_table_cotangents` in its backward) launches no kernel, and is
+    finite and not zero."""
+    monkeypatch.setattr(kernels, "launch", _refuse_launch)
+    system, x, _ = trp
+    assert system.pair_fusion is not None
+    grad = system.param_deriv(x, node)["interaction_param"]
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+
+
+def test_table_cotangent_has_its_c_entry_point():
+    """`table_cotangent` is a name `kernels.launch` calls, declared
+    `extern "C" int table_cotangent(` in csrc/table_cotangent.cu."""
+    assert "table_cotangent" in kernels.KERNELS
+    with open(os.path.join(kernels.CSRC, "table_cotangent.cu")) as fh:
+        assert 'extern "C" int table_cotangent(' in fh.read()
 
 
 def test_type_members():

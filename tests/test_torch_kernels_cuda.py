@@ -34,11 +34,21 @@ batched launch over identical slots; and K2 started cold (null warm-start
 pointers, as the energy-only evaluations of MC moves and replica swaps
 start it) after a warm call equals its first cold call bit for bit and
 the plain cold solve.  T4 lysozyme and GFP, past 128 residues and
-1,024 beads, evaluate on the card (K6 not launched, GFP no kernel at all)
-and match the port on the CPU in float64 at rel 1e-3.
+1,024 beads, evaluate on the card (K6 not launched, GFP only
+`gather_rows_bwd`) and match the port on the CPU in float64 at rel 1e-3.
+The spline tables' cotangent (`table_cotangent`, csrc/table_cotangent.cu)
+against its plain version in each of the five families at rel 1e-4, at
+1 and 37 replicas; pairs at the
+cutoff +- 1e-5 A taken or left as the plain version takes them; NaN/Inf
+in g at masked and past-cutoff slots leaving it unmoved bit for bit; the
+pair band's strided grid read in place; bitwise repeatable; one launch a
+band of the fused block, none with `plain`; T4 lysozyme's table
+gradients through K4 and K5 (`quadspline._table_grad`) with kernels
+against `kernels=False` at rel 1e-3.
 """
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -977,15 +987,16 @@ def test_cold_k2_after_warm_matches_plain(cuda):
 @pytest.mark.parametrize("name, launched", [
     ("t4_lysozyme_full_synth",
      {"quadspline_fwd", "quadspline_bwd", "colsum_fwd", "colsum_bwd"}),
-    ("gfp_full_synth", set())])
+    ("gfp_full_synth", {"gather_rows_bwd"})])
 def test_large_systems_on_the_card_match_the_host(cuda, name, launched):
     """T4 lysozyme (164 residues, 770 beads) and GFP (238 residues, 1,143
     beads) evaluate on the card: past 128 residues BP is the plain port of
     `_bp_solve`, so K6 does not launch; T4 lysozyme's grid and coverages
     are K5 and K4, GFP's are neighbour lists in plain PyTorch, so GFP
-    launches no kernel.  Energy and forces of two replicas in float32
-    against the port on the CPU in float64, both at BP tol 1e-6: rel
-    1e-3, forces as RMS relative error."""
+    launches only the backward of their row gather (`gather_rows_bwd`).
+    Energy and forces of two replicas in float32 against the port on the
+    CPU in float64, both at BP tol 1e-6: rel 1e-3, forces as RMS relative
+    error."""
     from upside_md_torch.config import bundle
     from upside_md_torch.ops import kernels
     from upside_md_torch.system import System
@@ -1005,3 +1016,210 @@ def test_large_systems_on_the_card_match_the_host(cuda, name, launched):
     g = g.double().cpu()
     assert ((g - g_h).pow(2).mean().sqrt()
             / g_h.pow(2).mean().sqrt()).item() < 1e-3
+
+
+# the tables of the five spline families of `pairs.quadspline_family`, by
+# their entry count M = 2 ka + 2 k
+COTANGENT_FAMILIES = (34, 30, 62, 54, 40)
+
+
+def cotangent_case(seed, M, n1=71, n2=135, n_rep=3, device=None,
+                   one_set=False):
+    """`fp.table_cotangent`'s operands (table, t1, t2, x1, x2, mask, g)
+    for a table of M entries: rows and columns along one random walk of
+    3.8 dx steps a replica, so that many pairs are live and some lie
+    within dx (the clamped end's stencil); n1 = 71 and n2 = 135 cut the
+    kernel's blocks of 2 rows and 32 columns raggedly.  `one_set`: the
+    rotamer grid's shape, one bead set of n2 both sides, the mask
+    upper-triangular across residues of two beads."""
+    _, _, dx = pairs.quadspline_family(M)
+    rng = np.random.default_rng(seed)
+    n_t = 5
+    table = _f32(0.5 * rng.normal(size=(3 if not one_set else n_t, n_t, M)),
+                 device)
+    t2 = rng.integers(0, n_t, n2)
+    if one_set:
+        n1, t1 = n2, t2
+        mask = rotamer_mask(np.arange(n2) // 2)
+    else:
+        t1 = rng.integers(0, 3, n1)
+        mask = rng.random((n1, n2)) > 0.2
+    x1, x2 = [], []
+    for _ in range(n_rep):
+        path = walk(rng, n2, 3.8 * dx)
+        x2.append(chain_sites(rng, path, n2, 1))
+        x1.append(x2[-1] if one_set else chain_sites(rng, path, n1, 1))
+    x1, x2 = _f32(np.concatenate(x1), device), _f32(np.concatenate(x2),
+                                                    device)
+    return (table, torch.tensor(t1, device=device),
+            torch.tensor(t2, device=device), x1, x1 if one_set else x2,
+            torch.tensor(mask, device=device),
+            _f32(rng.normal(size=(n_rep, n1, n2)), device))
+
+
+def cotangent_live(args):
+    """(B, n1, n2) the pairs `table_cotangent` takes: mask and s = dist /
+    dx below the family's cutoff."""
+    table, _, _, x1, x2, mask, _ = args
+    _, k, dx = pairs.quadspline_family(table.shape[-1])
+    with torch.no_grad():
+        dist = fp._geometry(x1, x2)[1]
+    return mask.bool() & (dist * (1.0 / dx) < k - 2 - 1e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", COTANGENT_FAMILIES)
+@pytest.mark.parametrize("n_rep", [1, 37])
+def test_table_cotangent_matches_plain(cuda, M, n_rep):
+    """`table_cotangent`'s kernel against its plain version in each
+    family at rel 1e-4 (max-normalised), one launch a call, bitwise equal
+    on a second call; 1 replica and 37."""
+    from upside_md_torch.ops import kernels
+    args = cotangent_case(20 + M, M, n_rep=n_rep, device=cuda)
+    assert cotangent_live(args).sum() > 50
+    before = kernels.LAUNCHES["table_cotangent"]
+    got = _repeatable(lambda: fp.table_cotangent(*args))[0]
+    assert kernels.LAUNCHES["table_cotangent"] == before + 2
+    want = fp.table_cotangent(*args, plain=True)
+    assert got.shape == want.shape == args[0].shape
+    assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", COTANGENT_FAMILIES)
+def test_table_cotangent_at_the_cutoff(cuda, M):
+    """Each replica holds one masked row-column pair at the family's
+    cutoff + 1e-5 A or - 1e-5 A (every other pair 1,000 A apart): the
+    kernel takes the pairs inside and leaves those outside, as the plain
+    version does: rel 1e-4, and the pairs outside add nothing (their
+    replicas' cotangents zeroed: bitwise the same)."""
+    _, k, dx = pairs.quadspline_family(M)
+    table, t1, t2, _, _, mask, g = cotangent_case(30 + M, M, n_rep=4,
+                                                  device=cuda)
+    n1, n2 = mask.shape
+    rng = np.random.default_rng(M)
+    x1, x2 = np.zeros((4, n1, 6)), np.zeros((4, n2, 6))
+    for x in (x1, x2):
+        d = rng.normal(size=x[..., 3:].shape)
+        x[..., 3:] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    x1[..., 0] = 1000.0 * (1 + np.arange(n1))
+    x2[..., 0] = -1000.0 * (1 + np.arange(n2))
+    u = np.array([0.3, -0.5, 1.0]) / np.linalg.norm([0.3, -0.5, 1.0])
+    p = np.array([2.0, -1.0, 0.5])
+    cut = (k - 2 - 1e-6) * dx
+    inside = [False, True, False, True]
+    live = np.argwhere(mask.cpu().numpy())
+    for r, (i, j) in enumerate(live[rng.choice(len(live), 4, False)]):
+        x1[r, i, :3] = p
+        x2[r, j, :3] = p + (cut + (-1e-5 if inside[r] else 1e-5)) * u
+    x1, x2 = _f32(x1, cuda), _f32(x2, cuda)
+    args = (table, t1, t2, x1, x2, mask, g)
+    taken = cotangent_live(args).any(-1).any(-1).cpu().tolist()
+    assert taken == inside
+    got = fp.table_cotangent(*args)
+    assert got.abs().max() > 0
+    assert _rel(got, fp.table_cotangent(*args, plain=True)) < 1e-4
+    g_in = g * torch.tensor(inside, device=cuda)[:, None, None]
+    assert torch.equal(got, fp.table_cotangent(*args[:-1], g_in))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", COTANGENT_FAMILIES)
+def test_table_cotangent_nan_in_dead_slots(cuda, M):
+    """NaN and Inf in g where the mask or the cutoff leaves a pair dead
+    leave the kernel's result unmoved, bit for bit."""
+    args = cotangent_case(40 + M, M, n_rep=5, device=cuda)
+    live = cotangent_live(args)
+    masked = args[5].bool()[None].expand_as(live)
+    assert live.any() and (masked & ~live).any() and (~masked).any()
+    g = args[-1]
+    bad = torch.where(torch.rand(g.shape, device=cuda) < 0.5,
+                      torch.full_like(g, math.nan),
+                      torch.full_like(g, math.inf))
+    poisoned = torch.where(live, g, bad)
+    clean = fp.table_cotangent(*args)
+    assert torch.isfinite(clean).all()
+    assert torch.equal(fp.table_cotangent(*args[:-1], poisoned), clean)
+
+
+@pytest.mark.requires_cuda
+def test_table_cotangent_reads_a_strided_grid(cuda):
+    """The pair band's operand as the fused block passes it, g_grid[:,
+    :n2, :n2] of a padded (B, n2p, n2p) grid, on the rotamer grid's shape
+    (one bead set both sides): bitwise equal to the kernel on its
+    contiguous copy, and to the plain version at rel 1e-4."""
+    table, t1, t2, x1, x2, mask, _ = cotangent_case(50, 34, n_rep=6,
+                                                    device=cuda, one_set=True)
+    n = x1.shape[1]
+    grid = torch.randn((6, 160, 160), device=cuda)
+    view = grid[:, :n, :n]
+    assert not view.is_contiguous()
+    args = (table, t1, t2, x1, x2, mask)
+    got = fp.table_cotangent(*args, view)
+    assert torch.equal(got, fp.table_cotangent(*args, view.contiguous()))
+    assert _rel(got, fp.table_cotangent(*args, view, plain=True)) < 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_block_table_cotangents_launch_per_band(cuda):
+    """`fp.block_table_cotangents` of the fused block's three spline
+    bands (the coverage bands' w1 g_cov products, the pair band's strided
+    grid): one launch a band, each against `plain=True` at rel 1e-4; a
+    float64 call on the card raises without `plain`."""
+    from upside_md_torch.ops import kernels
+    prep, (x1, w1, x2, wcol) = fused_case(3, True, 3.8, cuda)
+    tabs = [_f32(t, cuda) for t in fused_problem(np.random.default_rng(3))[0]]
+    B = x1.shape[0]
+    g_cov = torch.randn((B, 2, prep.n2), device=cuda)
+    g_grid = torch.randn((B, prep.n2p, prep.n2p), device=cuda)
+    g_env = torch.randn((B, prep.n_e), device=cuda)
+    args = (prep, (True, True, True, False), tabs + [None], x1, w1, x2,
+            wcol, g_cov, g_grid, g_env)
+    before = kernels.LAUNCHES["table_cotangent"]
+    got = fp.block_table_cotangents(*args)
+    assert kernels.LAUNCHES["table_cotangent"] == before + 3
+    want = fp.block_table_cotangents(*args, plain=True)
+    assert kernels.LAUNCHES["table_cotangent"] == before + 3
+    assert got[3] is None and want[3] is None
+    for a, b in zip(got[:3], want[:3]):
+        assert b.abs().max() > 0
+        assert _rel(a, b) < 1e-4
+    c = cotangent_case(60, 34, device=cuda)
+    c64 = [t.double() if t.is_floating_point() else t for t in c]
+    with pytest.raises(ValueError):
+        fp.table_cotangent(*c64)
+    assert _rel(fp.table_cotangent(*c64, plain=True),
+                fp.table_cotangent(*c, plain=True)) < 1e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("node", ["rotamer", "hbond_coverage"])
+def test_unfused_table_gradient_matches_plain(cuda, node):
+    """Past the fused block's caps (T4 lysozyme: K5's rotamer grid, K4's
+    coverages) a table's gradient takes `quadspline._table_grad`:
+    `System.param_deriv` of two replicas with kernels, which launches
+    `table_cotangent` once, against `kernels=False` (no launch) at rel
+    1e-3, BP run 100 sweeps with its convergence test off so that both
+    take the same schedule."""
+    from upside_md_torch.config import bundle
+    from upside_md_torch.ops import kernels
+    from upside_md_torch.system import System
+    specs, pos = bundle.load(os.path.join(DATA_DIR,
+                                          "t4_lysozyme_full_synth.npz"))
+    for s in specs:
+        if s.type_name == "rotamer":
+            s.consts["tol"] = -1.0
+            s.consts["max_iter"] = 100
+    x = np.stack([pos, pos]) + 0.05 * np.random.default_rng(6).normal(
+        size=(2,) + pos.shape)
+    x = torch.tensor(x, dtype=torch.float32, device=cuda)
+    card = System(len(pos), specs, cuda)
+    plain = System(len(pos), specs, cuda, kernels=False)
+    assert card.pair_fusion is None
+    kernels.reset_counts()
+    got = card.param_deriv(x, node)["interaction_param"]
+    assert kernels.LAUNCHES["table_cotangent"] == 1
+    want = plain.param_deriv(x, node)["interaction_param"]
+    assert kernels.LAUNCHES["table_cotangent"] == 1
+    assert want.abs().max() > 0
+    assert _rel(got, want) < 1e-3

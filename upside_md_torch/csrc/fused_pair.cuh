@@ -1,5 +1,6 @@
-// Shared device helpers of the fused pair kernels (fused_pair_fwd.cu,
-// fused_pair_bwd.cu).  Tile sizes must match ops/kernels.py.
+// Shared device helpers of the pair kernels (fused_pair_fwd.cu,
+// fused_pair_bwd.cu, quadspline.cu, table_cotangent.cu).  Tile sizes must
+// match ops/kernels.py.
 #pragma once
 #include <cuda_runtime.h>
 

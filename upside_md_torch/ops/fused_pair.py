@@ -49,9 +49,11 @@ walks only the tiles its forward found live pairs in.
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
-(csrc/fused_pair_fwd.cu, fused_pair_bwd.cu) for CUDA tensors.  Table
-cotangents (`table_cotangent`, `env_table_cotangent`) are plain PyTorch,
-as the JAX package computes them in XLA outside any kernel.
+(csrc/fused_pair_fwd.cu, fused_pair_bwd.cu) for CUDA tensors.  So does
+the spline tables' cotangent (`table_cotangent`: the kernel of
+csrc/table_cotangent.cu, which the JAX package computes in XLA outside any
+kernel).  The env table's cotangent (`env_table_cotangent`) is plain
+PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -522,28 +524,62 @@ def unpack_residuals(prep, packed):
 
 
 # ---------------------------------------------------------------------------
-# table cotangents (plain PyTorch, as the JAX package computes them in XLA)
+# table cotangents: the spline tables' by kernel (csrc/table_cotangent.cu)
+# on the card, their plain version, the env table's plain on either device
+# (the JAX package computes them in XLA)
 # ---------------------------------------------------------------------------
 
-# replicas per chunk of `table_cotangent`: at ubiquitin size (374 x 374
-# bead pairs, M = 34 table entries) one replica's window weights, gathered
-# table rows and products take ~130 floats per pair, ~70 MB in float32, so
-# a chunk of 8 holds ~0.6 GB
+# replicas per chunk of `table_cotangent_plain`: at ubiquitin size (374 x
+# 374 bead pairs, M = 34 table entries) one replica's window weights,
+# gathered table rows and products take ~130 floats per pair, ~70 MB in
+# float32, so a chunk of 8 holds ~0.6 GB
 COTANGENT_CHUNK = 8
 
 
-def table_cotangent(table, t1, t2, x1, x2, mask, g):
+def table_cotangent(table, t1, t2, x1, x2, mask, g, plain=False):
     """d(sum g * value)/d(table) of a pair-spline table (n_t1, n_t2,
     2 ka + 2 k), summed over replicas: port of `_table_cotangent`
     (pallas_quadspline.py:753).  x1 (B, n1, >=6) and x2 (B, n2, >=6) are
     the row and column sites, t1 (n1,) and t2 (n2,) their types, mask
     (n1, n2) the call site's mask and g (B, n1, n2) the pair cotangent.
     The cotangent is selected, never multiplied, by mask AND inside the
-    table's own cutoff.  Each pair's window weights and the table row it
-    reads give its (M,) cotangent, summed over the replica chunks; then a
-    (type1, type2) entry sums its pairs in the same order on every run
-    (`sum_by_type`): the `index_add_` it replaces summed with float
-    atomics on the card, in an order that varies run to run."""
+    table's own cutoff.  Each pair's (M,) cotangent summed over the
+    replicas, then by (type1, type2) (`sum_by_type`), each in the same
+    order on every run.  The kernel (csrc/table_cotangent.cu) forms the
+    pairs' sums on CUDA tensors, the plain version
+    (`table_cotangent_plain`) on CPU ones or when `plain`."""
+    if plain or table.device.type != "cuda":
+        return table_cotangent_plain(table, t1, t2, x1, x2, mask, g)
+    from .pairs import quadspline_family
+    ka, k, dx = quadspline_family(table.shape[-1])
+    A, Bt, M = table.shape
+    B, n1, n2 = g.shape
+    for t in (table, x1, x2, g):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError("table_cotangent: the kernel takes float32 "
+                             "CUDA tensors")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask.to(torch.uint8)
+    t1, t2 = t1.long().contiguous(), t2.long().contiguous()
+    out = g.new_empty((M, n1, n2))
+    # the sites component-major, (B, 6, n): a warp's columns read each
+    # component in one coalesced load
+    sites = [x[..., :6].transpose(1, 2).contiguous() for x in (x1, x2)]
+    kernels.launch("table_cotangent", table.detach().contiguous(), t1, t2,
+                   *sites, mask.contiguous(), g, B, n1, n2, Bt, g.stride(0),
+                   g.stride(1), ka, k, 1.0 / dx, (ka - 3) / 2.0,
+                   k - 2 - 1e-6, out)
+    return sum_by_type(out.permute(1, 2, 0), t1, t2, A, Bt)
+
+
+def table_cotangent_plain(table, t1, t2, x1, x2, mask, g):
+    """`table_cotangent` in PyTorch: each pair's window weights and the
+    table row it reads give its (M,) cotangent, summed over the replica
+    chunks; then a (type1, type2) entry sums its pairs in the same order
+    on every run (`sum_by_type`): the `index_add_` it replaces summed with
+    float atomics on the card, in an order that varies run to run."""
     from .pairs import quadspline_family
     from .spline import bspline_window_weights
     ka, k, dx = quadspline_family(table.shape[-1])
@@ -619,11 +655,12 @@ def env_table_cotangent(tab4, t1e, t2e, me, x1e, wcol, xb, g_env):
 
 
 def block_table_cotangents(prep, needed, tabs, x1, w1, x2, wcol, g_cov,
-                           g_grid, g_env):
+                           g_grid, g_env, plain=False):
     """Cotangents of (tab1, tab2, tab3, tab4) where `needed` says so, else
     None.  Pair cotangents as `_fused_bwd_rule` / `_fused_env_bwd_rule`
     form them (:1943-1952, :2215-2227): w1 g_cov on the coverage bands,
-    the grid cotangent cut to the beads on the pair band."""
+    the grid cotangent cut to the beads on the pair band (a strided view,
+    which the kernel reads in place).  `plain` as `table_cotangent`."""
     A1, A2 = prep.type_rows
     rt, ct, mask = prep.row_type.long(), prep.col_type, prep.mask
     n2 = prep.n2
@@ -640,7 +677,7 @@ def block_table_cotangents(prep, needed, tabs, x1, w1, x2, wcol, g_cov,
             with tracing.span("cotangent.table"):
                 out[i] = table_cotangent(tabs[i], rt[lo:hi] - off, ct[b],
                                          x1[:, lo:hi], x2, mask[lo:hi],
-                                         pair_g())
+                                         pair_g(), plain)
     if needed[3]:
         with tracing.span("cotangent.env_table"):
             out[3] = env_table_cotangent(
@@ -841,7 +878,7 @@ class FusedPairBlock(torch.autograd.Function):
                                               g_grid, g_env, ctx.plain)
         dtabs = block_table_cotangents(prep, ctx.needs_input_grad[4:8], tabs,
                                        x1, w1, x2, wcol, g_cov, g_grid,
-                                       g_env)
+                                       g_env, ctx.plain)
         return (d1[..., :6], d1[..., 6], d2[..., :6], d2[..., 6], *dtabs,
                 None, None, None)
 

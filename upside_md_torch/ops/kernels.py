@@ -36,7 +36,7 @@ BUILD = os.path.join(PKG, "_build")
 KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "fused_pair_bwd_recompute",
            "bp_bethe_pairs", "quadspline_fwd", "quadspline_bwd",
            "colsum_fwd", "colsum_bwd", "bp_bethe_planes",
-           "gather_rows_bwd")
+           "gather_rows_bwd", "table_cotangent")
 # tile of the fused pair kernels (must match csrc/fused_pair.cuh)
 TILE_ROWS = 32
 TILE_COLS = 32

@@ -20,9 +20,10 @@ for K4 column 6 of d1 holds d/dw1.  Cotangents are selected, never
 multiplied, by mask AND inside-cutoff.
 
 The table cotangent (`_table_cotangent`, :753, XLA in the JAX package) is
-plain PyTorch (`fused_pair.table_cotangent`), computed only when the table
-requires grad (training): the pair cotangent is g for K5 (:790-798) and
-w1[i] g[j] for K4 (:900-916).
+`fused_pair.table_cotangent` (the kernel of csrc/table_cotangent.cu on
+CUDA tensors, its plain version on CPU ones or when `plain`), computed
+only when the table requires grad (training): the pair cotangent is g for
+K5 (:790-798) and w1[i] g[j] for K4 (:900-916).
 
 The wrappers take the plain version for CPU tensors (or when asked with
 `plain=True`, for comparisons on the card) and launch the CUDA kernels
@@ -377,7 +378,7 @@ def _table_grad(ctx, index, table, x1, x2, g_pair):
     ps = ctx.ps
     with tracing.span("cotangent.table"):
         return table_cotangent(table, ps.t1, ps.t2, x1, x2, ps.mask,
-                               g_pair())
+                               g_pair(), ctx.plain)
 
 
 class QuadSpline(torch.autograd.Function):
