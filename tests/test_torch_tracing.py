@@ -12,6 +12,9 @@ bundle (the card's CUDA events are not exercised here):
 * a `Simulation.advance` chunk is bitwise the same with spans on and off;
 * `kernels.LAUNCHES` and `bp_pairs.HOST_SYNCS` are the recorder's
   counters, and every host sync is a span;
+* the neighbour lists (thresholds lowered): each list's span, its nested
+  build, its backward span and its count, no host sync added and forces
+  bitwise the same with spans on; the dense paths open no list span;
 * a training step's spans, and `write_chrome`'s file.
 """
 
@@ -19,6 +22,7 @@ import json
 import os
 import time
 import tracemalloc
+import types
 
 import pytest
 import torch
@@ -198,6 +202,66 @@ def test_counters_are_the_recorders(trp):
     m0 = bp_pairs.HOST_SYNCS["bp_solve_plain"]
     system.deriv(pos[None])                       # off: counted, no span
     assert bp_pairs.HOST_SYNCS["bp_solve_plain"] > m0
+
+
+# the neighbour lists' sites on trp-cage once their thresholds are lowered
+LIST_SITES = ("rotamer", "hbond_coverage", "hbond_coverage_hydrophobe")
+
+
+def lists_system(monkeypatch, lists=True):
+    """trp-cage without its fused block: on the neighbour lists (their
+    thresholds lowered below its 96 beads and columns; read at call time)
+    or on the dense unfused path."""
+    from upside_md_torch import system as psystem
+    from upside_md_torch.nodes import hbond, rotamer
+    monkeypatch.setattr(psystem, "plan_pair_fusion", lambda specs: None)
+    if lists:
+        monkeypatch.setattr(rotamer, "NEIGHBOR_LIST_THRESHOLD", 64)
+        monkeypatch.setattr(hbond, "COVERAGE_NL_THRESHOLD", 64)
+    return System.from_bundle(TRP, "cpu")
+
+
+def changed(before):
+    return {k: v - before.get(k, 0) for k, v in tracing.counters().items()
+            if v != before.get(k, 0)}
+
+
+def test_neighbour_list_spans_and_counter(monkeypatch):
+    """One `deriv` builds three lists, each counted once and spanned
+    `nlist.<site>` inside its node's span, with its build nested
+    (`nlist.build`) and a backward span; the spans add no host sync and
+    leave energy and forces bitwise unchanged."""
+    system, pos = lists_system(monkeypatch)
+    x = pos[None] + 0.05 * torch.randn(
+        (2,) + tuple(pos.shape), generator=torch.Generator().manual_seed(5))
+    before = tracing.counters()
+    g0, e0, _ = system.deriv(x)
+    off = changed(before)
+    on = []
+    w = window_of(lambda: on.append(system.deriv(x)))
+    assert torch.equal(g0, on[0][0]) and torch.equal(e0, on[0][1])
+    assert {k: n for k, n in off.items() if k.startswith("nlist.")} == {
+        f"nlist.{s}": 1 for s in LIST_SITES}
+    # the same counters move, host syncs included, with the spans on
+    assert w.counters == off
+    assert off["sync.bp_solve_plain"] > 0
+    for s in LIST_SITES:
+        assert w.spans[f"nlist.{s}"].calls == 1, s
+        assert w.spans[f"nlist.{s}.bwd"].calls == 1, s
+        assert w.children[(f"node.{s}", f"nlist.{s}")].calls == 1, s
+        assert w.children[(f"nlist.{s}", "nlist.build")].calls == 1, s
+    assert w.spans["nlist.build"].calls == len(LIST_SITES)
+    assert tracing.is_user_annotation(types.SimpleNamespace(
+        name="nlist.rotamer"))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_dense_paths_open_no_list_span(trp, monkeypatch, fused):
+    system, pos = trp if fused else lists_system(monkeypatch, lists=False)
+    before = tracing.counters()
+    w = window_of(lambda: system.deriv(pos[None]))
+    assert not any(n.startswith("nlist.") for n in w.spans)
+    assert not any(k.startswith("nlist.") for k in changed(before))
 
 
 def test_training_step_spans_and_chrome_file(trp, tmp_path):

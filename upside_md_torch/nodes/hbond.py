@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.pairs import (quadspline_coverage_nl, quadspline_family,
                          scatter_rows)
 from ..ops.quadspline import PairSpline, quadspline_colsum
@@ -107,7 +108,8 @@ def _hbond_coverage(c, p, inputs, ctx):
 
     def colsum(table, x1, x2, w1):
         if x2.shape[1] > COVERAGE_NL_THRESHOLD:
-            return coverage_nl(c, table, x1, x2, w1, ctx.plain)
+            return coverage_nl(c, table, x1, x2, w1, ctx.plain,
+                               ctx.node_name)
         return quadspline_colsum(c["spline"], table, x1, x2, w1, ctx.plain)
 
     args = (p["interaction_param"], hb_nodes[..., :6], sc[..., :6],
@@ -117,20 +119,25 @@ def _hbond_coverage(c, p, inputs, ctx):
     return cov.unsqueeze(-1)
 
 
-def coverage_nl(c, table, x1, x2, w1, plain=False):
+def coverage_nl(c, table, x1, x2, w1, plain=False, site="hbond_coverage"):
     """The coverage (B, n2) from the neighbour list (hbond.py:139-148):
     w1[i] times the pair value at each row's COVERAGE_NEIGHBOR_K nearest
     in-cutoff columns, summed by column.  The values go back on the dense
     (B, n1, n2) grid (`scatter_rows`: a row's kept columns are distinct,
     so no two values meet) and each column sums its rows in a fixed
     order; a scatter_add into the columns would sum with float atomics on
-    the card, in an order that varies run to run."""
+    the card, in an order that varies run to run.  Spanned and counted as
+    the list `site`, the coverage node's name (`tracing.py`)."""
     ka, k, dx = quadspline_family(table.shape[-1])
-    cov, idx, mask = quadspline_coverage_nl(
-        table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
-        x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
-        c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K, plain=plain)
-    return scatter_rows(w1[..., None] * cov, idx, mask, x2.shape[1]).sum(1)
+
+    def compute():
+        cov, idx, mask = quadspline_coverage_nl(
+            table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
+            x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
+            c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K, plain=plain)
+        return scatter_rows(w1[..., None] * cov, idx, mask,
+                            x2.shape[1]).sum(1)
+    return tracing.neighbour_list_span(site, compute)
 
 
 infer_H_O = register_node("infer_H_O", False, _infer_h_o)

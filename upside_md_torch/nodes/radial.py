@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.pairs import (gather_rows, neighbor_list, sequence_exclusion_mask,
                          type_members)
 from ..ops.sigmoid import compact_sigmoid
@@ -66,15 +67,19 @@ def _radial_dense(c, table, x, stacked):
 
 
 def _radial_neighbours(c, table, x, plain=False):
-    # the largest cutoff of the table bounds every pair's (a tensor: no
-    # host sync)
-    reach = (table.shape[-1] - 3 - 1e-6) / table[..., 0].detach().min()
-    idx, kept = neighbor_list(x, x, reach * reach, c["pair_mask"],
-                              min(x.shape[1], NEIGHBOR_K))
-    t = c["type"]
-    p = table[t[None, :, None], t[idx]]                  # (B, n, K, 17)
-    disp = x[:, :, None, :] - gather_rows(x, idx, kept, plain)
-    return radial_energy(p, disp, kept).sum((-1, -2))
+    """The energy (B,) on the neighbour list, spanned and counted as the
+    list `radial` (`tracing.py`)."""
+    def compute():
+        # the largest cutoff of the table bounds every pair's (a tensor:
+        # no host sync)
+        reach = (table.shape[-1] - 3 - 1e-6) / table[..., 0].detach().min()
+        idx, kept = neighbor_list(x, x, reach * reach, c["pair_mask"],
+                                  min(x.shape[1], NEIGHBOR_K))
+        t = c["type"]
+        p = table[t[None, :, None], t[idx]]              # (B, n, K, 17)
+        disp = x[:, :, None, :] - gather_rows(x, idx, kept, plain)
+        return radial_energy(p, disp, kept).sum((-1, -2))
+    return tracing.neighbour_list_span("radial", compute)
 
 
 def _radial(c, p, inputs, ctx):

@@ -41,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.bp_pairs import (EPS, MAX_RES, NROT, bp_bethe_pairs,
                             bp_solve_plain, make_statics, node_potentials,
                             scatter_pairs)
@@ -101,7 +102,8 @@ def assemble_pair_grid(c, p, beads, plain=False, stacked=False):
     residues, within the family's cutoff (rotamer.py:208-236), and the
     pairs the neighbour list kept (None on the dense path).  Up to
     NEIGHBOR_LIST_THRESHOLD beads K5 computes the grid; above, the
-    neighbour list.  A table `stacked` over replicas runs once a slot."""
+    neighbour list, spanned and counted as the list `rotamer`
+    (`tracing.py`).  A table `stacked` over replicas runs once a slot."""
     n = beads.shape[1]
 
     def dense(table, b):
@@ -116,7 +118,10 @@ def assemble_pair_grid(c, p, beads, plain=False, stacked=False):
         return (scatter_rows(cov, idx, mask, n),
                 scatter_rows(mask.to(cov.dtype), idx, mask, n) > 0)
 
-    grid = neighbours if n > NEIGHBOR_LIST_THRESHOLD else dense
+    def listed(table, b):
+        return tracing.neighbour_list_span("rotamer", neighbours, table, b)
+
+    grid = listed if n > NEIGHBOR_LIST_THRESHOLD else dense
     table = p["interaction_param"]
     out = per_slot(grid, table, beads) if stacked else grid(table, beads)
     return out if isinstance(out, tuple) else (out, None)

@@ -7,8 +7,10 @@ The neighbour list is plain PyTorch, as the reference is XLA there: no
 Pallas body exists for it.  The backward of its row gather
 (`gather_rows`) is a kernel of the port's own, `gather_rows_bwd`
 (csrc/gather_rows.cu): a sum in a fixed order where `index_select`'s
-backward added with float atomics.  Every array carries the replica axis
-first, (B, n1, K); tables and static masks are shared across replicas.
+backward added with float atomics.  The nodes run each list inside
+`tracing.neighbour_list_span`; its build is spanned `nlist.build`.  Every
+array carries the replica axis first, (B, n1, K); tables and static masks
+are shared across replicas.
 """
 
 from __future__ import annotations
@@ -160,8 +162,8 @@ def neighbor_list(pos1, pos2, cutoff2, base_mask, K):
     squared distance is below cutoff2.  A row with more than K such
     partners drops the farthest, as the reference does.  Returns (idx (B,
     n1, K) int64, mask (B, n1, K) bool); the order within a row is not
-    defined."""
-    with torch.no_grad():
+    defined.  Spanned `nlist.build` (`tracing.py`)."""
+    with torch.no_grad(), tracing.span("nlist.build"):
         d2, ok = _in_cutoff(pos1, pos2, cutoff2, base_mask)
         near, idx = torch.topk(torch.where(ok, d2, torch.full_like(d2, FAR)),
                                K, dim=-1, largest=False)

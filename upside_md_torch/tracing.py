@@ -11,7 +11,8 @@
 **Counters** count always: `count(name, n)` adds to a host integer and
 never touches the device.  `kernel.<k>` counts in `LAUNCHES[k]` (each
 call of `ops/kernels.launch`), `sync.<site>` in `HOST_SYNCS[site]` (each
-host read of device data, `sync`).
+host read of device data, `sync`), `nlist.<site>` in `LISTS_BUILT[site]`
+(each fixed-K neighbour list built, `neighbour_list_span`).
 
 **Spans** record only while the recorder is on: after `enable()`, and
 while a `torch.profiler` collects (`torch._C._autograd._profiler_enabled`).
@@ -44,7 +45,18 @@ together, in the reverse order of their forward, so the span ends when
 the next backward span opens on its thread, or when the backward pass
 ends.  (Markers on the inputs as well, to end it there, would make
 autograd sum an input's cotangents in another grouping, and so change
-forces in the last bit.)
+forces in the last bit.)  So a backward span opened inside a node's
+backward, such as a neighbour list's, ends that node's backward span
+there: the node's backward reads as two spans in turn, not nested.
+
+**Neighbour lists**.  `neighbour_list_span(site, compute, *args)` runs one
+fixed-K neighbour list's whole forward (`ops/pairs.py`: the list's build,
+the row gather, the spline on the list, the scatter back) in the span
+`nlist.<site>`, with the build in a nested `nlist.build`, its output
+through the backward marker `nlist.<site>.bwd`, and counts it in
+`nlist.<site>`.  The sites: `rotamer` (the bead grid past 1,024 beads),
+the coverage node's name (`hbond_coverage`, `hbond_coverage_hydrophobe`,
+past 1,024 columns) and `radial` (past 1,024 probes).
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ import torch
 
 LAUNCHES = {}      # hand-written kernel calls by kernel (`kernel.<k>`)
 HOST_SYNCS = {}    # host reads of device data by site (`sync.<site>`)
-_GROUPS = {"kernel": LAUNCHES, "sync": HOST_SYNCS}
+LISTS_BUILT = {}   # fixed-K neighbour lists built by site (`nlist.<site>`)
+_GROUPS = {"kernel": LAUNCHES, "sync": HOST_SYNCS, "nlist": LISTS_BUILT}
 
 # spans whose raw records a window keeps for `write_chrome`; past it the
 # window keeps its sums alone
@@ -83,14 +96,16 @@ _queued = False    # an end-of-backward callback is queued
 
 
 def count(name, n=1):
-    """Add n to the counter `name`, `kernel.<k>` or `sync.<site>`."""
+    """Add n to the counter `name`, `kernel.<k>`, `sync.<site>` or
+    `nlist.<site>`."""
     group, _, key = name.partition(".")
     d = _GROUPS[group]
     d[key] = d.get(key, 0) + n
 
 
 def counters():
-    """Every counter, flat: {"kernel.<k>": n, "sync.<site>": n}."""
+    """Every counter, flat: {"kernel.<k>": n, "sync.<site>": n,
+    "nlist.<site>": n}."""
     return {f"{g}.{k}": v for g, d in _GROUPS.items() for k, v in d.items()}
 
 
@@ -129,6 +144,22 @@ def sync(site):
     name = "sync." + site
     count(name)
     return span(name)
+
+
+def neighbour_list_span(site, compute, *args):
+    """compute(*args), one neighbour list's whole forward, counted in
+    `nlist.<site>` and, while on, in the span `nlist.<site>`; its output,
+    a tensor or a tuple whose first entry is the list's values, passes
+    that tensor through the backward marker `nlist.<site>.bwd`."""
+    name = "nlist." + site
+    count(name)
+    bwd = backward_span(name + ".bwd")
+    with span(name):
+        out = compute(*args)
+        if bwd is not None:
+            out = (bwd(out[0]),) + out[1:] if isinstance(out, tuple) \
+                else bwd(out)
+    return out
 
 
 def enable():
@@ -188,7 +219,7 @@ def is_user_annotation(event):
 
 # the first part of every span name the program opens
 _KINDS = frozenset(("md", "node", "fused_pair", "bp", "kernel", "kernels",
-                    "sync", "train", "cotangent", "io"))
+                    "sync", "train", "cotangent", "io", "nlist"))
 
 
 # ---------------------------------------------------------------------------
