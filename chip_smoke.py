@@ -164,8 +164,9 @@ the bundle's seed.  Phases:
    versions (phase 4's tolerances, tile decisions equal to `cull_tiles`,
    device time by launch, bounds, the plain versions' time), MD at 64
    and 512 replicas; `[large gfp]` a whole evaluation on the card in
-   float32 against the port on the CPU in float64 (the one kernel on this
-   path, `gather_rows_bwd`, sums in the plain version's order; same
+   float32 against the port on the CPU in float64 (the kernels on this
+   path: the lists' pair spline, `nlist_spline_fwd` and `nlist_spline_bwd`,
+   and `gather_rows_bwd`, which sums in the plain version's order; same
    limits), MD at 64 replicas, for the rotamer grid and both
    coverages the largest in-cutoff partner count of a row beside the
    list's width K, and the device time of an evaluation's three
@@ -178,7 +179,15 @@ the bundle's seed.  Phases:
    that they come from HBM; the bound over the list's kept slots, and its
    launches an MD evaluation), and beside it the whole gather, forward and backward, as
    `gather_rows`, as the former `index_select` and as advanced indexing
-   (whose CUDA backward sorts).  Each MD: 2 warm-up rounds, 3 x 3 timed rounds
+   (whose CUDA backward sorts); `[gather gfp] nlist_spline` the lists'
+   pair spline on each list at the same positions: the whole list call,
+   values and gradients, against `plain=True` (the window-weight chain;
+   rel NLIST_TOL), each kernel bitwise equal on a second launch, and each
+   kernel's time (a wrapper call, device time, on copies of its operands
+   in turn) beside the plain chain's (its forward under no_grad, the list's
+   build included; its backward through autograd) and the bound (the
+   list's index, mask, cotangent and outputs moved once; 80 operations a
+   live pair forward, 150 backward).  Each MD: 2 warm-up rounds, 3 x 3 timed rounds
    (steps/s, mean BP sweeps and host syncs of the plain solve an
    evaluation, peak memory), then 2 rounds under `torch.profiler` (device
    time an evaluation, idle share, the plain solve's share of device
@@ -376,15 +385,23 @@ KERNEL_INFO = {
         "upside_md_torch/csrc/table_cotangent.cu",
         "none (XLA `_table_cotangent`, "
         "upside_md_tpu/ops/pallas_quadspline.py:753)"),
+    # no TPU kernel: the JAX package evaluates the spline on its lists in XLA
+    "nlist_spline_fwd": ("upside_md_torch/csrc/nlist_spline.cu",
+                         "none (XLA `quadspline_coverage_nl`, "
+                         "upside_md_tpu/ops/pairs.py:82-121)"),
+    "nlist_spline_bwd": ("upside_md_torch/csrc/nlist_spline.cu",
+                         "none (XLA autodiff of `quadspline_coverage_nl`, "
+                         "upside_md_tpu/ops/pairs.py:82-121)"),
 }
 FUSED_KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "bp_bethe_pairs")
 UNFUSED_KERNELS = ("quadspline_fwd", "quadspline_bwd", "colsum_fwd",
                    "colsum_bwd", "bp_bethe_planes")
 # T4 lysozyme's path: K4 and K5; its BP is the plain solve, past K6's cap
 LARGE_KERNELS = UNFUSED_KERNELS[:4]
-# GFP's path: the neighbour lists' row gather
-GFP_KERNELS = ("gather_rows_bwd",)
+# GFP's path: the neighbour lists' pair spline and their column sums
+GFP_KERNELS = ("gather_rows_bwd", "nlist_spline_fwd", "nlist_spline_bwd")
 GATHER_TOL = 1e-6      # gather_rows_bwd against its plain version, rel
+NLIST_TOL = 1e-4       # the lists' pair spline against the plain chain, rel
 ROTATE_BYTES = 150e6   # a timed kernel's operands in turn: 3x the 50 MB L2
 NOENV_KERNELS = ("fused_pair_fwd", "fused_pair_bwd_recompute",
                  "bp_bethe_pairs")
@@ -2606,30 +2623,51 @@ def large_nl(path, dev, pos, device_ms_per_eval):
     torch.cuda.empty_cache()
     return out
 
+def nl_sites(system, outs):
+    """GFP's three neighbour lists' operands as the nodes form them:
+    [(name, t1, t2, the call site's `PairSpline`, table, x1 (B, n1, 6), x2
+    (B, n2, 6), K)]; the rotamer grid's x1 is its x2."""
+    from upside_md_torch.nodes import hbond, rotamer
+    covs, (c, p, beads, _) = unfused_operands(system, outs)
+    sites = [(name, system.consts[name]["type1"],
+              system.consts[name]["type2"], cps, table, x1, x2,
+              hbond.COVERAGE_NEIGHBOR_K)
+             for name, cps, table, x1, x2, _ in covs]
+    sites.append(("rotamer", c["type"], c["type"], c["spline"],
+                  p["interaction_param"], beads, beads,
+                  min(beads.shape[1], rotamer.NEIGHBOR_K)))
+    return sites
+
+
+def nl_call(site, plain=False, cot=None):
+    """One list of `nl_sites` through `quadspline_coverage_nl` (the rotamer
+    grid's one bead set on both sides): (values, idx, mask), and with `cot`
+    (B, n1, K) the gradients of its sites (x1, and x2 unless one set)."""
+    import torch
+    from upside_md_torch.ops.pairs import (quadspline_coverage_nl,
+                                           quadspline_family)
+    _, t1, t2, ps, table, x1, x2, K = site
+    ka, k, dx = quadspline_family(table.shape[-1])
+    leaves = [x.detach().requires_grad_(cot is not None)
+              for x in ((x1,) if x2 is x1 else (x1, x2))]
+    sides = [(x[..., 0:3], x[..., 3:6]) for x in leaves]
+    with torch.set_grad_enabled(cot is not None):
+        out = quadspline_coverage_nl(
+            table, t1, t2, *sides[0], *sides[-1], ka, k, 1.0 / dx,
+            ps.mask.bool(), K, plain=plain, spline=ps)
+        if cot is None:
+            return out
+        return out + torch.autograd.grad((out[0] * cot).sum(), leaves)
+
+
 def gather_lists(system, outs):
     """GFP's three neighbour lists as the nodes form them, through
     `quadspline_coverage_nl`: [(name, the gathered column rows (B, n2, 6),
     idx, mask)]."""
-    import torch
-    from upside_md_torch.nodes import hbond, rotamer
-    from upside_md_torch.ops.pairs import (quadspline_coverage_nl,
-                                           quadspline_family)
-    covs, (c, p, beads, _) = unfused_operands(system, outs)
-    sites = [(name, system.consts[name]["type1"],
-              system.consts[name]["type2"], cps.mask, table, x1, x2,
-              hbond.COVERAGE_NEIGHBOR_K)
-             for name, cps, table, x1, x2, _ in covs]
-    sites.append(("rotamer", c["type"], c["type"], c["spline"].mask,
-                  p["interaction_param"], beads, beads,
-                  min(beads.shape[1], rotamer.NEIGHBOR_K)))
     out = []
-    for name, t1, t2, mask, table, x1, x2, K in sites:
-        ka, k, dx = quadspline_family(table.shape[-1])
-        with torch.no_grad():
-            _, idx, kept = quadspline_coverage_nl(
-                table, t1, t2, x1[..., 0:3], x1[..., 3:6], x2[..., 0:3],
-                x2[..., 3:6], ka, k, 1.0 / dx, mask.bool(), K)
-        out.append((name, x2[..., :6], idx, kept))
+    for site in nl_sites(system, outs):
+        _, idx, kept = nl_call(site)
+        out.append((site[0], site[6][..., :6], idx, kept))
     return out
 
 
@@ -2652,21 +2690,32 @@ def indexed_rows(x, idx, mask, plain=False):
         idx.shape + x.shape[2:])
 
 
+def plain_list(*args, plain=False, spline=None):
+    """`quadspline_coverage_nl` as before its kernels: the plain chain."""
+    from upside_md_torch.ops.pairs import quadspline_coverage_nl_plain
+    return quadspline_coverage_nl_plain(*args, plain=plain)
+
+
 class former_gather:
-    """Within it, the neighbour lists gather their rows by
-    `index_select_rows`, as before `gather_rows` (for printed
-    comparisons)."""
+    """Within it, the neighbour lists are the plain chain and gather their
+    rows by `index_select_rows`, as before `gather_rows` and the lists'
+    kernels (for printed comparisons)."""
 
     def __enter__(self):
-        from upside_md_torch.nodes import radial
+        from upside_md_torch.nodes import hbond, radial, rotamer
         from upside_md_torch.ops import pairs
-        self.saved = pairs.gather_rows, radial.gather_rows
+        self.saved = (pairs.gather_rows, radial.gather_rows,
+                      hbond.quadspline_coverage_nl,
+                      rotamer.quadspline_coverage_nl)
         pairs.gather_rows = radial.gather_rows = index_select_rows
+        hbond.quadspline_coverage_nl = rotamer.quadspline_coverage_nl = \
+            plain_list
 
     def __exit__(self, *exc):
-        from upside_md_torch.nodes import radial
+        from upside_md_torch.nodes import hbond, radial, rotamer
         from upside_md_torch.ops import pairs
-        pairs.gather_rows, radial.gather_rows = self.saved
+        (pairs.gather_rows, radial.gather_rows, hbond.quadspline_coverage_nl,
+         rotamer.quadspline_coverage_nl) = self.saved
 
 
 def ms_text(v):
@@ -2797,6 +2846,137 @@ def gfp_gather(dev, path, pos, launches_per_eval):
     torch.cuda.empty_cache()
     return (worst, (tot["ms"], tot["plain_ms"], tot["device_ms"]), b,
             tot["library_ms"], recs)
+
+
+def gfp_nlist_spline(dev, path, pos, launches_per_eval):
+    """[gather gfp] nlist_spline: the lists' pair spline on each of GFP's
+    three neighbour lists at `pos`.  The whole list call
+    (`quadspline_coverage_nl`: values, and the sites' gradients under a
+    seeded cotangent) against `plain=True`, the window-weight chain (rel
+    NLIST_TOL; the same partners kept); each kernel bitwise equal on a
+    second launch; each kernel's wrapper call timed (ms, device ms) on
+    copies of its operands in turn (`rotating`), beside the plain chain's
+    forward (under no_grad, the list's build included) and backward
+    (autograd through the chain, its rows' sums by `gather_rows_bwd`) and
+    the bound: the list's index, mask and values (forward; backward the
+    cotangent, the kept slots' column cotangents and the rows') moved
+    once, the sites and coefficients read once, OPS_VALUE operations a
+    live pair forward and OPS_BWD backward.  Returns {kernel: (max abs
+    err, (ms, plain ms, device ms), (bound ms, by))} for an evaluation's
+    three lists, and "records"."""
+    import torch
+    from upside_md_torch.ops import pairs
+    from upside_md_torch.ops.pairs import quadspline_family
+    system, _ = load_system(path, dev)
+    with torch.no_grad():
+        outs = system.evaluate(pos)[1]
+    sites = nl_sites(system, outs)
+    del outs
+    gen = torch.Generator(device=dev).manual_seed(17)
+    names = ("nlist_spline_fwd", "nlist_spline_bwd")
+    worst = dict.fromkeys(names, 0.0)
+    tot = {nm: dict.fromkeys(("ms", "plain_ms", "device_ms", "bytes",
+                              "ops"), 0.0) for nm in names}
+    recs = {}
+    for site in sites:
+        name, t1, t2, ps, table, x1, x2, K = site
+        one = x2 is x1
+        _, idx, kept = nl_call(site)
+        g = torch.randn(idx.shape, generator=gen, device=dev)
+        got, want = nl_call(site, cot=g), nl_call(site, plain=True, cot=g)
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[2],
+                                                             want[2])):
+            raise AssertionError(f"[gather gfp] nlist_spline {name}: the "
+                                 "kernels' list differs from the plain one")
+        err, d = rel_err(got[0], want[0])
+        check(f"[gather gfp] nlist_spline {name} values", err, NLIST_TOL)
+        worst["nlist_spline_fwd"] = max(worst["nlist_spline_fwd"], d)
+        for side, a, b in zip(("rows", "columns"), got[3:], want[3:]):
+            err, d = rel_err(a, b)
+            check(f"[gather gfp] nlist_spline {name} {side}' gradient", err,
+                  NLIST_TOL)
+            worst["nlist_spline_bwd"] = max(worst["nlist_spline_bwd"], d)
+        del got, want
+        tab = ps.table(table)
+        xs = (x1[..., :6].contiguous(),) if one else \
+            (x1[..., :6].contiguous(), x2[..., :6].contiguous())
+
+        def fwd(*a):
+            return pairs.nlist_spline_fwd(ps, tab, a[0], a[-3], *a[-2:])
+
+        def bwd(*a):
+            return pairs.nlist_spline_bwd(ps, tab, a[0], a[-4], *a[-3:])
+
+        repeatable(f"nlist_spline_fwd {name}", (fwd(*xs, idx, kept),),
+                   (fwd(*xs, idx, kept),))
+        # the slots' column cotangents are written where the mask holds
+        d1, dslot = bwd(*xs, idx, kept, g)
+        d1b, dslotb = bwd(*xs, idx, kept, g)
+        repeatable(f"nlist_spline_bwd {name}", (d1, dslot[kept]),
+                   (d1b, dslotb[kept]))
+        del d1, dslot, d1b, dslotb
+        with torch.no_grad():
+            B = idx.shape[0]
+            cols = torch.gather(xs[-1][..., :3], 1, idx.reshape(B, -1, 1)
+                                .expand(-1, -1, 3)).reshape(idx.shape + (3,))
+            dist = (cols - xs[0][:, :, None, :3]).norm(dim=-1)
+            live = int((kept & (dist * tab.inv_dx < tab.kcut)).sum())
+            del cols, dist
+        n_slots, n_kept = idx.numel(), int(kept.sum())
+        static = nbytes(*xs, tab.coef)
+        b_fwd = n_slots * 13 + static
+        b_bwd = n_slots * 13 + n_kept * 24 + nbytes(xs[0]) + static
+        ops = copies(b_fwd, *xs, idx, kept)
+        ms_f, dms_f = cuda_ms(rotating(fwd, ops)), device_ms(rotating(fwd,
+                                                                      ops))
+        ops = copies(b_bwd, *xs, idx, kept, g)
+        ms_b, dms_b = cuda_ms(rotating(bwd, ops)), device_ms(rotating(bwd,
+                                                                      ops))
+        del ops
+        plain_f = cuda_ms(lambda: nl_call(site, plain=True), reps=5)
+        leaves = [x.detach().requires_grad_(True) for x in xs]
+        sides = [(x[..., 0:3], x[..., 3:6]) for x in leaves]
+        ka, k, dx = quadspline_family(table.shape[-1])
+        with torch.enable_grad():
+            v = pairs.quadspline_coverage_nl_plain(
+                table, t1, t2, *sides[0], *sides[-1], ka, k, 1.0 / dx,
+                ps.mask.bool(), K)[0]
+        plain_b = cuda_ms(lambda: torch.autograd.grad(
+            v, leaves, g, retain_graph=True), reps=5)
+        del v, leaves, sides
+        rec = {"slots": n_slots, "kept": n_kept, "live": live}
+        for nm, row in (("nlist_spline_fwd", (ms_f, plain_f, dms_f, b_fwd,
+                                              OPS_VALUE * live)),
+                        ("nlist_spline_bwd", (ms_b, plain_b, dms_b, b_bwd,
+                                              OPS_BWD * live))):
+            b = bound(row[3], row[4])
+            rec[nm] = {"ms": row[0], "plain_ms": row[1],
+                       "device_ms": row[2], "bound_ms": b[0],
+                       "bound_by": b[1]}
+            for key, val in zip(("ms", "plain_ms", "device_ms", "bytes",
+                                 "ops"), row):
+                tot[nm][key] += val or 0
+            log(f"[gather gfp] nlist_spline {name} {nm[-3:]}: "
+                f"{n_slots} slots, {n_kept} kept, {live} live; kernel "
+                f"{row[0]:.4f} ms a call, device {ms_text(row[2])}, plain "
+                f"chain {row[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        recs[name] = rec
+        torch.cuda.empty_cache()
+    out = {}
+    for nm in names:
+        b = bound(tot[nm]["bytes"], tot[nm]["ops"])
+        out[nm] = (worst[nm], (tot[nm]["ms"], tot[nm]["plain_ms"],
+                               tot[nm]["device_ms"]), b)
+        log(f"[gather gfp] nlist_spline an evaluation's three lists at "
+            f"{pos.shape[0]} replicas, {nm}: kernel {tot[nm]['ms']:.4f} ms, "
+            f"device {tot[nm]['device_ms']:.4f} ms, plain chain "
+            f"{tot[nm]['plain_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); "
+            f"{launches_per_eval[nm]:.2f} launches an MD evaluation")
+    recs["launches_per_eval"] = launches_per_eval
+    out["records"] = recs
+    del sites, system
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5574,6 +5754,12 @@ def main():
     errs[nm], ms[nm], bounds[nm], library, large["gfp"]["gather"] = \
         gfp_gather(dev, gfp_path, last, launches_gfp[nm] / gfp_md["n_evals"])
     library_ms = {nm: library}
+    nl = gfp_nlist_spline(dev, gfp_path, last, {
+        nm: launches_gfp[nm] / gfp_md["n_evals"]
+        for nm in ("nlist_spline_fwd", "nlist_spline_bwd")})
+    large["gfp"]["nlist_spline"] = nl.pop("records")
+    for nm, (err, t, b) in nl.items():
+        errs[nm], ms[nm], bounds[nm] = err, t, b
     results["phases"]["large"] = large
 
     phase_done(8)

@@ -8,7 +8,10 @@ both are exact up to the order of the additions), on the trp-cage bundle:
 * on CPU tensors `table_cotangent` is its plain version and a table's
   gradient through the fused block (the training cell's three tables)
   launches no kernel; the table cotangent's kernel is in `KERNELS`, with
-  its C entry point in `csrc/table_cotangent.cu`;
+  its C entry point in `csrc/table_cotangent.cu`, and so are the
+  neighbour lists' two (`csrc/nlist_spline.cu`);
+* on CPU tensors, `plain` or not, `quadspline_coverage_nl` is its plain
+  version, values and gradients equal, and launches no kernel;
 * `env_table_cotangent` (the environment table's cotangent, summed by
   type with one-hot products) against its former autograd through the
   table gather (an accumulating `index_put_`): rel 1e-12;
@@ -36,6 +39,7 @@ from upside_md_torch import DATA_DIR
 from upside_md_torch.nodes import hbond, radial, steric
 from upside_md_torch.ops import fused_pair, kernels
 from upside_md_torch.ops.pairs import (quadspline_coverage_nl,
+                                      quadspline_coverage_nl_plain,
                                       quadspline_family, type_members)
 from upside_md_torch.ops.spline import bspline_window_weights
 from upside_md_torch.system import System
@@ -151,12 +155,47 @@ def test_table_gradient_on_cpu_tensors_launches_nothing(trp, node,
     assert torch.isfinite(grad).all() and grad.abs().max() > 0
 
 
-def test_table_cotangent_has_its_c_entry_point():
-    """`table_cotangent` is a name `kernels.launch` calls, declared
-    `extern "C" int table_cotangent(` in csrc/table_cotangent.cu."""
-    assert "table_cotangent" in kernels.KERNELS
-    with open(os.path.join(kernels.CSRC, "table_cotangent.cu")) as fh:
-        assert 'extern "C" int table_cotangent(' in fh.read()
+@pytest.mark.parametrize("name, source", [
+    ("table_cotangent", "table_cotangent.cu"),
+    ("nlist_spline_fwd", "nlist_spline.cu"),
+    ("nlist_spline_bwd", "nlist_spline.cu")])
+def test_table_cotangent_has_its_c_entry_point(name, source):
+    """Each of the kernels `kernels.launch` calls for the table cotangents
+    and the neighbour lists' pair spline is in `KERNELS`, declared
+    `extern "C" int <name>(` in its source."""
+    assert name in kernels.KERNELS
+    with open(os.path.join(kernels.CSRC, source)) as fh:
+        assert f'extern "C" int {name}(' in fh.read()
+
+
+def test_coverage_nl_on_cpu_tensors_launches_nothing(trp, monkeypatch):
+    """`quadspline_coverage_nl` on CPU tensors, `plain` or not, is its
+    plain version: values and the gradients of the sites and the table
+    equal to `quadspline_coverage_nl_plain`'s, at a neighbour width of 8
+    that some rows fill, and the kernels' launcher, patched to raise, is
+    never called."""
+    monkeypatch.setattr(kernels, "launch", _refuse_launch)
+    system, _, outs = trp
+    c, table, x1, x2 = _coverage_operands(system, outs, "hbond_coverage")
+    ka, k, dx = quadspline_family(table.shape[-1])
+    g = torch.randn(x1.shape[0], x1.shape[1], 8, dtype=x1.dtype,
+                    generator=torch.Generator().manual_seed(6))
+
+    def run(fn, **kw):
+        a = x1[..., :6].detach().requires_grad_(True)
+        b = x2[..., :6].detach().requires_grad_(True)
+        t = table.detach().requires_grad_(True)
+        cov, idx, mask = fn(t, c["type1"], c["type2"], a[..., :3],
+                            a[..., 3:], b[..., :3], b[..., 3:], ka, k,
+                            1.0 / dx, c["spline"].mask.bool(), 8, **kw)
+        return (cov, idx, mask) + torch.autograd.grad((cov * g).sum(),
+                                                      (a, b, t))
+
+    want = run(quadspline_coverage_nl_plain)
+    assert (want[2].sum(-1) == 8).any() and want[5].abs().max() > 0
+    for plain in (False, True):
+        got = run(quadspline_coverage_nl, plain=plain, spline=c["spline"])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_type_members():

@@ -45,6 +45,17 @@ pair band's strided grid read in place; bitwise repeatable; one launch a
 band of the fused block, none with `plain`; T4 lysozyme's table
 gradients through K4 and K5 (`quadspline._table_grad`) with kernels
 against `kernels=False` at rel 1e-3.
+The neighbour lists' pair spline (`nlist_spline_fwd`, `nlist_spline_bwd`,
+csrc/nlist_spline.cu, through `pairs.quadspline_coverage_nl`) against
+`plain=True` (the window-weight chain): values rel 1e-5, position and
+direction gradients and the table's gradient rel 1e-4 (Horner and the
+window weights round differently); in each of the five families at 1
+and 37 replicas with rows that overflow K (the same partners kept), on
+the rotamer grid's shape (one bead set both sides), and on GFP's three
+lists at their own shapes (rotamer grid 1,143 x 1,143, K 128; coverages
+464 and 714 x 1,143, K 96); bitwise repeatable; NaN/Inf in the cotangent
+at dead slots and out-of-range indices off the mask leaving the results
+unmoved bit for bit; a float64 CUDA input refused.
 """
 
 import dataclasses
@@ -987,13 +998,15 @@ def test_cold_k2_after_warm_matches_plain(cuda):
 @pytest.mark.parametrize("name, launched", [
     ("t4_lysozyme_full_synth",
      {"quadspline_fwd", "quadspline_bwd", "colsum_fwd", "colsum_bwd"}),
-    ("gfp_full_synth", {"gather_rows_bwd"})])
+    ("gfp_full_synth",
+     {"gather_rows_bwd", "nlist_spline_fwd", "nlist_spline_bwd"})])
 def test_large_systems_on_the_card_match_the_host(cuda, name, launched):
     """T4 lysozyme (164 residues, 770 beads) and GFP (238 residues, 1,143
     beads) evaluate on the card: past 128 residues BP is the plain port of
     `_bp_solve`, so K6 does not launch; T4 lysozyme's grid and coverages
-    are K5 and K4, GFP's are neighbour lists in plain PyTorch, so GFP
-    launches only the backward of their row gather (`gather_rows_bwd`).
+    are K5 and K4, GFP's are neighbour lists, so GFP launches the lists'
+    pair spline (`nlist_spline_fwd`, `nlist_spline_bwd`) and the fixed-order
+    sums of their column cotangents (`gather_rows_bwd`).
     Energy and forces of two replicas in float32 against the port on the
     CPU in float64, both at BP tol 1e-6: rel 1e-3, forces as RMS relative
     error."""
@@ -1223,3 +1236,177 @@ def test_unfused_table_gradient_matches_plain(cuda, node):
     assert kernels.LAUNCHES["table_cotangent"] == 1
     assert want.abs().max() > 0
     assert _rel(got, want) < 1e-3
+
+
+def nl_call(args, K, plain=False, table_grad=False, seed=7):
+    """`pairs.quadspline_coverage_nl` on `cotangent_case`'s operands with
+    a list width K, and its backward under a seeded cotangent: (values,
+    idx, mask, the gradients of x1 and x2 (one for one bead set), and the
+    table's when `table_grad`)."""
+    table, t1, t2, x1, x2, mask, _ = args
+    ka, k, dx = pairs.quadspline_family(table.shape[-1])
+    ps = qs.PairSpline(t1.cpu().numpy(), t2.cpu().numpy(),
+                       mask.cpu().numpy(), x1.device)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in ((x1,) if x2 is x1 else (x1, x2))]
+    # one (position, direction) pair for both sides of one bead set
+    sides = [(x[..., :3], x[..., 3:6]) for x in leaves]
+    rows, cols = sides[0], sides[-1]
+    tab = table.detach().clone().requires_grad_(table_grad)
+    v, idx, m = pairs.quadspline_coverage_nl(
+        tab, t1, t2, *rows, *cols, ka, k, 1.0 / dx, mask.bool(), K,
+        plain=plain, spline=ps)
+    gen = torch.Generator(device=v.device).manual_seed(seed)
+    g = torch.randn(v.shape, generator=gen, device=v.device)
+    wrt = leaves + ([tab] if table_grad else [])
+    return (v.detach(), idx, m) + torch.autograd.grad((v * g).sum(), wrt)
+
+
+def _nl_against_plain(args, K, table_grad=True):
+    """The kernels' call (twice: bitwise the same, one launch of each
+    kernel a call) against `plain=True`: the same partners, values rel
+    1e-5, gradients rel 1e-4.  Returns the kernels' results."""
+    from upside_md_torch.ops import kernels
+    before = [kernels.LAUNCHES[n] for n in ("nlist_spline_fwd",
+                                           "nlist_spline_bwd")]
+    got = _repeatable(lambda: nl_call(args, K, table_grad=table_grad))
+    assert [kernels.LAUNCHES[n] for n in ("nlist_spline_fwd",
+                                          "nlist_spline_bwd")] == \
+        [b + 2 for b in before]
+    want = nl_call(args, K, plain=True, table_grad=table_grad)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert not got[0][~got[2]].any()
+    assert got[0].count_nonzero() > 50
+    assert _rel(got[0], want[0]) < 1e-5
+    for a, b in zip(got[3:], want[3:]):
+        assert b.abs().max() > 0
+        assert _rel(a, b) < 1e-4
+    return got
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", COTANGENT_FAMILIES)
+@pytest.mark.parametrize("n_rep", [1, 37])
+def test_nlist_spline_matches_plain(cuda, M, n_rep):
+    """Each family at 1 and 37 replicas, at a list width of half the
+    largest partner count, which rows overflow (their farthest partners
+    dropped, as the plain list drops them), and at one that none does."""
+    args = cotangent_case(70 + M, M, n_rep=n_rep, device=cuda)
+    _, _, _, x1, x2, mask, _ = args
+    _, k, dx = pairs.quadspline_family(M)
+    most = int(pairs.partner_counts(x1[..., :3], x2[..., :3],
+                                    ((k - 2 - 1e-6) * dx) ** 2,
+                                    mask.bool()).max())
+    assert most >= 2
+    for K in (most // 2, most + 3):
+        _nl_against_plain(args, K)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [34, 62])
+def test_nlist_spline_one_bead_set(cuda, M):
+    """The rotamer grid's shape: one bead set x (B, n, 6) on both sides,
+    the mask upper-triangular across residues; autograd sums the rows' and
+    the columns' cotangents of x."""
+    _nl_against_plain(cotangent_case(80 + M, M, n_rep=4, device=cuda,
+                                     one_set=True), 12)
+
+
+def gfp_lists(device, n_rep=2):
+    """GFP's three neighbour lists' operands at perturbed positions, as
+    the nodes form them: [(site, (table, t1, t2, x1, x2, mask, None),
+    K)]; the rotamer grid's x1 is its x2."""
+    from upside_md_torch.nodes import hbond, rotamer
+    from upside_md_torch.system import System
+    system, pos = System.from_bundle(
+        os.path.join(DATA_DIR, "gfp_full_synth.npz"), device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = pos + 0.05 * torch.randn((n_rep,) + tuple(pos.shape),
+                                 generator=gen, device=device)
+    with torch.no_grad():
+        outs = system.evaluate(x)[1]
+    lists = []
+    for s in system.specs:
+        c = system.consts[s.name]
+        if s.node_type.name == "hbond_coverage":
+            x1 = outs[s.args[0]][:, c["index1"], :6].contiguous()
+            x2 = outs[s.args[1]][:, c["index2"], :6].contiguous()
+            lists.append((s.name, (system.params[s.name]["interaction_param"],
+                                   c["type1"], c["type2"], x1, x2,
+                                   c["spline"].mask, None),
+                          hbond.COVERAGE_NEIGHBOR_K))
+        elif s.node_type.name == "rotamer":
+            beads = outs[s.args[0]][:, c["index"], :6].contiguous()
+            lists.append((s.name, (system.params[s.name]["interaction_param"],
+                                   c["type"], c["type"], beads, beads,
+                                   c["spline"].mask, None),
+                          min(beads.shape[1], rotamer.NEIGHBOR_K)))
+    return lists
+
+
+@pytest.mark.requires_cuda
+def test_nlist_spline_on_gfp_lists(cuda):
+    """GFP's rotamer grid (1,143 x 1,143, K 128) and coverages (464 and
+    714 x 1,143, K 96) against `plain=True`, table gradients included."""
+    shapes = []
+    for _, args, K in gfp_lists(cuda):
+        _nl_against_plain(args, K)
+        shapes.append((args[3].shape[1], args[4].shape[1], K))
+    assert sorted(shapes) == [(464, 1143, 96), (714, 1143, 96),
+                              (1143, 1143, 128)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", COTANGENT_FAMILIES)
+def test_nlist_spline_nan_in_dead_slots(cuda, M):
+    """The kernels' wrappers on a built list: NaN and Inf in the cotangent
+    where the mask is off or the pair outside the cutoff, and indices far
+    out of range where the mask is off, leave the values, the rows'
+    cotangents and the kept slots' column cotangents unmoved, bit for
+    bit; dead slots' values are 0 and kept slots past the cutoff carry a
+    0 column cotangent."""
+    table, t1, t2, x1, x2, mask, _ = cotangent_case(90 + M, M, n_rep=5,
+                                                    device=cuda)
+    _, k, dx = pairs.quadspline_family(M)
+    ps = qs.PairSpline(t1.cpu().numpy(), t2.cpu().numpy(),
+                       mask.cpu().numpy(), cuda)
+    tab = ps.table(table)
+    # a list wider than the cutoff's: kept slots past it too
+    idx, kept = pairs.neighbor_list(x1[..., :3], x2[..., :3],
+                                    ((k + 2) * dx) ** 2, mask.bool(), 24)
+    with torch.no_grad():
+        cols = torch.gather(x2[..., :3], 1, idx.reshape(idx.shape[0], -1, 1)
+                            .expand(-1, -1, 3)).reshape(idx.shape + (3,))
+        dist = (cols - x1[:, :, None, :3]).norm(dim=-1)
+    live = kept & (dist * (1.0 / dx) < k - 2 - 1e-6)
+    assert live.any() and (kept & ~live).any() and (~kept).any()
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    g = torch.randn(idx.shape, generator=gen, device=cuda)
+    bad = torch.where(torch.rand(g.shape, device=cuda) < 0.5,
+                      torch.full_like(g, math.nan),
+                      torch.full_like(g, math.inf))
+    far = torch.full_like(idx, 1 << 40)
+    clean = pairs.nlist_spline_fwd(ps, tab, x1, x2, idx, kept)
+    assert not clean[~live].any() and clean[live].count_nonzero() > 0
+    d1, dslot = pairs.nlist_spline_bwd(ps, tab, x1, x2, idx, kept, g)
+    poisoned_idx = torch.where(kept, idx, far)
+    assert torch.equal(pairs.nlist_spline_fwd(ps, tab, x1, x2, poisoned_idx,
+                                              kept), clean)
+    p1, pslot = pairs.nlist_spline_bwd(ps, tab, x1, x2, poisoned_idx, kept,
+                                       torch.where(live, g, bad))
+    assert torch.isfinite(d1).all() and torch.equal(p1, d1)
+    assert torch.equal(pslot[kept], dslot[kept])
+    assert not dslot[kept & ~live].any()
+
+
+@pytest.mark.requires_cuda
+def test_nlist_spline_refuses_float64(cuda):
+    """A float64 CUDA call raises: the kernels take float32 and nothing
+    falls back; with `plain=True` it runs the plain version."""
+    args = cotangent_case(95, 34, device=cuda)
+    args64 = [t.double() if t is not None and t.is_floating_point() else t
+              for t in args]
+    with pytest.raises(ValueError):
+        nl_call(args64, 8)
+    v64 = nl_call(args64, 8, plain=True)[0]
+    assert _rel(v64, nl_call(args, 8, plain=True)[0]) < 1e-5

@@ -47,57 +47,12 @@
 #include "fused_pair.cuh"
 #include "pair_cull.cuh"
 
-struct SplineTerms {
-  float a1, da1, a2, da2, wide, dwide, nar, dnar;
-};
-
-// the four segments of one pair's spline and their derivatives
-__device__ __forceinline__ SplineTerms spline_terms(const float* cf,
-                                                    const PairGeom& g, int ka,
-                                                    int k, float sd) {
-  const int na = (ka - 3) * 4, nd = (k - 3) * 4;
-  const float inv_dth = (ka - 3) * 0.5f;
-  SplineTerms t;
-  poly_eval(cf, (g.cos1 + 1.0f) * inv_dth + 1.0f, ka, false, t.a1, t.da1);
-  poly_eval(cf + na, (g.cos2 + 1.0f) * inv_dth + 1.0f, ka, false, t.a2,
-            t.da2);
-  poly_eval(cf + 2 * na, sd, k, true, t.wide, t.dwide);
-  poly_eval(cf + 2 * na + nd, sd, k, true, t.nar, t.dnar);
-  return t;
-}
-
 // The row-tile walks of K4 and K5: every row's candidate test is the one
 // cutoff's.
 struct SplineRowThr {
   float cut2;
   __device__ float operator()(int) const { return cut2; }
 };
-
-// The cotangents of one live pair under pair cotangent gv, in the
-// reference derivative partition (bead_interaction.h:61-73): rc[0..6) of
-// its row site, cc[0..6) of its column site.
-__device__ __forceinline__ void spline_cotangents(const SplineTerms& t,
-                                                  const PairGeom& g,
-                                                  const float* xr,
-                                                  const float* xc, float gv,
-                                                  float inv_dx, int ka,
-                                                  float* rc, float* cc) {
-  const float inv_dth = (ka - 3) * 0.5f;
-  const float rad = gv * (t.dwide + t.a1 * t.a2 * t.dnar) * inv_dx;
-  const float c1 = gv * t.da1 * inv_dth * t.a2 * t.nar;
-  const float c2 = gv * t.da2 * inv_dth * t.a1 * t.nar;
-  const float f1 = c1 * g.inv, f2 = c2 * g.inv;
-  const float gx = rad * g.ux + f1 * (xr[3] - g.cos1 * g.ux)
-                   - f2 * (xc[3] + g.cos2 * g.ux);
-  const float gy = rad * g.uy + f1 * (xr[4] - g.cos1 * g.uy)
-                   - f2 * (xc[4] + g.cos2 * g.uy);
-  const float gz = rad * g.uz + f1 * (xr[5] - g.cos1 * g.uz)
-                   - f2 * (xc[5] + g.cos2 * g.uz);
-  rc[0] = -gx; rc[1] = -gy; rc[2] = -gz;
-  rc[3] = c1 * g.ux; rc[4] = c1 * g.uy; rc[5] = c1 * g.uz;
-  cc[0] = gx; cc[1] = gy; cc[2] = gz;
-  cc[3] = -(c2 * g.ux); cc[4] = -(c2 * g.uy); cc[5] = -(c2 * g.uz);
-}
 
 // What the walks' spline pairs share: the call site's statics and family.
 // They have no env rows and keep nothing of a live pair.

@@ -134,7 +134,8 @@ def coverage_nl(c, table, x1, x2, w1, plain=False, site="hbond_coverage"):
         cov, idx, mask = quadspline_coverage_nl(
             table, c["type1"], c["type2"], x1[..., 0:3], x1[..., 3:6],
             x2[..., 0:3], x2[..., 3:6], ka, k, 1.0 / dx,
-            c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K, plain=plain)
+            c["spline"].mask.bool(), COVERAGE_NEIGHBOR_K, plain=plain,
+            spline=c["spline"])
         return scatter_rows(w1[..., None] * cov, idx, mask,
                             x2.shape[1]).sum(1)
     return tracing.neighbour_list_span(site, compute)

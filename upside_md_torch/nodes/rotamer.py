@@ -114,7 +114,8 @@ def assemble_pair_grid(c, p, beads, plain=False, stacked=False):
         x, d = b[..., 0:3], b[..., 3:6]
         cov, idx, mask = quadspline_coverage_nl(
             table, c["type"], c["type"], x, d, x, d, ka, k, 1.0 / dx,
-            c["spline"].mask.bool(), min(n, NEIGHBOR_K), plain=plain)
+            c["spline"].mask.bool(), min(n, NEIGHBOR_K), plain=plain,
+            spline=c["spline"])
         return (scatter_rows(cov, idx, mask, n),
                 scatter_rows(mask.to(cov.dtype), idx, mask, n) > 0)
 

@@ -36,7 +36,8 @@ BUILD = os.path.join(PKG, "_build")
 KERNELS = ("fused_pair_fwd", "fused_pair_bwd", "fused_pair_bwd_recompute",
            "bp_bethe_pairs", "quadspline_fwd", "quadspline_bwd",
            "colsum_fwd", "colsum_bwd", "bp_bethe_planes",
-           "gather_rows_bwd", "table_cotangent")
+           "gather_rows_bwd", "table_cotangent", "nlist_spline_fwd",
+           "nlist_spline_bwd")
 # tile of the fused pair kernels (must match csrc/fused_pair.cuh)
 TILE_ROWS = 32
 TILE_COLS = 32

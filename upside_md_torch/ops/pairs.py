@@ -3,14 +3,17 @@ spline family of a table, the dense pair spline through K5, and the
 fixed-K neighbour list that the rotamer grid and the coverage nodes take
 above 1,024 beads or columns.
 
-The neighbour list is plain PyTorch, as the reference is XLA there: no
-Pallas body exists for it.  The backward of its row gather
-(`gather_rows`) is a kernel of the port's own, `gather_rows_bwd`
-(csrc/gather_rows.cu): a sum in a fixed order where `index_select`'s
-backward added with float atomics.  The nodes run each list inside
-`tracing.neighbour_list_span`; its build is spanned `nlist.build`.  Every
-array carries the replica axis first, (B, n1, K); tables and static masks
-are shared across replicas.
+The list's build (`neighbor_list`: distances and `topk`) is plain
+PyTorch, as the reference is XLA there.  The pair spline on a built list
+(`quadspline_coverage_nl`) is two kernels of the port's own on the card,
+`nlist_spline_fwd` and `nlist_spline_bwd` (csrc/nlist_spline.cu), with
+the plain version `quadspline_coverage_nl_plain` for CPU tensors and
+`plain=True`.  The backward of a list's row gather (`gather_rows`; also
+the kernels' column sums) is `gather_rows_bwd` (csrc/gather_rows.cu): a
+sum in a fixed order where `index_select`'s backward added with float
+atomics.  The nodes run each list inside `tracing.neighbour_list_span`;
+its build is spanned `nlist.build`.  Every array carries the replica axis
+first, (B, n1, K); tables and static masks are shared across replicas.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from .. import tracing
+from . import kernels
+from .fused_pair import table_cotangent
 from .spline import bspline_window_weights
 
 # score of a pair outside the mask or the cutoff (ops/pairs.py:75)
@@ -125,7 +130,6 @@ def gather_rows_bwd(g, order, starts, plain=False):
     n_rows = starts.shape[0] - 1
     if plain or g.device.type != "cuda":
         return gather_rows_bwd_plain(g, order, starts)
-    from . import kernels
     if (g.dtype, order.dtype, starts.dtype) != (torch.float32, torch.int64,
                                                 torch.int64):
         raise TypeError(f"gather_rows_bwd: float32 cotangents and int64 "
@@ -186,14 +190,125 @@ def _in_cutoff(pos1, pos2, cutoff2, base_mask):
 
 def quadspline_coverage_nl(p_table, t1, t2, pos1, dir1, pos2, dir2,
                            n_knot_angular, n_knot, inv_dx, base_mask, K,
-                           plain=False):
+                           plain=False, spline=None):
     """The pair spline on the neighbour list (ops/pairs.py:82-121): the
     values of the dense pair spline at each row's K nearest in-cutoff
     columns.  p_table (n_t1, n_t2, m) is shared; t1 (n1,), t2 (n2,) the
     row and column types; pos and dir (B, n, 3).  Returns (values (B, n1,
-    K), idx, mask) with 0 where the mask is off.  Differentiable in the
-    positions, directions and table by autograd, as the reference is; the
-    rows' backward takes its plain version when `plain`."""
+    K), idx, mask) with 0 where the mask is off or the pair outside the
+    cutoff.  Differentiable in the positions, directions and table.  On
+    CUDA tensors the kernels `nlist_spline_fwd` and `nlist_spline_bwd`
+    evaluate the list (float32 only); `spline` is the call site's
+    `quadspline.PairSpline` (its types and mask those given here), which
+    memoises the table's coefficients (built here when None).  On CPU
+    tensors, or when `plain`, the plain version
+    (`quadspline_coverage_nl_plain`)."""
+    args = (p_table, t1, t2, pos1, dir1, pos2, dir2, n_knot_angular, n_knot,
+            inv_dx, base_mask, K)
+    if plain or pos1.device.type != "cuda":
+        return quadspline_coverage_nl_plain(*args, plain=plain)
+    for t in (p_table, pos1, dir1, pos2, dir2):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError("quadspline_coverage_nl: the kernels take "
+                             "float32 CUDA tensors")
+    if spline is None:
+        from .quadspline import PairSpline
+        spline = PairSpline(t1.cpu().numpy(), t2.cpu().numpy(),
+                            base_mask.cpu().numpy(), pos1.device)
+    tab = spline.table(p_table)
+    if (tab.ka, tab.k, tab.inv_dx) != (n_knot_angular, n_knot, inv_dx):
+        raise ValueError(f"quadspline_coverage_nl: table of family "
+                         f"{(tab.ka, tab.k, 1.0 / tab.inv_dx)}, asked for "
+                         f"{(n_knot_angular, n_knot, 1.0 / inv_dx)}")
+    cutoff = (n_knot - 2 - 1e-6) / inv_dx
+    idx, mask = neighbor_list(pos1, pos2, cutoff * cutoff, base_mask, K)
+    x1 = torch.cat([pos1, dir1], -1)
+    # the rotamer grid: one bead set on both sides
+    x2 = x1 if pos2 is pos1 and dir2 is dir1 else torch.cat([pos2, dir2], -1)
+    return _NlistSpline.apply(x1, x2, p_table, idx, mask, spline, tab), \
+        idx, mask
+
+
+def _nl_operands(tab, x1, x2, idx, mask):
+    """The kernels' shape operands (B, n1, n2, width, n_t2, ka, k, inv_dx,
+    kcut), after checking the list's shapes and dtypes."""
+    B, n1, width = idx.shape
+    if tuple(x1.shape) != (B, n1, 6) or x2.shape[0] != B \
+            or x2.shape[2] != 6 or mask.shape != idx.shape \
+            or idx.dtype != torch.int64 or mask.dtype != torch.bool:
+        raise ValueError(f"nlist_spline: x1 {tuple(x1.shape)}, x2 "
+                         f"{tuple(x2.shape)}, idx {tuple(idx.shape)} "
+                         f"{idx.dtype}, mask {tuple(mask.shape)} "
+                         f"{mask.dtype}")
+    return (B, n1, x2.shape[1], width, tab.n_t2, tab.ka, tab.k, tab.inv_dx,
+            tab.kcut)
+
+
+def nlist_spline_fwd(ps, tab, x1, x2, idx, mask):
+    """The kernel `nlist_spline_fwd`: (B, n1, width) the pair values of the
+    list's slots, 0 where `mask` is off or the pair outside the cutoff.
+    ps: the call site's `quadspline.PairSpline`, tab its `SplineTable`;
+    x1 (B, n1, 6), x2 (B, n2, 6) float32 CUDA sites (one tensor for the
+    rotamer grid); idx (B, n1, width) int64, read only where mask (bool)
+    holds."""
+    shape = _nl_operands(tab, x1, x2, idx, mask)
+    out = x1.new_empty(idx.shape)
+    kernels.launch("nlist_spline_fwd", x1, x2, idx, mask, ps.t1, ps.t2,
+                   tab.coef, *shape, out)
+    return out
+
+
+def nlist_spline_bwd(ps, tab, x1, x2, idx, mask, g):
+    """The kernel `nlist_spline_bwd` from the slots' cotangent g (B, n1,
+    width), read only where the mask holds and the pair lies inside the
+    cutoff: (d1 (B, n1, 6), each row's cotangent summed over its slots in a
+    fixed order, dslot (B, n1, width, 6), each slot's column cotangent,
+    written only where the mask holds)."""
+    shape = _nl_operands(tab, x1, x2, idx, mask)
+    d1 = x1.new_empty(x1.shape)
+    dslot = x1.new_empty(idx.shape + (6,))
+    kernels.launch("nlist_spline_bwd", x1, x2, idx, mask, ps.t1, ps.t2,
+                   tab.coef, g.contiguous(), *shape, d1, dslot)
+    return d1, dslot
+
+
+class _NlistSpline(torch.autograd.Function):
+    """values = nlist_spline_fwd(x1, x2); the backward is nlist_spline_bwd,
+    its slots' column cotangents summed into the columns in a fixed order
+    (`row_segments`, `gather_rows_bwd`), and, when the table requires
+    grad, the table's cotangent (`fused_pair.table_cotangent` of the slots'
+    cotangent on the dense grid).  x1 and x2 may be one tensor: autograd
+    sums the two cotangents."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, table, idx, mask, ps, tab):
+        ctx.save_for_backward(x1, x2, table, idx, mask)
+        ctx.ps, ctx.tab = ps, tab
+        return nlist_spline_fwd(ps, tab, x1, x2, idx, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, table, idx, mask = ctx.saved_tensors
+        ps, (B, n2) = ctx.ps, x2.shape[:2]
+        d1, dslot = nlist_spline_bwd(ps, ctx.tab, x1, x2, idx, mask, g)
+        order, starts = row_segments(flat_rows(idx, n2), B * n2, mask)
+        d2 = gather_rows_bwd(dslot.reshape(-1, 6), order, starts)
+        dtab = None
+        if ctx.needs_input_grad[2]:
+            with tracing.span("cotangent.table"):
+                dtab = table_cotangent(table, ps.t1, ps.t2, x1, x2, ps.mask,
+                                       scatter_rows(g, idx, mask, n2))
+        return d1, d2.reshape(B, n2, 6), dtab, None, None, None, None
+
+
+def quadspline_coverage_nl_plain(p_table, t1, t2, pos1, dir1, pos2, dir2,
+                                 n_knot_angular, n_knot, inv_dx, base_mask,
+                                 K, plain=False):
+    """`quadspline_coverage_nl` in PyTorch, as the reference computes it:
+    the (B, n1, K, m) table block of the listed pairs, dense window
+    weights for each segment, and autograd for the positions', directions'
+    and table's cotangents; the rows' backward (`gather_rows`) takes its
+    plain version when `plain`."""
     ka, k = n_knot_angular, n_knot
     cutoff = (k - 2 - 1e-6) / inv_dx
     idx, mask = neighbor_list(pos1, pos2, cutoff * cutoff, base_mask, K)
